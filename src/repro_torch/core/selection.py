@@ -1,0 +1,162 @@
+"""Data selection (paper §V, Problem 4, Algorithms 4-5) + exact oracle.
+
+Counterpart of ``repro/core/selection.py`` (full-matrix gradient
+projection; the reference's device-chunked variant is not ported).
+
+1. Alg. 4: gradient projection on the continuous relaxation (36) with a
+   diminishing step; the projection (37) onto {0 <= d <= 1, sum_j d >= 1}
+   is a box clip, or a capped-simplex projection by 60-step bisection
+   when the clipped row sums below 1.
+2. Alg. 5: the LP (39) is solved exactly by thresholding at 1/2 and
+   selecting argmax_j of a row that would otherwise be empty.
+3. ``exact_selection``: global optimum by prefix means of the sorted
+   sigmas (beyond the paper).
+
+The 400-step loop issues device work only: its step sizes are host
+floats computed before the loop and nothing in it reads a device value
+back, so the CPU never waits for the GPU inside it.  The gradient of
+the selection objective is written out (the reference takes it with
+``jax.grad``); both compute the same expression.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .delta import EPSDIV
+from .types import SystemParams
+
+_BIG = 1e30
+BISECTION_STEPS = 60
+
+
+def project_feasible(z: torch.Tensor, mask: torch.Tensor,
+                     mask_is_ones: Optional[bool] = None) -> torch.Tensor:
+    """Projection (37), row by row. z, mask: (K, J).
+
+    ``mask_is_ones`` lets a caller that already knows the mask is all
+    ones skip the multiplications by it (x * 1.0 == x exactly).
+    """
+    if mask_is_ones is None:
+        mask_is_ones = bool(torch.all(mask == 1))
+
+    def masked(x):
+        return x if mask_is_ones else x * mask
+
+    clipped = masked(torch.clamp(z, 0.0, 1.0))
+    need_simplex = torch.sum(clipped, dim=1, keepdim=True) < 1.0
+    # find tau with sum(clip(z + tau, 0, 1) * mask) == 1 by bisection
+    n_valid = torch.clamp(torch.sum(mask, dim=1, keepdim=True), min=1.0)
+    z_max = torch.amax(torch.where(mask > 0, z, -_BIG), dim=1, keepdim=True)
+    z_min = torch.amin(torch.where(mask > 0, z, _BIG), dim=1, keepdim=True)
+    lo = torch.clamp(1.0 / n_valid - z_max, max=0.0) - 1.0
+    hi = torch.clamp(1.0 - z_min, min=0.0) + 1.0
+    for _ in range(BISECTION_STEPS):
+        mid = 0.5 * (lo + hi)
+        s = torch.sum(masked(torch.clamp(z + mid, 0.0, 1.0)), dim=1,
+                      keepdim=True)
+        below = s < 1.0
+        lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
+    tau = 0.5 * (lo + hi)
+    simplex = masked(torch.clamp(z + tau, 0.0, 1.0))
+    return torch.where(need_simplex, simplex, clipped)
+
+
+def selection_gradient(sys: SystemParams, d: torch.Tensor,
+                       sigma: torch.Tensor, mask: torch.Tensor,
+                       A: torch.Tensor) -> torch.Tensor:
+    """d/dd of ``delta.selection_only_objective(sys, d * mask, sigma)``.
+
+    f = lam * sum_k A_k num_k / max(den_k, eps) - (1-lam) sum_k q_k den_k
+    with num_k = sum_j dm_kj sigma_kj and den_k = sum_j dm_kj.
+    """
+    dm = d * mask
+    num = torch.sum(dm * sigma, dim=1)
+    den = torch.sum(dm, dim=1)
+    M = torch.clamp(den, min=EPSDIV)
+    gm = sys.lam * A
+    g_num = gm / M
+    g_den = (-gm * num) * M ** -2 * (den > EPSDIV)
+    g = sigma * g_num[:, None] + (g_den - (1.0 - sys.lam) * sys.q)[:, None]
+    return g * mask
+
+
+def gradient_projection(sys: SystemParams, sigma: torch.Tensor,
+                        mask: torch.Tensor, steps: int = 400,
+                        step0: float = 0.3) -> torch.Tensor:
+    """Algorithm 4: a stationary point delta† of (36) (continuous).
+
+    step0 picks which stationary point the diminishing-step GP lands at
+    (see the reference's docstring): ~0.3 gives the threshold-like
+    filter that drops high-sigma outliers.
+    """
+    A = sys.a_weights()
+    mask_is_ones = bool(torch.all(mask == 1))  # one host read, before the loop
+    # step_v = step0 / (1 + v)^0.6 in float32, as the reference's loop
+    # computes it; read once so the loop itself never syncs
+    rates = (step0 / (1.0 + torch.arange(steps, dtype=torch.float32))
+             ** 0.6).tolist()
+    d = 0.5 * mask
+    for step in rates:
+        g = selection_gradient(sys, d, sigma, mask, A)
+        g = torch.where(torch.isfinite(g), g, 0.0)
+        # per-device normalization keeps every device's subproblem
+        # moving at the same rate (A_k/m_k spans orders of magnitude)
+        norm = torch.amax(torch.abs(g), dim=1, keepdim=True)
+        g = g / torch.clamp(norm, min=1e-12)
+        d = project_feasible(d - step * g, mask, mask_is_ones)
+    return d
+
+
+def binary_recovery(delta_cont: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Exact solution of LP (39): threshold at 1/2 with >=1 repair."""
+    sel = (delta_cont > 0.5).to(torch.float32) * mask
+    none = torch.sum(sel, dim=1) < 1.0
+    best = torch.argmax(torch.where(mask > 0, delta_cont, -_BIG), dim=1)
+    repair = torch.nn.functional.one_hot(
+        best, delta_cont.shape[1]).to(torch.float32)
+    return torch.where(none[:, None], torch.maximum(sel, repair * mask), sel)
+
+
+def faithful_selection(sys: SystemParams, sigma: torch.Tensor,
+                       mask: torch.Tensor, steps: int = 400,
+                       step0: float = 0.3) -> torch.Tensor:
+    """Algorithms 4 + 5 end to end (the paper's data-selection solver)."""
+    return binary_recovery(gradient_projection(sys, sigma, mask, steps=steps,
+                                               step0=step0), mask)
+
+
+def exact_selection(sys: SystemParams, sigma: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Global optimum of Problem 4 in O(K J log J)."""
+    A = sys.a_weights()
+    big_sigma = torch.where(mask > 0, sigma, _BIG)
+    order = torch.argsort(big_sigma, dim=1, stable=True)
+    sorted_sigma = torch.take_along_dim(big_sigma, order, dim=1)
+    m = torch.arange(1, sigma.shape[1] + 1, dtype=torch.float32,
+                     device=sigma.device)
+    prefix_mean = torch.cumsum(
+        torch.where(sorted_sigma < _BIG, sorted_sigma, 0.0), dim=1) / m
+    valid = m[None, :] <= torch.sum(mask, dim=1, keepdim=True)
+    obj = (sys.lam * A[:, None] * prefix_mean
+           - (1.0 - sys.lam) * sys.q[:, None] * m[None, :])
+    obj = torch.where(valid, obj, _BIG)
+    best_m = torch.argmin(obj, dim=1) + 1  # (K,) optimal selection size
+    ranks = torch.argsort(order, dim=1, stable=True)
+    return (ranks < best_m[:, None]).to(torch.float32) * mask
+
+
+def solve_selection(sys: SystemParams, sigma: torch.Tensor,
+                    mask: torch.Tensor, method: str = "faithful",
+                    steps: int = 400, step0: float = 0.3
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(binary selection, continuous GP point or None for ``exact``)."""
+    if method == "faithful":
+        d_cont = gradient_projection(sys, sigma, mask, steps=steps,
+                                     step0=step0)
+        return binary_recovery(d_cont, mask), d_cont
+    if method == "exact":
+        return exact_selection(sys, sigma, mask), None
+    raise ValueError(f"unknown selection method: {method}")

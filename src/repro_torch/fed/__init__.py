@@ -1,0 +1,8 @@
+"""FEEL runtime of the port (counterpart of ``repro.fed``)."""
+from .client import batched_sigma, local_gradient, local_gradients, per_sample_sigma
+from .rounds import FEELConfig, FEELTrainer, RoundMetrics
+from .server import aggregate_gradients, ipw_mass, ipw_weights
+
+__all__ = ["batched_sigma", "local_gradient", "local_gradients",
+           "per_sample_sigma", "aggregate_gradients", "ipw_mass",
+           "ipw_weights", "FEELConfig", "FEELTrainer", "RoundMetrics"]

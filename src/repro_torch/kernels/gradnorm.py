@@ -1,0 +1,191 @@
+"""Per-sample gradient-norm scoring kernel (the sigma_{k,j} producer).
+
+Counterpart of ``repro/kernels/gradnorm.py``.  For a linear head
+logits = h W + b with cross-entropy loss the exact per-sample
+gradient-norm^2 of the head is
+
+    sigma_j = ||p_j - y_j||^2 * (||h_j||^2 + 1),
+
+two row-wise squared norms.  ``rownorm2`` and the fused
+``gradnorm_sigma`` launch the hand-written CUDA kernels of
+``csrc/gradnorm.cu`` (built for sm_90a with nvcc at first use and
+loaded with ctypes) on a CUDA tensor, and use the plain PyTorch
+versions beside them only for a tensor on the CPU.  Any other device,
+dtype, rank or layout raises: there is no silent fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "gradnorm.cu"
+#: where the shared library is built (listed in .gitignore).
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+#: kernel launches per entry point; bumped only where a kernel launches.
+LAUNCHES = {"rownorm2": 0, "gradnorm_sigma": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------- plain
+
+def rownorm2_plain(x: torch.Tensor) -> torch.Tensor:
+    """sum(x^2, axis=-1) in float32: the kernel's plain version."""
+    return (x.float() ** 2).sum(-1)
+
+
+def gradnorm_sigma_plain(h: torch.Tensor, dlogits: torch.Tensor) -> torch.Tensor:
+    """(||h||^2 + 1) * ||dlogits||^2 per row: the fused kernel's plain
+    version."""
+    return (rownorm2_plain(h) + 1.0) * rownorm2_plain(dlogits)
+
+
+# ---------------------------------------------------------------- build
+
+@dataclasses.dataclass
+class BuildInfo:
+    path: Path
+    seconds: float      # 0.0 when an up-to-date library was reused
+    log: str            # nvcc/ptxas output (register and spill report)
+
+
+_LIB: Optional[ctypes.CDLL] = None
+_BUILD: Optional[BuildInfo] = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the gradnorm "
+                           "kernel is built from source at first use")
+    return found
+
+
+def build() -> BuildInfo:
+    """Compile ``csrc/gradnorm.cu`` into ``BUILD_DIR`` unless a library
+    built from the same source and flags is already there."""
+    global _BUILD
+    if _BUILD is not None:
+        return _BUILD
+    key = hashlib.sha256(SOURCE.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"gradnorm-{key}.so"
+    if out.exists():
+        _BUILD = BuildInfo(out, 0.0, "")
+        return _BUILD
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                              capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a reader never sees a partial file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    _BUILD = BuildInfo(out, time.perf_counter() - t0,
+                       proc.stdout + proc.stderr)
+    return _BUILD
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build().path))
+        p = ctypes.c_void_p
+        lib.repro_rownorm2_f32.argtypes = [p, p, ctypes.c_int, ctypes.c_int, p]
+        lib.repro_rownorm2_f32.restype = ctypes.c_int
+        lib.repro_gradnorm_sigma_f32.argtypes = [
+            p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+        lib.repro_gradnorm_sigma_f32.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+# ------------------------------------------------------------- wrappers
+
+def _check(x: torch.Tensor, name: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: the gradnorm kernel takes CUDA tensors "
+                         f"(plain version: CPU tensors), got {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: the gradnorm kernel takes float32, "
+                        f"got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"{name}: expected a 2-D (rows, features) tensor, "
+                         f"got shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: the gradnorm kernel takes a contiguous "
+                         "tensor")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: too large for the kernel's int sizes")
+
+
+def _raise_on(status: int, name: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {status}")
+
+
+def rownorm2(x: torch.Tensor) -> torch.Tensor:
+    """sum(x^2, axis=-1) for x: (N, F) -> (N,) float32."""
+    if x.device.type == "cpu":
+        return rownorm2_plain(x)
+    _check(x, "x")
+    n, f = x.shape
+    out = torch.empty(n, dtype=torch.float32, device=x.device)
+    if n:
+        lib = _lib()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            _raise_on(lib.repro_rownorm2_f32(x.data_ptr(), out.data_ptr(),
+                                             n, f, stream), "rownorm2")
+        LAUNCHES["rownorm2"] += 1
+    return out
+
+
+def gradnorm_sigma(h: torch.Tensor, dlogits: torch.Tensor) -> torch.Tensor:
+    """sigma = (||h||^2 + 1) * ||dlogits||^2 per row, in one pass that
+    reads each row of h and of dlogits once."""
+    if h.device.type == "cpu" and dlogits.device.type == "cpu":
+        return gradnorm_sigma_plain(h, dlogits)
+    _check(h, "h")
+    _check(dlogits, "dlogits")
+    if h.device != dlogits.device or h.shape[0] != dlogits.shape[0]:
+        raise ValueError("h and dlogits must share a device and a row "
+                         f"count, got {h.device}{tuple(h.shape)} and "
+                         f"{dlogits.device}{tuple(dlogits.shape)}")
+    n, fh = h.shape
+    fd = dlogits.shape[1]
+    out = torch.empty(n, dtype=torch.float32, device=h.device)
+    if n:
+        lib = _lib()
+        with torch.cuda.device(h.device):
+            stream = torch.cuda.current_stream(h.device).cuda_stream
+            _raise_on(lib.repro_gradnorm_sigma_f32(
+                h.data_ptr(), dlogits.data_ptr(), out.data_ptr(), n, fh, fd,
+                stream), "gradnorm_sigma")
+        LAUNCHES["gradnorm_sigma"] += 1
+    return out

@@ -1,0 +1,10 @@
+"""Plain PyTorch oracles for the port's kernels (the allclose targets).
+
+Counterpart of ``repro/kernels/ref.py``.  The oracles are the plain
+versions kept beside each kernel in its own module; this module gives
+them the reference's names.
+"""
+from __future__ import annotations
+
+from .gradnorm import gradnorm_sigma_plain as gradnorm_sigma_ref  # noqa: F401
+from .gradnorm import rownorm2_plain as rownorm2_ref  # noqa: F401
