@@ -16,7 +16,7 @@ exit) if anything in it fails; no failure is caught:
    exists, and the least time the card could take (bytes or flops);
 4. main path: 3 rounds of the paper's §VI-A setup (K=10, N=5, Q=2,
    D̂=200, 28x28 images, faithful selection with 400 GP steps) through
-   ``FEELTrainer.run_round`` with ``sigma_method="last_layer_kernel"``;
+   ``FEELTrainer.run_round``, which scores sigma through the kernel;
    launch counts are zeroed just before and read just after;
 5. replay: round 0 again with the port on the CPU, held against the
    card's round 0;
@@ -173,8 +173,7 @@ def make_data(rt):
 
 
 def make_trainer(rt, torch, data, state_dict, device):
-    cfg = rt.fed.FEELConfig(d_hat=D_HAT, sigma_method="last_layer_kernel",
-                            gp_steps=GP_STEPS, lr=LR)
+    cfg = rt.fed.FEELConfig(d_hat=D_HAT, gp_steps=GP_STEPS, lr=LR)
     model = rt.models.cnn.CNN(rt.models.cnn.CNNConfig(side=SIDE))
     model.load_state_dict(state_dict)
     sys_ = rt.core.default_system(K=K, N=N, Q=Q, D_hat=D_HAT, device=device)
@@ -290,7 +289,7 @@ def main() -> None:
         generator=torch.Generator().manual_seed(0)).state_dict()
     tr = make_trainer(rt, torch, data, init_sd, "cuda")
     print(f"main path: K={K} N={N} Q={Q} d_hat={D_HAT} side={SIDE} "
-          f"sigma=last_layer_kernel gp_steps={GP_STEPS}, setup "
+          f"gp_steps={GP_STEPS}, setup "
           f"{time.perf_counter() - t0:.2f} s")
     gradnorm.reset_launch_counts()
     gpu0 = None

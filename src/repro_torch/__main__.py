@@ -3,7 +3,7 @@
 Counterpart of ``examples/feel_e2e.py``'s core flags: the §VI-A CNN on
 the synthetic MNIST-like set with mislabels, K=10 devices (one class
 each), N=5 RBs, Q=2, the proposed scheme, with sigma scored by the CUDA
-row-norm kernel (``sigma_method="last_layer_kernel"``).
+row-norm kernel (the reference's ``sigma_method="last_layer_kernel"``).
 
     PYTHONPATH=src python -m repro_torch --rounds 150            # GPU
     PYTHONPATH=src python -m repro_torch --rounds 2 --d-hat 12 --side 10 --device cpu
@@ -40,8 +40,7 @@ def main(argv: Optional[List[str]] = None) -> List[RoundMetrics]:
     data = non_iid_split(train, test, K=10, per_device=600,
                          mislabel_prop=args.mislabel, seed=0)
     sys_ = default_system(K=10, N=5, Q=2, D_hat=args.d_hat, device=device)
-    cfg = FEELConfig(d_hat=args.d_hat, selection_method=args.selection,
-                     sigma_method="last_layer_kernel", eval_every=10)
+    cfg = FEELConfig(d_hat=args.d_hat, selection_method=args.selection)
     model = cnn.CNN(cnn.CNNConfig(side=args.side),
                     generator=torch.Generator().manual_seed(cfg.seed))
     metrics = FEELTrainer(sys_, data, model, cfg).run(args.rounds,

@@ -61,14 +61,12 @@ def _finish(sys: SystemParams, rho: np.ndarray, p: torch.Tensor,
 
 def proposed_scheme(sys: SystemParams, state: RoundState,
                     selection_method: str = "faithful",
-                    gp_steps: int = 400, gp_step0: float = 0.3,
-                    matching_mode: str = "auto") -> RoundDecision:
+                    gp_steps: int = 400) -> RoundDecision:
     """Algorithm 1 (the paper's proposed scheme)."""
-    match = matching_mod.swap_matching(sys, state.h, state.alpha,
-                                       mode=matching_mode)
+    match = matching_mod.swap_matching(sys, state.h, state.alpha)
     delta, d_cont = selection_mod.solve_selection(
         sys, state.sigma, state.sigma_mask, method=selection_method,
-        steps=gp_steps, step0=gp_step0)
+        steps=gp_steps)
     return _finish(sys, match.rho, match.p, delta, state,
                    feasible=match.feasible, swaps=match.swaps,
                    unmatched=match.unmatched, delta_cont=d_cont)

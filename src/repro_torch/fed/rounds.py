@@ -4,7 +4,9 @@ Counterpart of ``repro/fed/rounds.py``, plain path (proposed scheme,
 FedSGD, Adam).  Each round:
 
   1. every device samples |D̂_k| local samples and scores them
-     (sigma_{k,j} = per-sample gradient-norm^2);
+     (sigma_{k,j} = per-sample gradient-norm^2 of the output layer, the
+     reference's ``sigma_method="last_layer_kernel"``: one fused
+     all-device pass through the CUDA row-norm kernel);
   2. channel gains h_{k,n} and availability alpha_k are drawn;
   3. the server runs Algorithm 1 to fix (rho*, p*, delta*) and is
      billed the net cost (eq. 18);
@@ -50,15 +52,9 @@ ChannelSource = Callable[[int], Tuple[np.ndarray, np.ndarray]]
 @dataclasses.dataclass
 class FEELConfig:
     selection_method: str = "faithful"  # faithful (Alg 4+5) | exact
-    # last_layer (plain ops) | last_layer_kernel (one fused all-device
-    # pass through the CUDA row-norm kernel)
-    sigma_method: str = "last_layer"
-    # swap-matching sweep: auto | scalar | batched
-    matching_mode: str = "auto"
     lr: float = 1e-3
     d_hat: int = 200
     gp_steps: int = 400
-    gp_step0: float = 0.3
     eval_every: int = 10
     seed: int = 0
 
@@ -86,8 +82,6 @@ class FEELTrainer:
     def __init__(self, sys: SystemParams, data: FederatedDataset,
                  model: cnn_mod.CNN, cfg: FEELConfig,
                  channel_source: Optional[ChannelSource] = None):
-        if cfg.sigma_method not in ("last_layer", "last_layer_kernel"):
-            raise ValueError(f"unknown sigma method: {cfg.sigma_method!r}")
         self.sys = sys
         self.device = sys.device
         self.data = data
@@ -150,12 +144,7 @@ class FEELTrainer:
         with self._stage(st, "data"):
             images, labels, true = self._gather_round_batches()
         with self._stage(st, "sigma"):
-            if cfg.sigma_method == "last_layer_kernel":
-                sigma = client_mod.batched_sigma(self.model, images, labels)
-            else:
-                sigma = client_mod.per_sample_sigma(
-                    self.model, images.flatten(0, 1),
-                    labels.flatten()).reshape(labels.shape)
+            sigma = client_mod.batched_sigma(self.model, images, labels)
         h, alpha = self._channel(i)
         state = RoundState(h=h, alpha=alpha, sigma=sigma,
                            sigma_mask=torch.ones_like(sigma))
@@ -163,8 +152,7 @@ class FEELTrainer:
         with self._stage(st, "decision"):
             dec = joint_mod.proposed_scheme(
                 sys, state, selection_method=cfg.selection_method,
-                gp_steps=cfg.gp_steps, gp_step0=cfg.gp_step0,
-                matching_mode=cfg.matching_mode)
+                gp_steps=cfg.gp_steps)
         delta = dec.delta
         matched = torch.as_tensor(dec.rho.sum(axis=1) > 0,
                                   dtype=torch.float32, device=self.device)

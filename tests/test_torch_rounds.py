@@ -96,8 +96,7 @@ def test_three_rounds_match_reference(monkeypatch):
     model.load_state_dict(cnn.params_from_numpy(_np_tree(params0)))
     tr = FEELTrainer(default_system(K=K, N=N, Q=Q, D_hat=D_HAT, device="cpu"),
                      _data(SyntheticImages, non_iid_split), model,
-                     FEELConfig(d_hat=D_HAT, sigma_method="last_layer_kernel",
-                                lr=LR),
+                     FEELConfig(d_hat=D_HAT, lr=LR),
                      channel_source=lambda i: (rec[i]["h"], rec[i]["alpha"]))
     gradnorm.reset_launch_counts()
     noise_entries = 0
