@@ -8,24 +8,36 @@ and the CUDA toolkit.  Phases, each of which fails the run (non-zero
 exit) if anything in it fails; no failure is caught:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: ``kernels/csrc/gradnorm.cu`` compiled with nvcc for sm_90a;
+2. build: ``kernels/csrc/gradnorm.cu`` and ``kernels/csrc/flash_attention.cu``
+   compiled with nvcc for sm_90a, one nvcc each, started together;
 3. kernels: each CUDA entry point against its plain PyTorch version on
-   the card, at the test shapes and at the main path's shapes, with
+   the card, at the test shapes and at the main paths' shapes, with
    device times (CUDA events over a CUDA graph of back-to-back calls),
    the plain version's time, a one-call PyTorch equivalent where one
-   exists, and the least time the card could take (bytes or flops);
-4. main path: 3 rounds of the paper's §VI-A setup (K=10, N=5, Q=2,
+   exists (for flash attention ``scaled_dot_product_attention``, which
+   nothing in the port calls), and the least time the card could take
+   (bytes or operations);
+4. FEEL path: 3 rounds of the paper's §VI-A setup (K=10, N=5, Q=2,
    D̂=200, 28x28 images, faithful selection with 400 GP steps) through
    ``FEELTrainer.run_round``, which scores sigma through the kernel;
-   launch counts are zeroed just before and read just after;
 5. replay: round 0 again with the port on the CPU, held against the
    card's round 0;
 6. where the time goes: the decision stage split into matching and
-   selection, and one more round under ``torch.profiler``.
+   selection, and one more round under ``torch.profiler``;
+7. serving path: ``repro_torch.launch.serve.serve`` on llama3.2-3b at
+   full width and depth (28 layers, random weights from a seed), batch
+   4, prompt length 2048, 32 greedy tokens; prefill attention goes
+   through the flash kernel, 28 launches per prefill and none in decode;
+   then one prefill and one decode step under ``torch.profiler``;
+8. LLM replay: llama3.2-3b at full width cut to 2 layers, in fp32 with
+   TF32 off, the same weights on the card and on the CPU: prefill
+   logits of a 256-token prompt and 8 greedy steps.
 
-It prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
-"device": ...}`` line.  Without a GPU, or without the repository's
-``src/repro_torch`` beside it, it exits non-zero before printing either.
+Launch counts are zeroed just before each path (4 and 7) and read just
+after.  It prints one ``{"kernels": [...]}`` line and, last, the
+``{"ok": true, "device": ...}`` line.  Without a GPU, or without the
+repository's ``src/repro_torch`` beside it, it exits non-zero before
+printing either.
 """
 from __future__ import annotations
 
@@ -33,14 +45,16 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# card peaks used for the bounds (H100 SXM data sheet, 700 W): HBM rate and
-# float32 rate outside the tensor cores
+# card peaks used for the bounds (H100 SXM data sheet, 700 W): HBM rate,
+# float32 rate outside the tensor cores, dense bf16 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 KERNEL_RTOL = 1e-5       # kernel vs plain, float32 sums in another order
 TEST_SHAPES = [(10, 50), (300, 700), (8, 4096), (1000, 130)]
@@ -49,6 +63,15 @@ SELECTION_BAND = 1e-3    # |delta† - 1/2| below this: a tie for Alg. 5
 SIGMA_RTOL = 1e-4        # card vs CPU sigma (other conv algorithms)
 NET_COST_RTOL = 1e-5
 NOISE = 1e-6             # Adam first moment at float32 noise (see tests)
+
+# flash attention: the reference's kernel tests' shapes and tolerances
+# (tests/test_kernels.py), and the serving path's shape
+FLASH_TEST_SHAPES = [(4, 128, 64), (2, 200, 32), (3, 513, 128), (1, 64, 256)]
+FLASH_SLICE = (4, 24, 2048, 128)   # llama3.2-3b prefill: B, H, S, Dh
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ARCH, SERVE_BATCH, PROMPT, NEW_TOKENS = "llama3.2-3b", 4, 2048, 32
+REPLAY_LAYERS, REPLAY_PROMPT, REPLAY_STEPS = 2, 256, 8
+LOGITS_RTOL = 1e-4       # card vs CPU prefill logits, fp32 with TF32 off
 
 
 def die(msg: str) -> None:
@@ -102,9 +125,10 @@ def call_ms(torch, fn, reps: int = 200) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound(n_bytes: float, flops: float,
+          peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -123,7 +147,7 @@ def phase_kernels(torch, gradnorm):
         return torch.randn(*shape, generator=gen, device="cuda")
 
     rows = K * D_HAT
-    main_sigma = None
+    main_sigma = main_norm = None
     for n, f in TEST_SHAPES + [(rows, 84), (rows, 10)]:
         x = randn(n, f)
         got, want = gradnorm.rownorm2(x), gradnorm.rownorm2_plain(x)
@@ -131,15 +155,23 @@ def phase_kernels(torch, gradnorm):
         rel = max_rel(got, want)
         check(rel <= KERNEL_RTOL, f"rownorm2 {(n, f)}: rel err {rel:.3g}")
         b_ms, b_by = bound(4.0 * (n * f + n), 2.0 * n * f)
+        rec = {"max_abs_err": float((got - want).abs().max()),
+               "ms": device_ms(torch, lambda: gradnorm.rownorm2(x)),
+               "plain_ms": device_ms(torch,
+                                     lambda: gradnorm.rownorm2_plain(x)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": device_ms(torch,
+                                       lambda: torch.linalg.vecdot(x, x))}
         print(f"rownorm2 ({n}, {f}): max_abs_err "
-              f"{float((got - want).abs().max()):.3g} max_rel_err {rel:.3g} | "
-              f"device ms: kernel "
-              f"{device_ms(torch, lambda: gradnorm.rownorm2(x)):.6f} plain "
-              f"{device_ms(torch, lambda: gradnorm.rownorm2_plain(x)):.6f} "
+              f"{rec['max_abs_err']:.3g} max_rel_err {rel:.3g} | "
+              f"device ms: kernel {rec['ms']:.6f} plain "
+              f"{rec['plain_ms']:.6f} "
               f"vector_norm^2 {device_ms(torch, lambda: torch.linalg.vector_norm(x, dim=-1).square()):.6f} "
-              f"vecdot {device_ms(torch, lambda: torch.linalg.vecdot(x, x)):.6f} "
+              f"vecdot {rec['library_ms']:.6f} "
               f"bound {b_ms:.6f} ({b_by}) | eager call ms: kernel "
               f"{call_ms(torch, lambda: gradnorm.rownorm2(x)):.6f}")
+        if (n, f) == (rows, 84):
+            main_norm = rec
 
     for n, f in TEST_SHAPES + [(rows, 84)]:
         h, d = randn(n, f), randn(n, 10)
@@ -162,7 +194,80 @@ def phase_kernels(torch, gradnorm):
               f"plain {call_ms(torch, lambda: gradnorm.gradnorm_sigma_plain(h, d)):.6f}")
         if n == rows:
             main_sigma = rec
-    return main_sigma
+    return main_norm, main_sigma
+
+
+def flash_bound(bh: int, s: int, d: int, causal: bool, itemsize: int
+                ) -> tuple[float, str]:
+    """Operations: 2 flops per multiply-add of q k^T and of p v over the
+    (query, key) pairs the mask keeps; bytes: q, k, v read and o written
+    once.  The peak is that of the input type: the dense bf16 tensor
+    cores for bf16, the CUDA cores' float32 rate for float32."""
+    pairs = s * (s + 1) / 2 if causal else s * s
+    flops = 4.0 * bh * d * pairs
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+    return bound(4.0 * bh * s * d * itemsize, flops, peak)
+
+
+def phase_flash(torch, fa, ops):
+    """The flash kernel against its plain version at the test shapes and
+    at the serving shape; returns the record of the serving shape."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    F = torch.nn.functional
+    cases = [((bh, s, d), dt, True, False) for bh, s, d in FLASH_TEST_SHAPES
+             for dt in ("float32", "bfloat16")]
+    cases += [((2, 96, 64), "float32", False, False),    # non-causal
+              ((2, 130, 3, 32), "float32", True, True),  # (B, S, H, d) fold
+              (FLASH_SLICE, "bfloat16", True, False)]
+    slice_rec = None
+    for shape, dt, causal, bhsd in cases:
+        dtype = getattr(torch, dt)
+        if bhsd:                      # q, k, v: (B, S, H, d)
+            b, s, h, d = shape
+        elif len(shape) == 4:         # (B, H, S, d), folded to (B*H, S, d)
+            b, h, s, d = shape
+        else:
+            (bh, s, d), b = shape, 1
+            h = bh
+        qkv = [torch.randn((b * h, s, d), generator=gen, device="cuda"
+                           ).to(dtype) for _ in range(3)]
+        q, k, v = qkv
+        if bhsd:
+            qs = [x.reshape(b, h, s, d).movedim(1, 2) for x in qkv]
+            got = ops.flash_attention_bhsd(*qs, causal=causal)
+            got = got.movedim(2, 1).reshape(b * h, s, d)
+        else:
+            got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dt]
+        check(bool(torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol)),
+              f"flash_attention {shape} {dt} causal={causal}: max abs err "
+              f"{err:.3g} above {tol}")
+        big = s >= 1024
+        calls, replays = (5, 3) if big else (50, 5)
+        q4, k4, v4 = (x.view(b, h, s, d) for x in qkv)
+        b_ms, b_by = flash_bound(b * h, s, d, causal, q.element_size())
+        rec = {"max_abs_err": err,
+               "ms": device_ms(torch, lambda: fa.flash_attention(
+                   q, k, v, causal=causal), calls, replays),
+               "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(
+                   q, k, v, causal=causal), calls, replays),
+               "library_ms": device_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       q4, k4, v4, is_causal=causal), calls, replays),
+               "bound_ms": b_ms, "bound_by": b_by}
+        print(f"flash_attention {'bhsd ' if bhsd else ''}{shape} {dt} "
+              f"causal={causal}: max_abs_err {err:.3g} (tol {tol}) | device "
+              f"ms: kernel {rec['ms']:.6f} plain {rec['plain_ms']:.6f} sdpa "
+              f"{rec['library_ms']:.6f} bound {b_ms:.6f} ({b_by}) | kernel/"
+              f"bound {rec['ms'] / b_ms:.1f}x kernel/sdpa "
+              f"{rec['ms'] / rec['library_ms']:.1f}x")
+        if shape == FLASH_SLICE:
+            slice_rec = rec
+    return slice_rec
 
 
 def make_data(rt):
@@ -245,6 +350,138 @@ def profile_round(torch, tr, i):
           + f"; gradnorm kernels seen: {kernels}")
 
 
+def phase_serve(torch, serve_mod, fa, gradnorm):
+    """The serving path at full width: one warm-up request (cuBLAS and
+    kernel-module loading happen at first use), then the measured one
+    with the launch counts zeroed just before and read just after."""
+    warm = serve_mod.serve(ARCH, batch=SERVE_BATCH, prompt_len=PROMPT,
+                           new_tokens=2, smoke=False, seed=0, device="cuda")
+    print(f"serve warm-up: prefill {warm.prefill_s:.6f} s, decode steps "
+          f"{[round(t * 1e3, 3) for t in warm.decode_s]} ms")
+    del warm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gradnorm.reset_launch_counts()
+    fa.reset_launch_counts()
+    res = serve_mod.serve(ARCH, batch=SERVE_BATCH, prompt_len=PROMPT,
+                          new_tokens=NEW_TOKENS, smoke=False, seed=0,
+                          device="cuda")
+    launches = {**gradnorm.LAUNCHES, **fa.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    check(res.launches == {"prefill": 28, "decode": 0},
+          f"flash_attention launches per phase {res.launches}, expected 28 "
+          "in prefill (one per layer) and 0 in decode")
+    check(launches == {"rownorm2": 0, "gradnorm_sigma": 0,
+                       "flash_attention": 28},
+          f"launches on the serving path {launches}")
+    check(tuple(res.tokens.shape) == (SERVE_BATCH, NEW_TOKENS + 1),
+          f"tokens shape {tuple(res.tokens.shape)}")
+    check(bool(((res.tokens >= 0) & (res.tokens < 128256)).all()),
+          "tokens out of the vocabulary")
+    steps = sorted(res.decode_s)
+    print(f"serve {ARCH} full width: params {res.n_params:,}, batch "
+          f"{SERVE_BATCH}, prompt {PROMPT}, {NEW_TOKENS} new tokens | "
+          f"prefill {res.prefill_s:.6f} s "
+          f"({SERVE_BATCH * PROMPT / res.prefill_s:.1f} tok/s) | decode "
+          f"ms/step mean {1e3 * sum(steps) / len(steps):.3f} median "
+          f"{1e3 * steps[len(steps) // 2]:.3f} min {1e3 * steps[0]:.3f} "
+          f"max {1e3 * steps[-1]:.3f} first {1e3 * res.decode_s[0]:.3f} | "
+          f"peak memory {peak / 2**30:.3f} GiB | launches {launches} "
+          f"per phase {res.launches}")
+    print(f"serve tokens of sequence 0: {res.tokens[0].tolist()}")
+    return launches
+
+
+def phase_serve_profile(torch, tm, get_config):
+    """Where the serving time goes: one prefill and one decode step of
+    the serving configuration under ``torch.profiler`` (after a warm-up
+    of each): device operations, device busy time against wall time,
+    and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = tm.init_model(cfg, gen, "cuda")
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, PROMPT),
+                            generator=gen, device="cuda")
+    prefill, decode = tm.make_prefill_step(cfg), tm.make_decode_step(cfg)
+    cache = tm.make_cache(cfg, SERVE_BATCH, PROMPT + 2, device="cuda")
+
+    def step(name, fn):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        by_name = {}
+        for e in dev:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"{name} under the profiler: {len(dev)} device operations, "
+              f"device busy {busy:.3f} ms of wall {wall:.3f} ms, device idle "
+              f"share {1 - busy / wall:.4f}; top device time: "
+              + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in top))
+
+    step("prefill", lambda: prefill(model, {"tokens": prompts}, cache))
+    tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.long, device="cuda")
+    step("decode step", lambda: decode(model, cache, {
+        "tokens": tok, "cache_index": PROMPT}))
+
+
+def phase_llm_replay(torch, tm, get_config, full_fp32):
+    """llama3.2-3b at full width, depth cut to 2 layers, fp32 with TF32
+    off: the same weights and prompt on the CPU and on the card."""
+    cfg = get_config(ARCH).scaled(n_layers=REPLAY_LAYERS, dtype="float32")
+    model = tm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = torch.randint(0, cfg.vocab, (1, REPLAY_PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    prefill, decode = tm.make_prefill_step(cfg), tm.make_decode_step(cfg)
+
+    def run(device):
+        t0 = time.perf_counter()
+        with full_fp32():
+            cache = tm.make_cache(cfg, 1, REPLAY_PROMPT + REPLAY_STEPS,
+                                  device=device)
+            logits, cache = prefill(model, {"tokens": prompt.to(device)},
+                                    cache)
+            first = logits.cpu()
+            tok = torch.argmax(logits[:, -1], -1)
+            toks, steps = [int(tok)], []
+            for i in range(REPLAY_STEPS):
+                logits, cache = decode(model, cache, {
+                    "tokens": tok[:, None],
+                    "cache_index": REPLAY_PROMPT + i})
+                steps.append(logits.cpu())
+                tok = torch.argmax(logits[:, -1], -1)
+                toks.append(int(tok))
+        return first, toks, steps, time.perf_counter() - t0
+
+    cpu = run("cpu")
+    model.to("cuda")
+    gpu = run("cuda")
+    ref = cpu[0]
+    atol = LOGITS_RTOL * float(ref.abs().max())
+    err = float((gpu[0] - ref).abs().max())
+    check(bool(torch.allclose(gpu[0], ref, rtol=LOGITS_RTOL, atol=atol)),
+          f"LLM replay: prefill logits differ by {err:.3g} (rtol "
+          f"{LOGITS_RTOL}, atol {atol:.3g})")
+    check(gpu[1] == cpu[1], f"LLM replay: greedy tokens differ: card "
+          f"{gpu[1]} cpu {cpu[1]}")
+    step_err = max(float((g - c).abs().max()) for g, c in zip(gpu[2], cpu[2]))
+    print(f"LLM replay ({ARCH} full width, {REPLAY_LAYERS} layers, fp32, TF32 "
+          f"off, prompt {REPLAY_PROMPT}, {REPLAY_STEPS} greedy steps): "
+          f"prefill logits max abs err {err:.3g} (max |logit| "
+          f"{float(ref.abs().max()):.3g}), decode logits max abs err "
+          f"{step_err:.3g}, tokens equal {gpu[1]}; cpu {cpu[3]:.2f} s, card "
+          f"{gpu[3]:.2f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -258,8 +495,20 @@ def main() -> None:
     import repro_torch.data  # noqa: F401
     import repro_torch.fed  # noqa: F401
     import repro_torch.models  # noqa: F401
+    from repro_torch.configs import get_config
     from repro_torch.core import matching, selection
-    from repro_torch.kernels import gradnorm
+    from repro_torch.device import full_fp32
+    from repro_torch.kernels import flash_attention, gradnorm, ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as tm
+
+    t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def done(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - t_phase[0]:.2f} s")
+        t_phase[0] = now
 
     # -- 1. environment -------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -270,28 +519,35 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls must run in full float32")
+    done("1 environment")
 
-    # -- 2. build -------------------------------------------------------
-    info = gradnorm.build()
-    print(f"build: {info.path.name} in {info.seconds:.2f} s")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    # -- 2. build: one nvcc per source, started together -----------------
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = [pool.submit(m.build) for m in (gradnorm, flash_attention)]
+        infos = [f.result() for f in futures]
+    for info in infos:
+        print(f"build: {info.path.name} in {info.seconds:.2f} s")
+        for line in info.log.splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line or "smem" in line:
+                print(f"  ptxas: {line.strip()}")
+    done("2 build")
 
     # -- 3. kernels against their plain versions ------------------------
-    sigma_rec = phase_kernels(torch, gradnorm)
+    norm_rec, sigma_rec = phase_kernels(torch, gradnorm)
+    flash_rec = phase_flash(torch, flash_attention, ops)
+    done("3 kernels")
 
-    # -- 4. the main path -----------------------------------------------
-    t0 = time.perf_counter()
+    # -- 4. the FEEL path -----------------------------------------------
     data = make_data(rt)
     init_sd = rt.models.cnn.CNN(
         rt.models.cnn.CNNConfig(side=SIDE),
         generator=torch.Generator().manual_seed(0)).state_dict()
     tr = make_trainer(rt, torch, data, init_sd, "cuda")
-    print(f"main path: K={K} N={N} Q={Q} d_hat={D_HAT} side={SIDE} "
-          f"gp_steps={GP_STEPS}, setup "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"FEEL path: K={K} N={N} Q={Q} d_hat={D_HAT} side={SIDE} "
+          f"gp_steps={GP_STEPS}")
     gradnorm.reset_launch_counts()
+    flash_attention.reset_launch_counts()
     gpu0 = None
     for i in range(ROUNDS):
         m = tr.run_round(i, eval_now=i == ROUNDS - 1)
@@ -316,12 +572,16 @@ def main() -> None:
                     "sigma": st.sigma.cpu(), "net_cost": dec.net_cost,
                     "params": host(tr.params),
                     "mu": host(tr.opt_state.mu), "state": st}
-    launches = dict(gradnorm.LAUNCHES)
-    check(launches["gradnorm_sigma"] == ROUNDS,
-          f"gradnorm_sigma launched {launches} in {ROUNDS} rounds")
+    feel_launches = {**gradnorm.LAUNCHES, **flash_attention.LAUNCHES}
+    check(feel_launches == {"rownorm2": 0, "gradnorm_sigma": ROUNDS,
+                            "flash_attention": 0},
+          f"launches on the FEEL path {feel_launches} in {ROUNDS} rounds")
+    print(f"FEEL path launches: {feel_launches}")
+    done("4 FEEL path")
 
     # -- 5. replay round 0 on the CPU -----------------------------------
     phase_replay(rt, torch, data, init_sd, gpu0)
+    done("5 FEEL replay")
 
     # -- 6. where the time goes -----------------------------------------
     st0 = gpu0["state"]
@@ -339,16 +599,41 @@ def main() -> None:
         print(f"decision stage, round 0 inputs: {name} "
               f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
     profile_round(torch, tr, ROUNDS)
+    del tr, gpu0, st0, data
+    done("6 FEEL profile")
 
-    # -- 7. results -----------------------------------------------------
-    print(json.dumps({"kernels": [{
-        "name": "gradnorm_sigma", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gradnorm.cu",
-        "replaces": "src/repro/kernels/gradnorm.py:62",
-        "launches": launches["gradnorm_sigma"],
-        "max_abs_err": sigma_rec["max_abs_err"], "ms": sigma_rec["ms"],
-        "plain_ms": sigma_rec["plain_ms"], "bound_ms": sigma_rec["bound_ms"],
-        "bound_by": sigma_rec["bound_by"], "library_ms": None}]}))
+    # -- 7. the serving path --------------------------------------------
+    serve_launches = phase_serve(torch, serve_mod, flash_attention, gradnorm)
+    print(f"flash_attention device time of one prefill's 28 launches: "
+          f"{28 * flash_rec['ms']:.3f} ms (28 x the {FLASH_SLICE} time)")
+    phase_serve_profile(torch, tm, get_config)
+    done("7 serve")
+
+    # -- 8. LLM replay on the CPU ----------------------------------------
+    phase_llm_replay(torch, tm, get_config, full_fp32)
+    done("8 LLM replay")
+
+    # -- 9. results -----------------------------------------------------
+    def entry(name, source, replaces, launches, rec):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"],
+                "library_ms": rec.get("library_ms")}
+
+    gn_src = "src/repro_torch/kernels/csrc/gradnorm.cu"
+    print(f"total wall {time.perf_counter() - t_start:.2f} s")
+    print(json.dumps({"kernels": [
+        entry("rownorm2", gn_src, "src/repro/kernels/gradnorm.py:62",
+              feel_launches["rownorm2"] + serve_launches["rownorm2"],
+              norm_rec),
+        entry("gradnorm_sigma", gn_src, "src/repro/kernels/gradnorm.py:62",
+              feel_launches["gradnorm_sigma"], sigma_rec),
+        entry("flash_attention",
+              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:112",
+              serve_launches["flash_attention"], flash_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -25,3 +26,24 @@ def synchronize(device: Optional[torch.device]) -> None:
     """Wait for queued device work (a no-op on the CPU)."""
     if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def full_fp32() -> Iterator[None]:
+    """Run convolutions and matmuls in full float32, as the reference does.
+
+    cuDNN runs float32 convolutions in TF32 by default
+    (``torch.backends.cudnn.allow_tf32`` is True), which keeps about
+    three decimal digits; matmuls default to full float32 but are pinned
+    here too.  The flags are process-wide, so they are set for the
+    duration of the block (forward and backward) and restored after.
+    """
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

@@ -20,8 +20,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..device import full_fp32
 from ..kernels import gradnorm as gradnorm_mod
-from ..models.cnn import CNN, full_fp32
+from ..models.cnn import CNN
 
 
 def _head_residuals(model: CNN, images: torch.Tensor,

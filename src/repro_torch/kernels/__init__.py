@@ -1,2 +1,4 @@
 """Hand-written Hopper kernels of the port (counterpart of
-``repro.kernels``): ``gradnorm`` (CUDA C++, ``csrc/gradnorm.cu``)."""
+``repro.kernels``): ``gradnorm`` (``csrc/gradnorm.cu``) and
+``flash_attention`` (``csrc/flash_attention.cu``), both CUDA C++ built
+by ``nvcc`` (the shared build helper) at first use."""

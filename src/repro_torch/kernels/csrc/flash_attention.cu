@@ -1,0 +1,275 @@
+// Forward flash attention (online softmax) on CUDA cores, for Hopper.
+//
+// Replaces the Pallas TPU kernel
+// src/repro/kernels/flash_attention.py::flash_attention (_flash_kernel):
+// softmax(scale * q k^T) v over (BH, S, d) tensors with batch and heads
+// merged, causal or not, fp32 or bf16 in, the same type out.  Products,
+// the running max m, the running sum l and the output accumulator are
+// fp32.  Masked logits are -1e30 (keys at positions >= S, and with
+// `causal` keys after the query), and the denominator is max(l, 1e-30),
+// as in the TPU kernel.
+//
+// Design.  The TPU kernel walks the k blocks as a sequential grid axis
+// and carries m, l and acc in VMEM scratch from one grid step to the
+// next.  Hopper blocks run in parallel and in no order, so here one
+// thread block owns a 64-row q tile and loops over the k tiles itself:
+//   - 8 warps of 32 lanes; each warp owns 8 q rows of the tile.
+//   - The q tile is staged once in shared memory as fp32.  Each 32-key
+//     K tile and V tile is staged in shared memory as fp32, zero-filled
+//     past S and past d (loads are masked, not only logits).
+//   - Scores: lane j computes the dot products of key j of the tile with
+//     the warp's 8 q rows (float4 reads of the K row; the q rows are
+//     read by every lane at once, which shared memory broadcasts).  K
+//     rows are padded by 4 floats so the lanes' float4 reads fall in
+//     distinct banks.
+//   - Online softmax per row: a warp-shuffle max and sum update m and l,
+//     and the accumulator is rescaled by exp(m_old - m_new).
+//   - P V: the lanes' probabilities go through a per-warp shared buffer;
+//     lane j owns output columns j, j + 32, ... of the fp32 accumulator
+//     (conflict-free reads of the V row, coalesced stores).
+//   - With `causal`, k tiles wholly after a block's last row are never
+//     loaded, and a warp skips a tile wholly after its own last row
+//     (both give exactly zero weight).  Blocks of the longest rows are
+//     launched first.
+// The head dimension is a template bucket (32, 64, 128 or 256, d <= the
+// bucket, zero-padded), so every loop over it unrolls.
+//
+// Bound.  Causal attention at the serving shape (96, 2048, 128) bf16 is
+// ~1.0e11 flops on ~2e8 bytes: bound by operations.  This kernel runs
+// them as fp32 FMAs on the CUDA cores (67 TFLOP/s peak, not the 989 of
+// the bf16 tensor cores) and feeds them from shared memory, so it sits
+// well above the tensor-core bound; mma/wgmma, TMA and pipelining are
+// later work.
+//
+// Interface.  Plain C entry points for ctypes: device pointers and the
+// CUDA stream arrive as void*, sizes and flags as int, the scale as
+// float.  Each returns a cudaError_t as int (0 = success), the result
+// of cudaGetLastError() after its launch.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kRowsPerWarp = 8;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlockQ = kRowsPerWarp * kWarps;  // 64 q rows per block
+constexpr int kBlockK = 32;                     // one key per lane
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);  // round to nearest even
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, offset));
+  }
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, offset);
+  }
+  return v;
+}
+
+// Shared-memory layout (in floats) for head-dimension bucket D.
+template <int D>
+struct Smem {
+  static constexpr int kKStride = D + 4;  // padded: float4 reads spread banks
+  static constexpr int kQ = kBlockQ * D;
+  static constexpr int kK = kBlockK * kKStride;
+  static constexpr int kV = kBlockK * D;
+  static constexpr int kP = kWarps * kBlockK * kRowsPerWarp;
+  static constexpr size_t kBytes = (kQ + kK + kV + kP) * sizeof(float);
+};
+
+// Rows [row0, row0 + n_rows) of a (seq, d) matrix into an fp32 tile with
+// row stride `stride`; rows >= seq and columns >= d are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* __restrict__ dst, int stride,
+                                          int n_rows,
+                                          const T* __restrict__ src,
+                                          int row0, int seq, int d) {
+  for (int i = threadIdx.x; i < n_rows * D; i += kThreads) {
+    const int r = i / D;
+    const int c = i % D;
+    const int row = row0 + r;
+    float x = 0.0f;
+    if (row < seq && c < d) x = to_float(src[static_cast<long long>(row) * d + c]);
+    dst[r * stride + c] = x;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int seq, int d,
+                 int causal, float scale) {
+  using L = Smem<D>;
+  constexpr int R = kRowsPerWarp;
+  constexpr int C = D / 32;  // accumulator columns per lane
+  extern __shared__ float4 smem4[];  // float4: 16-byte aligned base
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* k_s = q_s + L::kQ;
+  float* v_s = k_s + L::kK;
+  float* p_s = v_s + L::kV;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // longest rows first
+  const long long base = static_cast<long long>(blockIdx.x) * seq * d;
+  const int row0 = q0 + warp * R;  // this warp's first q row
+
+  load_tile<T, D>(q_s, D, kBlockQ, q + base, q0, seq, d);
+
+  float m[R], l[R], acc[R][C];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[r][c] = 0.0f;
+  }
+
+  const float* q_w = q_s + warp * R * D;
+  float* p_w = p_s + warp * kBlockK * R;  // [key][row] for this warp
+  const int k_end = causal ? min(seq, q0 + kBlockQ) : seq;
+  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBlockK;
+    __syncthreads();  // every warp is done with the previous K and V tile
+    load_tile<T, D>(k_s, L::kKStride, kBlockK, k + base, k0, seq, d);
+    load_tile<T, D>(v_s, D, kBlockK, v + base, k0, seq, d);
+    __syncthreads();  // the tiles (and, at t = 0, the q tile) are in place
+    if (causal && k0 > row0 + R - 1) continue;  // warp-uniform
+
+    // scores of key k0 + lane against the warp's R rows
+    float s[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = 0.0f;
+    const float* k_row = k_s + lane * L::kKStride;
+#pragma unroll 4
+    for (int c = 0; c < D; c += 4) {
+      const float4 kv = *reinterpret_cast<const float4*>(k_row + c);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 qv = *reinterpret_cast<const float4*>(q_w + r * D + c);
+        s[r] = fmaf(qv.x, kv.x, s[r]);
+        s[r] = fmaf(qv.y, kv.y, s[r]);
+        s[r] = fmaf(qv.z, kv.z, s[r]);
+        s[r] = fmaf(qv.w, kv.w, s[r]);
+      }
+    }
+
+    // online softmax, one row at a time across the warp
+    const int key = k0 + lane;
+    float p[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool keep = key < seq && (!causal || key <= row0 + r);
+      const float x = keep ? s[r] * scale : kNegInf;
+      const float m_new = fmaxf(m[r], warp_max(x));
+      p[r] = expf(x - m_new);
+      const float alpha = expf(m[r] - m_new);
+      l[r] = l[r] * alpha + warp_sum(p[r]);
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[r][c] *= alpha;
+    }
+    float4* p_lane = reinterpret_cast<float4*>(p_w + lane * R);
+    p_lane[0] = make_float4(p[0], p[1], p[2], p[3]);
+    p_lane[1] = make_float4(p[4], p[5], p[6], p[7]);
+    __syncwarp();
+
+    // acc += P V over the tile's keys
+#pragma unroll 4
+    for (int j = 0; j < kBlockK; ++j) {
+      const float4 pa = *reinterpret_cast<const float4*>(p_w + j * R);
+      const float4 pb = *reinterpret_cast<const float4*>(p_w + j * R + 4);
+      const float pj[R] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float vv = v_s[j * D + lane + 32 * c];
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r][c] = fmaf(pj[r], vv, acc[r][c]);
+      }
+    }
+    __syncwarp();  // p_w is rewritten by the next tile
+  }
+
+  // rows past S (the tail of the last q tile) are never written
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r;
+    if (row >= seq) break;
+    const float denom = fmaxf(l[r], 1e-30f);
+    T* out_row = o + base + static_cast<long long>(row) * d;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = lane + 32 * c;
+      if (col < d) store(out_row + col, acc[r][c] / denom);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, int bh,
+           int seq, int d, int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = Smem<D>::kBytes;
+  // Above 48 KB of dynamic shared memory a kernel must opt in, once per
+  // instantiation (before any launch, so also before a graph capture).
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  const dim3 grid(bh, (seq + kBlockQ - 1) / kBlockQ);
+  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), seq, d, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
+             int seq, int d, int causal, float scale, void* stream) {
+  if (bh <= 0 || seq <= 0 || seq > 65535 * kBlockQ || d <= 0 || d > 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 32) return launch<T, 32>(q, k, v, o, bh, seq, d, causal, scale, s);
+  if (d <= 64) return launch<T, 64>(q, k, v, o, bh, seq, d, causal, scale, s);
+  if (d <= 128) return launch<T, 128>(q, k, v, o, bh, seq, d, causal, scale, s);
+  return launch<T, 256>(q, k, v, o, bh, seq, d, causal, scale, s);
+}
+
+}  // namespace
+
+extern "C" int repro_flash_attention_f32(const void* q, const void* k,
+                                         const void* v, void* o, int bh,
+                                         int seq, int d, int causal,
+                                         float scale, void* stream) {
+  return dispatch<float>(q, k, v, o, bh, seq, d, causal, scale, stream);
+}
+
+extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
+                                          const void* v, void* o, int bh,
+                                          int seq, int d, int causal,
+                                          float scale, void* stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, o, bh, seq, d, causal, scale,
+                                 stream);
+}

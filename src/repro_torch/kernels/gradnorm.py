@@ -16,24 +16,18 @@ dtype, rank or layout raises: there is no silent fallback.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from . import nvcc
+from .nvcc import BuildInfo
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gradnorm.cu"
 #: where the shared library is built (listed in .gitignore).
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+BUILD_DIR = nvcc.BUILD_DIR
+NVCC_FLAGS = nvcc.BASE_FLAGS
 
 #: kernel launches per entry point; bumped only where a kernel launches.
 LAUNCHES = {"rownorm2": 0, "gradnorm_sigma": 0}
@@ -59,55 +53,16 @@ def gradnorm_sigma_plain(h: torch.Tensor, dlogits: torch.Tensor) -> torch.Tensor
 
 # ---------------------------------------------------------------- build
 
-@dataclasses.dataclass
-class BuildInfo:
-    path: Path
-    seconds: float      # 0.0 when an up-to-date library was reused
-    log: str            # nvcc/ptxas output (register and spill report)
-
-
 _LIB: Optional[ctypes.CDLL] = None
 _BUILD: Optional[BuildInfo] = None
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
-    found = str(cand) if cand.exists() else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the gradnorm "
-                           "kernel is built from source at first use")
-    return found
 
 
 def build() -> BuildInfo:
     """Compile ``csrc/gradnorm.cu`` into ``BUILD_DIR`` unless a library
     built from the same source and flags is already there."""
     global _BUILD
-    if _BUILD is not None:
-        return _BUILD
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"gradnorm-{key}.so"
-    if out.exists():
-        _BUILD = BuildInfo(out, 0.0, "")
-        return _BUILD
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a reader never sees a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    _BUILD = BuildInfo(out, time.perf_counter() - t0,
-                       proc.stdout + proc.stderr)
+    if _BUILD is None:
+        _BUILD = nvcc.build(SOURCE, NVCC_FLAGS, BUILD_DIR)
     return _BUILD
 
 
@@ -144,11 +99,6 @@ def _check(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: too large for the kernel's int sizes")
 
 
-def _raise_on(status: int, name: str) -> None:
-    if status != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {status}")
-
-
 def rownorm2(x: torch.Tensor) -> torch.Tensor:
     """sum(x^2, axis=-1) for x: (N, F) -> (N,) float32."""
     if x.device.type == "cpu":
@@ -160,7 +110,7 @@ def rownorm2(x: torch.Tensor) -> torch.Tensor:
         lib = _lib()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            _raise_on(lib.repro_rownorm2_f32(x.data_ptr(), out.data_ptr(),
+            nvcc.raise_on(lib.repro_rownorm2_f32(x.data_ptr(), out.data_ptr(),
                                              n, f, stream), "rownorm2")
         LAUNCHES["rownorm2"] += 1
     return out
@@ -184,7 +134,7 @@ def gradnorm_sigma(h: torch.Tensor, dlogits: torch.Tensor) -> torch.Tensor:
         lib = _lib()
         with torch.cuda.device(h.device):
             stream = torch.cuda.current_stream(h.device).cuda_stream
-            _raise_on(lib.repro_gradnorm_sigma_f32(
+            nvcc.raise_on(lib.repro_gradnorm_sigma_f32(
                 h.data_ptr(), dlogits.data_ptr(), out.data_ptr(), n, fh, fd,
                 stream), "gradnorm_sigma")
         LAUNCHES["gradnorm_sigma"] += 1

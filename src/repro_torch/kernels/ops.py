@@ -1,18 +1,41 @@
 """Public wrappers around the port's hand-written kernels.
 
 Counterpart of ``repro/kernels/ops.py`` for the kernels ported so far
-(the row-norm sigma kernel; flash attention and the LRU scan are still
+(the row-norm sigma kernel and flash attention; the LRU scan is still
 to be ported).  Same signatures as the reference, minus its
 ``interpret`` flag: the device of the inputs decides, CUDA tensors
 launch the CUDA kernel and CPU tensors take its plain version.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from .flash_attention import flash_attention
 from .gradnorm import gradnorm_sigma, rownorm2
 
-__all__ = ["rownorm2", "gradnorm_sigma", "sigma_from_head"]
+__all__ = ["flash_attention_bhsd", "rownorm2", "gradnorm_sigma",
+           "sigma_from_head"]
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q,k,v: (B, S, H, d) MHA layout -> (B, S, H, d).
+
+    GQA callers broadcast kv heads first (the kernel is head-merged).
+    The (B, S, H, d) -> (B*H, S, d) fold copies into the contiguous
+    layout the kernel takes (a reshape alone is a strided view when
+    B == 1)."""
+    B, S, H, d = q.shape
+
+    def fold(x):
+        return x.movedim(2, 1).contiguous().view(B * H, S, d)
+
+    out = flash_attention(fold(q), fold(k), fold(v), causal=causal,
+                          scale=scale)
+    return out.reshape(B, H, S, d).movedim(1, 2)
 
 
 def sigma_from_head(h: torch.Tensor, logits: torch.Tensor,

@@ -6,5 +6,6 @@ them the reference's names.
 """
 from __future__ import annotations
 
+from .flash_attention import flash_attention_plain as flash_attention_ref  # noqa: F401
 from .gradnorm import gradnorm_sigma_plain as gradnorm_sigma_ref  # noqa: F401
 from .gradnorm import rownorm2_plain as rownorm2_ref  # noqa: F401

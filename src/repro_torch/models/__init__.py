@@ -1,2 +1,11 @@
-"""Models of the port (counterpart of ``repro.models``): the §VI-A CNN."""
+"""Models of the port (counterpart of ``repro.models``): the §VI-A CNN
+and the text decoder of the LLM zoo (``"attn"`` blocks, dense FFN) with
+its prefill and decode steps."""
 from . import cnn  # noqa: F401
+from .config import ArchConfig
+from .model import (Model, init_model, make_cache, make_decode_step,
+                    make_prefill_step, param_count, params_from_numpy)
+
+__all__ = ["ArchConfig", "Model", "cnn", "init_model", "make_cache",
+           "make_decode_step", "make_prefill_step", "param_count",
+           "params_from_numpy"]

@@ -11,15 +11,16 @@ a 5x5 kernel is ``padding=2``.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..device import full_fp32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,27 +34,6 @@ class CNNConfig:
     def feature_dim(self) -> int:
         s = self.side // 4  # two 2x2 pools
         return s * s * self.conv_channels[1]
-
-
-@contextlib.contextmanager
-def full_fp32() -> Iterator[None]:
-    """Run convolutions and matmuls in full float32, as the reference does.
-
-    cuDNN runs float32 convolutions in TF32 by default
-    (``torch.backends.cudnn.allow_tf32`` is True), which keeps about
-    three decimal digits; matmuls default to full float32 but are pinned
-    here too.  The flags are process-wide, so they are set for the
-    duration of the block (forward and backward) and restored after.
-    """
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 class CNN(nn.Module):

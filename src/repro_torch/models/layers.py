@@ -1,0 +1,208 @@
+"""Shared neural-net layers: RMSNorm, 1-D RoPE, gated MLP, and GQA
+attention with the global causal (prefill) and cached-decode paths.
+
+Counterpart of ``repro/models/layers.py`` for what the port's serving
+path runs.  Parameters live in ``nn.Module`` containers whose attribute
+names are the reference's dict keys; dense weights keep the reference's
+(d_in, d_out) layout and are applied as ``x @ w``.  The apply functions
+are plain tensor functions that take those modules, as the reference's
+take dict pytrees.
+
+Prefill attention goes through the hand-written flash-attention kernel
+(``kernels.ops.flash_attention_bhsd``), the route the reference keeps
+for hot paths on its chip; decode attention stays plain torch, as the
+reference computes it with einsums outside any kernel.  Sliding-window
+and rolling-cache attention, logit softcapping and M-RoPE are not
+ported yet (ROADMAP.md queue 1, item 10) and raise.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+from .config import ArchConfig
+
+Tensor = torch.Tensor
+
+_NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+_TODO = "not ported yet (ROADMAP.md queue 1, item 10)"
+
+
+def frozen(t: Tensor) -> nn.Parameter:
+    """A parameter of the inference port: no gradient is tracked."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ------------------------------------------------------------------ norms
+
+def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    """Computed in fp32 and cast back to the input dtype."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def init_dense(generator: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype, device=None) -> Tensor:
+    """(d_in, d_out) normal draws scaled by d_in^-0.5, drawn in fp32."""
+    w = torch.randn((d_in, d_out), generator=generator, device=device,
+                    dtype=torch.float32)
+    return (w * d_in ** -0.5).to(dtype)
+
+
+# ------------------------------------------------------------------- rope
+
+def _rope_cos_sin(positions: Tensor, n_pairs: int, theta: float,
+                  mrope_sections: Tuple[int, ...] = ()
+                  ) -> Tuple[Tensor, Tensor]:
+    """cos/sin tables for positions (B, S): (B, S, n_pairs) float32.
+
+    The frequencies theta^(-i/n_pairs) are raised in float64 and rounded
+    to float32, so every device gets the same table; the angles and
+    their cos/sin are float32, as in the reference."""
+    if positions.dim() != 2 or mrope_sections:
+        raise NotImplementedError(f"M-RoPE is {_TODO}")
+    expo = -torch.arange(n_pairs, dtype=torch.float32,
+                         device=positions.device) / n_pairs
+    freqs = torch.pow(float(theta), expo.double()).float()
+    ang = positions[..., None].float() * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float,
+               fraction: float = 1.0,
+               mrope_sections: Tuple[int, ...] = ()) -> Tensor:
+    """x: (B, S, H, Dh). Rotates the first ``fraction * Dh`` dims, the
+    first half of them against the second half (rotate-half pairing)."""
+    d = x.shape[-1]
+    d_rot = int(d * fraction)
+    d_rot -= d_rot % 2
+    if d_rot == 0:
+        return x
+    n_pairs = d_rot // 2
+    cos, sin = _rope_cos_sin(positions, n_pairs, theta, mrope_sections)
+    cos = cos[:, :, None, :]  # (B, S, 1, n_pairs)
+    sin = sin[:, :, None, :]
+    x1f = x[..., :n_pairs].float()
+    x2f = x[..., n_pairs:d_rot].float()
+    out = torch.cat([x1f * cos - x2f * sin,
+                     x2f * cos + x1f * sin], dim=-1).to(x.dtype)
+    return torch.cat([out, x[..., d_rot:]], dim=-1) if d - d_rot else out
+
+
+# ------------------------------------------------------------------- mlp
+
+class MLP(nn.Module):
+    """Gated MLP weights: w_gate, w_up (d, f) and w_down (f, d)."""
+
+    def __init__(self, w_gate: Tensor, w_up: Tensor, w_down: Tensor):
+        super().__init__()
+        self.w_gate = frozen(w_gate)
+        self.w_up = frozen(w_up)
+        self.w_down = frozen(w_down)
+
+
+def init_mlp(generator: torch.Generator, d: int, f: int,
+             dtype: torch.dtype, device=None) -> MLP:
+    return MLP(init_dense(generator, d, f, dtype, device),
+               init_dense(generator, d, f, dtype, device),
+               init_dense(generator, f, d, dtype, device))
+
+
+def mlp(p: MLP, x: Tensor, act: str = "silu") -> Tensor:
+    a = F.silu(x @ p.w_gate) if act == "silu" else F.gelu(
+        x @ p.w_gate, approximate="tanh")
+    return (a * (x @ p.w_up)) @ p.w_down
+
+
+# -------------------------------------------------------------- attention
+
+class Attention(nn.Module):
+    """GQA projection weights: wq (d, H*Dh), wk and wv (d, Hk*Dh),
+    wo (H*Dh, d)."""
+
+    def __init__(self, wq: Tensor, wk: Tensor, wv: Tensor, wo: Tensor):
+        super().__init__()
+        self.wq = frozen(wq)
+        self.wk = frozen(wk)
+        self.wv = frozen(wv)
+        self.wo = frozen(wo)
+
+
+def init_attention(generator: torch.Generator, cfg: ArchConfig,
+                   dtype: torch.dtype, device=None) -> Attention:
+    if cfg.qk_norm:
+        raise NotImplementedError(f"qk_norm is {_TODO}")
+    d, H, Hk, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    return Attention(init_dense(generator, d, H * Dh, dtype, device),
+                     init_dense(generator, d, Hk * Dh, dtype, device),
+                     init_dense(generator, d, Hk * Dh, dtype, device),
+                     init_dense(generator, H * Dh, d, dtype, device))
+
+
+def _gqa_split(q: Tensor, n_kv: int) -> Tensor:
+    """(B, S, H, Dh) -> (B, S, Hk, G, Dh): query head h is group member
+    h % G of kv head h // G."""
+    B, S, H, Dh = q.shape
+    return q.reshape(B, S, n_kv, H // n_kv, Dh)
+
+
+def _softmax_attend(q: Tensor, k: Tensor, v: Tensor, mask: Tensor,
+                    scale: float) -> Tensor:
+    """q: (B,Sq,Hk,G,Dh), k: (B,Sk,Hk,Dh), v: (B,Sk,Hk,Dv);
+    mask broadcastable to (B,Hk,G,Sq,Sk). Returns (B,Sq,Hk*G,Dv).
+
+    Logits and softmax in fp32; the probabilities are cast to v's dtype
+    before the product with v, as the reference does."""
+    B, Sq, Hk, G, _ = q.shape
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    logits = logits.masked_fill(~mask, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(B, Sq, Hk * G, v.shape[-1])
+
+
+def causal_attend(q: Tensor, k: Tensor, v: Tensor, q_offset: int = 0,
+                  window: int = 0, scale: Optional[float] = None,
+                  softcap: float = 0.0) -> Tensor:
+    """Causal GQA attention over a whole sequence, through the flash
+    kernel.  q: (B,S,H,Dh); k/v: (B,S,Hk,Dh); positions 0..S-1.
+
+    The kernel is head-merged (MHA), so the kv heads are broadcast
+    first: q head h reads kv head h // G, as ``_gqa_split`` groups
+    them."""
+    if window or softcap:
+        raise NotImplementedError(f"windowed and softcapped attention is "
+                                  f"{_TODO}")
+    if q_offset or k.shape[1] != q.shape[1]:
+        raise NotImplementedError("causal_attend runs a prefill from "
+                                  "position 0 (queries and keys alike)")
+    G = q.shape[2] // k.shape[2]
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return ops.flash_attention_bhsd(q, k.repeat_interleave(G, dim=2),
+                                    v.repeat_interleave(G, dim=2),
+                                    causal=True, scale=scale)
+
+
+def decode_attend(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                  cache_index: Union[int, Tensor], window: int = 0,
+                  rolling: bool = False, scale: Optional[float] = None,
+                  softcap: float = 0.0) -> Tensor:
+    """Single-token GQA decode attention over a (non-rolling) cache.
+
+    q: (B, 1, H, Dh); caches: (B, C, Hk, ·) (not head-repeated).
+    ``cache_index``: the new token's position; slots after it are
+    masked."""
+    if rolling or window or softcap:
+        raise NotImplementedError(f"rolling, windowed and softcapped decode "
+                                  f"attention is {_TODO}")
+    Hk, C = k_cache.shape[2], k_cache.shape[1]
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    valid = torch.arange(C, device=q.device) <= cache_index
+    return _softmax_attend(_gqa_split(q, Hk), k_cache, v_cache,
+                           valid[None, None, None, None, :], scale)

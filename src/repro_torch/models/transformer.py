@@ -1,0 +1,201 @@
+"""Decoder assembly: blocks, the repeating layer pattern, caches.
+
+Counterpart of ``repro/models/transformer.py``.  Layer layout is the
+reference's: ``first_dense`` head layers, then floor((L - first_dense)/P)
+repetitions of the ``layer_pattern``, then the remainder layers from the
+pattern prefix.  Where the reference stacks the repeated layers and
+runs one ``lax.scan`` over them, the port keeps one ``Block`` per layer
+in an ``nn.ModuleList`` and runs a Python loop.
+
+The cache keeps the reference's layout: ``{"head": [...], "body":
+{"pos{p}": {"k", "v"}: (n_body, B, C, Hk, Dh)}, "tail": [...]}``.  The
+port updates it in place: prefill writes slots [0, S) of the cache it is
+given, decode writes slot ``cache_index``, and both return the same
+dict.  That keeps one cache of ``prompt_len + new_tokens`` slots for a
+whole request, where the reference builds new arrays each step.
+
+Only ``"attn"`` blocks with a dense FFN, text inputs and the ``prefill``
+and ``decode`` modes are ported.  ``attn_local``, ``mla``, ``mamba``,
+``rglru``, MoE and the ``train`` mode raise ``NotImplementedError``
+(ROADMAP.md queue 1, item 10).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from .config import ArchConfig
+from .layers import (MLP, Attention, _TODO, apply_rope, causal_attend,
+                     decode_attend, frozen, init_attention, init_mlp, mlp,
+                     rmsnorm)
+
+Tensor = torch.Tensor
+Cache = dict
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for what of ``cfg`` the port does not run yet."""
+    for kind in cfg.layer_pattern:
+        if kind != "attn":
+            raise NotImplementedError(f"{cfg.name}: {kind!r} blocks are "
+                                      f"{_TODO}")
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name}: MoE FFNs are {_TODO}")
+    if cfg.modality != "text":
+        raise NotImplementedError(f"{cfg.name}: the {cfg.modality!r} "
+                                  f"modality is {_TODO}")
+    if cfg.attn_logit_softcap or cfg.qk_norm or cfg.mrope_sections:
+        raise NotImplementedError(f"{cfg.name}: softcap, qk_norm and M-RoPE "
+                                  f"are {_TODO}")
+
+
+# ------------------------------------------------------------------ blocks
+
+class Block(nn.Module):
+    """Pre-norm residual block: ln1, attn, ln2, ffn."""
+
+    def __init__(self, ln1: Tensor, attn: Attention, ln2: Tensor, ffn: MLP):
+        super().__init__()
+        self.ln1 = frozen(ln1)
+        self.attn = attn
+        self.ln2 = frozen(ln2)
+        self.ffn = ffn
+
+
+def init_block(generator: torch.Generator, cfg: ArchConfig, kind: str,
+               use_moe: bool, dense_ff: Optional[int] = None,
+               device=None) -> Block:
+    if kind != "attn" or use_moe:
+        raise NotImplementedError(f"{kind!r} blocks and MoE are {_TODO}")
+    dtype, d = cfg.act_dtype, cfg.d_model
+    ones = torch.ones(d, dtype=dtype, device=device)
+    return Block(ones, init_attention(generator, cfg, dtype, device),
+                 ones.clone(),
+                 init_mlp(generator, d, dense_ff or cfg.d_ff, dtype, device))
+
+
+def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
+                positions: Tensor, mode: str, cache: Cache,
+                cache_index: Union[int, Tensor]) -> Tensor:
+    """Attention sublayer; writes this layer's k and v into ``cache``."""
+    B, S, _ = x.shape
+    H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    ap = p.attn
+    q = (x @ ap.wq).reshape(B, S, H, Dh)
+    k = (x @ ap.wk).reshape(B, S, Hk, Dh)
+    v = (x @ ap.wv).reshape(B, S, Hk, Dh)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    if mode == "prefill":
+        out = causal_attend(q, k, v)
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+    elif mode == "decode":
+        cache["k"][:, cache_index:cache_index + S] = k
+        cache["v"][:, cache_index:cache_index + S] = v
+        out = decode_attend(q, cache["k"], cache["v"], cache_index)
+    else:
+        raise NotImplementedError(f"mode {mode!r} is {_TODO}")
+    return out.reshape(B, S, H * Dh) @ ap.wo
+
+
+def apply_block(cfg: ArchConfig, kind: str, use_moe: bool, p: Block,
+                x: Tensor, positions: Tensor, mode: str, cache: Cache,
+                cache_index: Union[int, Tensor]) -> Tensor:
+    """Pre-norm residual block. Returns the new x (the reference's aux
+    loss belongs to MoE, which is not ported)."""
+    if kind != "attn" or use_moe:
+        raise NotImplementedError(f"{kind!r} blocks and MoE are {_TODO}")
+    h = rmsnorm(x, p.ln1)
+    x = x + _attn_apply(cfg, kind, p, h, positions, mode, cache, cache_index)
+    return x + mlp(p.ffn, rmsnorm(x, p.ln2), cfg.act)
+
+
+# ----------------------------------------------------------- decoder stack
+
+def _layer_plan(cfg: ArchConfig):
+    """(head_kinds, n_body, pattern, tail_kinds)."""
+    P = len(cfg.layer_pattern)
+    fd = cfg.first_dense
+    L_rest = cfg.n_layers - fd
+    n_body = L_rest // P
+    tail = cfg.layer_pattern[:L_rest % P]
+    head = tuple(cfg.layer_pattern[i % P] for i in range(fd))
+    return head, n_body, cfg.layer_pattern, tail
+
+
+class Decoder(nn.Module):
+    """Blocks in layer order: ``head``, ``body`` (repeat r, pattern
+    position p at index r * P + p), ``tail``; then ``final_norm``."""
+
+    def __init__(self, head: list, body: list, tail: list,
+                 final_norm: Tensor):
+        super().__init__()
+        self.head = nn.ModuleList(head)
+        self.body = nn.ModuleList(body)
+        self.tail = nn.ModuleList(tail)
+        self.final_norm = frozen(final_norm)
+
+
+def init_decoder(cfg: ArchConfig, generator: torch.Generator,
+                 device=None) -> Decoder:
+    check_supported(cfg)
+    head, n_body, pattern, tail = _layer_plan(cfg)
+    return Decoder(
+        [init_block(generator, cfg, kind, False, cfg.d_ff, device)
+         for kind in head],
+        [init_block(generator, cfg, kind, False, cfg.d_ff, device)
+         for _ in range(n_body) for kind in pattern],
+        [init_block(generator, cfg, kind, False, cfg.d_ff, device)
+         for kind in tail],
+        torch.ones(cfg.d_model, dtype=cfg.act_dtype, device=device))
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype: Optional[torch.dtype] = None, device=None) -> Cache:
+    """Zero-filled cache matching the decoder layout."""
+    check_supported(cfg)
+    dtype = dtype or cfg.act_dtype
+    head, n_body, pattern, tail = _layer_plan(cfg)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+
+    def zeros(*lead):
+        return {n: torch.zeros(lead + shape, dtype=dtype, device=device)
+                for n in ("k", "v")}
+
+    return {"head": [zeros() for _ in head],
+            "body": {f"pos{i}": zeros(n_body) for i in range(len(pattern))},
+            "tail": [zeros() for _ in tail]}
+
+
+def apply_decoder(cfg: ArchConfig, dec: Decoder, x: Tensor,
+                  positions: Tensor, mode: str, cache: Optional[Cache] = None,
+                  cache_index: Union[int, Tensor] = 0
+                  ) -> Tuple[Tensor, Cache]:
+    """Returns (hidden (B,S,d), cache).  ``prefill`` without a cache
+    allocates one of S slots, as the reference returns; ``decode`` needs
+    the cache."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mode {mode!r} is {_TODO}")
+    head, n_body, pattern, tail = _layer_plan(cfg)
+    if cache is None:
+        if mode == "decode":
+            raise ValueError("decode needs the cache that prefill filled")
+        cache = init_cache(cfg, x.shape[0], x.shape[1], x.dtype, x.device)
+
+    def run(kind, block, c, x):
+        return apply_block(cfg, kind, False, block, x, positions, mode, c,
+                           cache_index)
+
+    for i, kind in enumerate(head):
+        x = run(kind, dec.head[i], cache["head"][i], x)
+    P = len(pattern)
+    for r in range(n_body):
+        for p, kind in enumerate(pattern):
+            c = {n: t[r] for n, t in cache["body"][f"pos{p}"].items()}
+            x = run(kind, dec.body[r * P + p], c, x)
+    for i, kind in enumerate(tail):
+        x = run(kind, dec.tail[i], cache["tail"][i], x)
+    return rmsnorm(x, dec.final_norm), cache

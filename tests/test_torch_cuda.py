@@ -6,14 +6,16 @@ a CUDA kernel has no CPU mode.  The file imports only torch and
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 
-Tolerance: rtol 1e-5, float32 sums taken in another order.
+Tolerances: the row-norm kernels at rtol 1e-5 (float32 sums taken in
+another order); flash attention at atol/rtol 2e-5 in fp32 and 2e-2 in
+bf16, the reference's kernel tolerances (tests/test_kernels.py).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import gradnorm  # noqa: E402
+from repro_torch.kernels import flash_attention, gradnorm, ops  # noqa: E402
 
 SHAPES = [(10, 50), (300, 700), (8, 4096), (1000, 130)]
 MAIN_PATH = [(2000, 84), (2000, 10)]  # K*D̂ rows of h and of p - y
@@ -65,3 +67,84 @@ def test_cuda_wrappers_reject_what_the_kernel_does_not_take(cuda):
     assert gradnorm.LAUNCHES == {"rownorm2": 0, "gradnorm_sigma": 0}
     empty = gradnorm.rownorm2(torch.empty((0, 8), device=cuda))
     assert empty.shape == (0,) and gradnorm.LAUNCHES["rownorm2"] == 0
+
+
+# ------------------------------------------------------- flash attention
+
+FLASH_SHAPES = [(4, 128, 64), (2, 200, 32), (3, 513, 128), (1, 64, 256)]
+FLASH_SLICE = (96, 2048, 128)  # llama3.2-3b prefill: B*H=4*24, S, Dh
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(seed, shape, dtype, device):
+    return [_normal(seed + i, shape, device).to(dtype) for i in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,d", FLASH_SHAPES + [(2, 96, 64), (1, 130, 24)])
+def test_cuda_flash_matches_plain(cuda, bh, s, d, dtype, causal):
+    q, k, v = _qkv(s + d, (bh, s, d), dtype, cuda)
+    flash_attention.reset_launch_counts()
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash_attention": 1}
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(),
+        flash_attention.flash_attention_plain(q, k, v, causal=causal).float(),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_matches_plain_at_the_serving_shape(cuda):
+    q, k, v = _qkv(0, FLASH_SLICE, torch.bfloat16, cuda)
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    want = flash_attention.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+def test_cuda_flash_bhsd_and_scale(cuda, b):
+    q, k, v = _qkv(1, (b, 130, 3, 32), torch.float32, cuda)
+    got = ops.flash_attention_bhsd(q, k, v)
+    fold = lambda x: x.movedim(2, 1).reshape(b * 3, 130, 32)  # noqa: E731
+    want = flash_attention.flash_attention_plain(fold(q), fold(k), fold(v))
+    torch.testing.assert_close(got, want.reshape(b, 3, 130, 32).movedim(1, 2),
+                               atol=2e-5, rtol=2e-5)
+    q, k, v = (x[:, :, 0].contiguous() for x in (q, k, v))
+    torch.testing.assert_close(
+        flash_attention.flash_attention(q, k, v, scale=0.3),
+        flash_attention.flash_attention_plain(q, k, v, scale=0.3),
+        atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(2, (2, 64, 32), torch.float32, cuda)
+    flash_attention.reset_launch_counts()
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="d <= 256"):
+        big = _normal(3, (1, 8, 288), cuda)
+        flash_attention.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q.transpose(0, 1), k, v)
+    with pytest.raises(ValueError, match="3-D"):
+        flash_attention.flash_attention(q[0], k[0], v[0])
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention.flash_attention(q, k[:, :32].contiguous(), v)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention(q, k.cpu(), v)
+    assert flash_attention.LAUNCHES == {"flash_attention": 0}
+    empty = torch.empty((0, 8, 32), device=cuda)
+    out = flash_attention.flash_attention(empty, empty, empty)
+    assert out.shape == (0, 8, 32)
+    assert flash_attention.LAUNCHES == {"flash_attention": 0}
