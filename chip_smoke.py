@@ -8,8 +8,9 @@ and the CUDA toolkit.  Phases, each of which fails the run (non-zero
 exit) if anything in it fails; no failure is caught:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: ``kernels/csrc/gradnorm.cu`` and ``kernels/csrc/flash_attention.cu``
-   compiled with nvcc for sm_90a, one nvcc each, started together;
+2. build: ``kernels/csrc/gradnorm.cu``, ``kernels/csrc/flash_attention.cu``
+   and ``kernels/csrc/lru_scan.cu`` compiled with nvcc for sm_90a, one
+   nvcc each, started together;
 3. kernels: each CUDA entry point against its plain PyTorch version on
    the card, at the test shapes and at the main paths' shapes, with
    device times (CUDA events over a CUDA graph of back-to-back calls),
@@ -31,10 +32,19 @@ exit) if anything in it fails; no failure is caught:
    then one prefill and one decode step under ``torch.profiler``;
 8. LLM replay: llama3.2-3b at full width cut to 2 layers, in fp32 with
    TF32 off, the same weights on the card and on the CPU: prefill
-   logits of a 256-token prompt and 8 greedy steps.
+   logits of a 256-token prompt and 8 greedy steps;
+9. mamba serving path: ``serve`` on falcon-mamba-7b at full width and
+   depth (64 mamba layers, 7,272,665,088 parameters), batch 4, prompt
+   length 2048, 32 greedy tokens; each layer's prefill recurrence goes
+   through the scan kernel, 64 launches per prefill and none in decode;
+   then one prefill and one decode step under ``torch.profiler``;
+10. mamba replay: falcon-mamba-7b at full width cut to 2 layers, fp32,
+   TF32 off, the same weights on the card and on the CPU: prefill
+   logits and each layer's SSM state after a 256-token prompt, and 8
+   greedy steps.
 
-Launch counts are zeroed just before each path (4 and 7) and read just
-after.  It prints one ``{"kernels": [...]}`` line and, last, the
+Launch counts are zeroed just before each path (4, 7 and 9) and read
+just after.  It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": ...}`` line.  Without a GPU, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero before
 printing either.
@@ -72,6 +82,13 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ARCH, SERVE_BATCH, PROMPT, NEW_TOKENS = "llama3.2-3b", 4, 2048, 32
 REPLAY_LAYERS, REPLAY_PROMPT, REPLAY_STEPS = 2, 256, 8
 LOGITS_RTOL = 1e-4       # card vs CPU prefill logits, fp32 with TF32 off
+
+# the linear-recurrence scan: the reference's kernel tests' shapes and
+# tolerance (tests/test_kernels.py), and the mamba serving path's shape
+SCAN_TEST_SHAPES = [(1, 17, 8), (2, 300, 130), (3, 256, 256), (2, 512, 64)]
+SCAN_SLICE = (4, 2048, 8192 * 16)  # falcon-mamba-7b prefill: B, S, di*n
+SCAN_TOL = 1e-5
+MAMBA, MAMBA_LAYERS, MAMBA_PARAMS = "falcon-mamba-7b", 64, 7_272_665_088
 
 
 def die(msg: str) -> None:
@@ -270,6 +287,54 @@ def phase_flash(torch, fa, ops):
     return slice_rec
 
 
+def phase_scan(torch, lru, ops):
+    """The scan kernel against its plain version at the test shapes in
+    fp32 and bf16, the a == 0 identity, and the mamba serving shape with
+    a in (0, 1) as exp(dt A) gives; returns the serving shape's record.
+    Bound: a and b read once and h written once (bytes); 2 flops per
+    element on the fp32 CUDA cores.  No one PyTorch call computes the
+    recurrence, so there is no library time."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [(shape, dt) for shape in SCAN_TEST_SHAPES
+             for dt in ("float32", "bfloat16")] + [(SCAN_SLICE, "float32")]
+    slice_rec = None
+    for shape, dt in cases:
+        dtype = getattr(torch, dt)
+        a = torch.rand(shape, generator=gen, device="cuda").to(dtype)
+        b = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        got = ops.lru_scan(a, b)
+        want = lru.lru_scan_plain(a, b)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.allclose(got, want, atol=SCAN_TOL, rtol=SCAN_TOL)),
+              f"lru_scan {shape} {dt}: max abs err {err:.3g} above "
+              f"{SCAN_TOL}")
+        del got, want
+        ident = lru.lru_scan(torch.zeros_like(a), b)
+        check(bool(torch.equal(ident, b.float())),
+              f"lru_scan {shape} {dt}: a == 0 is not the identity on b")
+        del ident
+        big = shape == SCAN_SLICE
+        n = a.numel()
+        b_ms, b_by = bound(n * (2 * a.element_size() + 4), 2.0 * n)
+        rec = {"max_abs_err": err,
+               "ms": device_ms(torch, lambda: lru.lru_scan(a, b),
+                               *((5, 3) if big else (50, 5))),
+               "plain_ms": device_ms(torch, lambda: lru.lru_scan_plain(a, b),
+                                     *((1, 2) if big else (5, 3))),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        print(f"lru_scan {shape} {dt}: max_abs_err {err:.3g} (tol "
+              f"{SCAN_TOL}), a == 0 identity exact | device ms: kernel "
+              f"{rec['ms']:.6f} plain {rec['plain_ms']:.6f} bound "
+              f"{b_ms:.6f} ({b_by}) | kernel/bound {rec['ms'] / b_ms:.2f}x, "
+              f"{n * (2 * a.element_size() + 4) / rec['ms'] / 1e6:.1f} GB/s")
+        if big:
+            slice_rec = rec
+        del a, b
+    torch.cuda.empty_cache()
+    return slice_rec
+
+
 def make_data(rt):
     train = rt.data.SyntheticImages.make(6000, side=SIDE, seed=0)
     test = rt.data.SyntheticImages.make(1500, side=SIDE, seed=1)
@@ -350,36 +415,39 @@ def profile_round(torch, tr, i):
           + f"; gradnorm kernels seen: {kernels}")
 
 
-def phase_serve(torch, serve_mod, fa, gradnorm):
-    """The serving path at full width: one warm-up request (cuBLAS and
+def phase_serve(torch, serve_mod, kernels, arch, expected, vocab):
+    """A serving path at full width: one warm-up request (cuBLAS and
     kernel-module loading happen at first use), then the measured one
-    with the launch counts zeroed just before and read just after."""
-    warm = serve_mod.serve(ARCH, batch=SERVE_BATCH, prompt_len=PROMPT,
+    with every launch count zeroed just before and read just after.
+    ``expected``: the launches per phase and kernel the path must make."""
+    warm = serve_mod.serve(arch, batch=SERVE_BATCH, prompt_len=PROMPT,
                            new_tokens=2, smoke=False, seed=0, device="cuda")
-    print(f"serve warm-up: prefill {warm.prefill_s:.6f} s, decode steps "
-          f"{[round(t * 1e3, 3) for t in warm.decode_s]} ms")
+    print(f"serve {arch} warm-up: prefill {warm.prefill_s:.6f} s, decode "
+          f"steps {[round(t * 1e3, 3) for t in warm.decode_s]} ms")
     del warm
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    gradnorm.reset_launch_counts()
-    fa.reset_launch_counts()
-    res = serve_mod.serve(ARCH, batch=SERVE_BATCH, prompt_len=PROMPT,
+    for m in kernels:
+        m.reset_launch_counts()
+    res = serve_mod.serve(arch, batch=SERVE_BATCH, prompt_len=PROMPT,
                           new_tokens=NEW_TOKENS, smoke=False, seed=0,
                           device="cuda")
-    launches = {**gradnorm.LAUNCHES, **fa.LAUNCHES}
+    launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
-    check(res.launches == {"prefill": 28, "decode": 0},
-          f"flash_attention launches per phase {res.launches}, expected 28 "
-          "in prefill (one per layer) and 0 in decode")
-    check(launches == {"rownorm2": 0, "gradnorm_sigma": 0,
-                       "flash_attention": 28},
-          f"launches on the serving path {launches}")
+    check(res.launches == expected,
+          f"{arch}: launches per phase {res.launches}, expected {expected}")
+    total = {k: 0 for k in launches}
+    for phase in expected.values():
+        for k, v in phase.items():
+            total[k] += v
+    check(launches == total, f"launches on the {arch} path {launches}, "
+          f"expected {total}")
     check(tuple(res.tokens.shape) == (SERVE_BATCH, NEW_TOKENS + 1),
           f"tokens shape {tuple(res.tokens.shape)}")
-    check(bool(((res.tokens >= 0) & (res.tokens < 128256)).all()),
+    check(bool(((res.tokens >= 0) & (res.tokens < vocab)).all()),
           "tokens out of the vocabulary")
     steps = sorted(res.decode_s)
-    print(f"serve {ARCH} full width: params {res.n_params:,}, batch "
+    print(f"serve {arch} full width: params {res.n_params:,}, batch "
           f"{SERVE_BATCH}, prompt {PROMPT}, {NEW_TOKENS} new tokens | "
           f"prefill {res.prefill_s:.6f} s "
           f"({SERVE_BATCH * PROMPT / res.prefill_s:.1f} tok/s) | decode "
@@ -388,17 +456,17 @@ def phase_serve(torch, serve_mod, fa, gradnorm):
           f"max {1e3 * steps[-1]:.3f} first {1e3 * res.decode_s[0]:.3f} | "
           f"peak memory {peak / 2**30:.3f} GiB | launches {launches} "
           f"per phase {res.launches}")
-    print(f"serve tokens of sequence 0: {res.tokens[0].tolist()}")
-    return launches
+    print(f"serve {arch} tokens of sequence 0: {res.tokens[0].tolist()}")
+    return launches, res.n_params
 
 
-def phase_serve_profile(torch, tm, get_config):
+def phase_serve_profile(torch, tm, get_config, arch):
     """Where the serving time goes: one prefill and one decode step of
-    the serving configuration under ``torch.profiler`` (after a warm-up
+    a serving configuration under ``torch.profiler`` (after a warm-up
     of each): device operations, device busy time against wall time,
     and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = tm.init_model(cfg, gen, "cuda")
     prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, PROMPT),
@@ -422,10 +490,11 @@ def phase_serve_profile(torch, tm, get_config):
         for e in dev:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        print(f"{name} under the profiler: {len(dev)} device operations, "
-              f"device busy {busy:.3f} ms of wall {wall:.3f} ms, device idle "
-              f"share {1 - busy / wall:.4f}; top device time: "
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(f"{arch} {name} under the profiler: {len(dev)} device "
+              f"operations, device busy {busy:.3f} ms of wall {wall:.3f} "
+              f"ms, device idle share {1 - busy / wall:.4f}; top device "
+              "time: "
               + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in top))
 
     step("prefill", lambda: prefill(model, {"tokens": prompts}, cache))
@@ -434,10 +503,11 @@ def phase_serve_profile(torch, tm, get_config):
         "tokens": tok, "cache_index": PROMPT}))
 
 
-def phase_llm_replay(torch, tm, get_config, full_fp32):
-    """llama3.2-3b at full width, depth cut to 2 layers, fp32 with TF32
-    off: the same weights and prompt on the CPU and on the card."""
-    cfg = get_config(ARCH).scaled(n_layers=REPLAY_LAYERS, dtype="float32")
+def phase_llm_replay(torch, tm, get_config, full_fp32, arch, states=False):
+    """``arch`` at full width, depth cut to 2 layers, fp32 with TF32 off:
+    the same weights and prompt on the CPU and on the card.  With
+    ``states``, each layer's SSM state after the prefill is held too."""
+    cfg = get_config(arch).scaled(n_layers=REPLAY_LAYERS, dtype="float32")
     model = tm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     prompt = torch.randint(0, cfg.vocab, (1, REPLAY_PROMPT),
                            generator=torch.Generator().manual_seed(1))
@@ -451,6 +521,8 @@ def phase_llm_replay(torch, tm, get_config, full_fp32):
             logits, cache = prefill(model, {"tokens": prompt.to(device)},
                                     cache)
             first = logits.cpu()
+            h = (cache["body"]["pos0"]["h"].cpu().clone() if states
+                 else None)
             tok = torch.argmax(logits[:, -1], -1)
             toks, steps = [int(tok)], []
             for i in range(REPLAY_STEPS):
@@ -460,7 +532,7 @@ def phase_llm_replay(torch, tm, get_config, full_fp32):
                 steps.append(logits.cpu())
                 tok = torch.argmax(logits[:, -1], -1)
                 toks.append(int(tok))
-        return first, toks, steps, time.perf_counter() - t0
+        return first, toks, steps, time.perf_counter() - t0, h
 
     cpu = run("cpu")
     model.to("cuda")
@@ -469,17 +541,27 @@ def phase_llm_replay(torch, tm, get_config, full_fp32):
     atol = LOGITS_RTOL * float(ref.abs().max())
     err = float((gpu[0] - ref).abs().max())
     check(bool(torch.allclose(gpu[0], ref, rtol=LOGITS_RTOL, atol=atol)),
-          f"LLM replay: prefill logits differ by {err:.3g} (rtol "
+          f"{arch} replay: prefill logits differ by {err:.3g} (rtol "
           f"{LOGITS_RTOL}, atol {atol:.3g})")
-    check(gpu[1] == cpu[1], f"LLM replay: greedy tokens differ: card "
+    check(gpu[1] == cpu[1], f"{arch} replay: greedy tokens differ: card "
           f"{gpu[1]} cpu {cpu[1]}")
+    state_msg = ""
+    if states:
+        for layer, (g, c) in enumerate(zip(gpu[4], cpu[4])):
+            h_atol = LOGITS_RTOL * float(c.abs().max())
+            h_err = float((g - c).abs().max())
+            check(bool(torch.allclose(g, c, rtol=LOGITS_RTOL, atol=h_atol)),
+                  f"{arch} replay: layer {layer} SSM state differs by "
+                  f"{h_err:.3g} (rtol {LOGITS_RTOL}, atol {h_atol:.3g})")
+            state_msg += (f", layer {layer} state max abs err {h_err:.3g} "
+                          f"(max |h| {float(c.abs().max()):.3g})")
     step_err = max(float((g - c).abs().max()) for g, c in zip(gpu[2], cpu[2]))
-    print(f"LLM replay ({ARCH} full width, {REPLAY_LAYERS} layers, fp32, TF32 "
+    print(f"{arch} replay (full width, {REPLAY_LAYERS} layers, fp32, TF32 "
           f"off, prompt {REPLAY_PROMPT}, {REPLAY_STEPS} greedy steps): "
           f"prefill logits max abs err {err:.3g} (max |logit| "
-          f"{float(ref.abs().max()):.3g}), decode logits max abs err "
-          f"{step_err:.3g}, tokens equal {gpu[1]}; cpu {cpu[3]:.2f} s, card "
-          f"{gpu[3]:.2f} s")
+          f"{float(ref.abs().max()):.3g}){state_msg}, decode logits max abs "
+          f"err {step_err:.3g}, tokens equal {gpu[1]}; cpu {cpu[3]:.2f} s, "
+          f"card {gpu[3]:.2f} s")
 
 
 def main() -> None:
@@ -498,7 +580,7 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.core import matching, selection
     from repro_torch.device import full_fp32
-    from repro_torch.kernels import flash_attention, gradnorm, ops
+    from repro_torch.kernels import flash_attention, gradnorm, lru_scan, ops
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import model as tm
 
@@ -522,8 +604,9 @@ def main() -> None:
     done("1 environment")
 
     # -- 2. build: one nvcc per source, started together -----------------
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futures = [pool.submit(m.build) for m in (gradnorm, flash_attention)]
+    kernels = (gradnorm, flash_attention, lru_scan)
+    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
+        futures = [pool.submit(m.build) for m in kernels]
         infos = [f.result() for f in futures]
     for info in infos:
         print(f"build: {info.path.name} in {info.seconds:.2f} s")
@@ -536,6 +619,7 @@ def main() -> None:
     # -- 3. kernels against their plain versions ------------------------
     norm_rec, sigma_rec = phase_kernels(torch, gradnorm)
     flash_rec = phase_flash(torch, flash_attention, ops)
+    scan_rec = phase_scan(torch, lru_scan, ops)
     done("3 kernels")
 
     # -- 4. the FEEL path -----------------------------------------------
@@ -546,8 +630,8 @@ def main() -> None:
     tr = make_trainer(rt, torch, data, init_sd, "cuda")
     print(f"FEEL path: K={K} N={N} Q={Q} d_hat={D_HAT} side={SIDE} "
           f"gp_steps={GP_STEPS}")
-    gradnorm.reset_launch_counts()
-    flash_attention.reset_launch_counts()
+    for m in kernels:
+        m.reset_launch_counts()
     gpu0 = None
     for i in range(ROUNDS):
         m = tr.run_round(i, eval_now=i == ROUNDS - 1)
@@ -572,9 +656,9 @@ def main() -> None:
                     "sigma": st.sigma.cpu(), "net_cost": dec.net_cost,
                     "params": host(tr.params),
                     "mu": host(tr.opt_state.mu), "state": st}
-    feel_launches = {**gradnorm.LAUNCHES, **flash_attention.LAUNCHES}
+    feel_launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
     check(feel_launches == {"rownorm2": 0, "gradnorm_sigma": ROUNDS,
-                            "flash_attention": 0},
+                            "flash_attention": 0, "lru_scan": 0},
           f"launches on the FEEL path {feel_launches} in {ROUNDS} rounds")
     print(f"FEEL path launches: {feel_launches}")
     done("4 FEEL path")
@@ -603,17 +687,40 @@ def main() -> None:
     done("6 FEEL profile")
 
     # -- 7. the serving path --------------------------------------------
-    serve_launches = phase_serve(torch, serve_mod, flash_attention, gradnorm)
+    serve_launches, _ = phase_serve(
+        torch, serve_mod, kernels, ARCH,
+        {"prefill": {"flash_attention": 28, "lru_scan": 0},
+         "decode": {"flash_attention": 0, "lru_scan": 0}}, 128256)
     print(f"flash_attention device time of one prefill's 28 launches: "
           f"{28 * flash_rec['ms']:.3f} ms (28 x the {FLASH_SLICE} time)")
-    phase_serve_profile(torch, tm, get_config)
+    phase_serve_profile(torch, tm, get_config, ARCH)
     done("7 serve")
 
     # -- 8. LLM replay on the CPU ----------------------------------------
-    phase_llm_replay(torch, tm, get_config, full_fp32)
+    phase_llm_replay(torch, tm, get_config, full_fp32, ARCH)
     done("8 LLM replay")
 
-    # -- 9. results -----------------------------------------------------
+    # -- 9. the mamba serving path --------------------------------------
+    torch.cuda.empty_cache()
+    mamba_launches, n_params = phase_serve(
+        torch, serve_mod, kernels, MAMBA,
+        {"prefill": {"flash_attention": 0, "lru_scan": MAMBA_LAYERS},
+         "decode": {"flash_attention": 0, "lru_scan": 0}}, 65024)
+    check(n_params == MAMBA_PARAMS,
+          f"{MAMBA}: {n_params:,} parameters, expected {MAMBA_PARAMS:,}")
+    print(f"lru_scan device time of one prefill's {MAMBA_LAYERS} launches: "
+          f"{MAMBA_LAYERS * scan_rec['ms']:.3f} ms ({MAMBA_LAYERS} x the "
+          f"{SCAN_SLICE} time)")
+    torch.cuda.empty_cache()
+    phase_serve_profile(torch, tm, get_config, MAMBA)
+    done("9 mamba serve")
+
+    # -- 10. mamba replay on the CPU ------------------------------------
+    torch.cuda.empty_cache()
+    phase_llm_replay(torch, tm, get_config, full_fp32, MAMBA, states=True)
+    done("10 mamba replay")
+
+    # -- 11. results ----------------------------------------------------
     def entry(name, source, replaces, launches, rec):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -626,14 +733,17 @@ def main() -> None:
     print(f"total wall {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [
         entry("rownorm2", gn_src, "src/repro/kernels/gradnorm.py:62",
-              feel_launches["rownorm2"] + serve_launches["rownorm2"],
-              norm_rec),
+              feel_launches["rownorm2"] + serve_launches["rownorm2"]
+              + mamba_launches["rownorm2"], norm_rec),
         entry("gradnorm_sigma", gn_src, "src/repro/kernels/gradnorm.py:62",
               feel_launches["gradnorm_sigma"], sigma_rec),
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:112",
-              serve_launches["flash_attention"], flash_rec)]}))
+              serve_launches["flash_attention"], flash_rec),
+        entry("lru_scan", "src/repro_torch/kernels/csrc/lru_scan.cu",
+              "src/repro/kernels/lru_scan.py:70",
+              mamba_launches["lru_scan"], scan_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

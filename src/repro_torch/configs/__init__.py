@@ -14,6 +14,7 @@ from ..models.config import ArchConfig
 
 ARCHS: List[str] = [
     "llama3_2-3b",
+    "falcon-mamba-7b",
 ]
 
 ALIASES = {"llama3.2-3b": "llama3_2-3b"}

@@ -1,0 +1,130 @@
+"""Linear-recurrence scan: the hand-written CUDA kernel and its plain version.
+
+Counterpart of ``repro/kernels/lru_scan.py``: h_t = a_t * h_{t-1} + b_t
+over (B, S, C) tensors from h_{-1} = 0, with an fp32 carry and fp32
+output.  The Mamba-1 mixer (``models/ssm.py``) runs its prefill
+recurrence through it, with the (d_inner, n_state) plane flattened into
+channels.  ``lru_scan`` launches the CUDA C++ kernel of
+``csrc/lru_scan.cu`` (built for sm_90a with nvcc at first use and loaded
+with ctypes) on CUDA tensors, and uses ``lru_scan_plain`` only for CPU
+tensors.  Any other device, a dtype other than float32 or bfloat16, a
+rank other than 3, a non-contiguous tensor, or mismatched shapes, dtypes
+or devices raise: there is no silent fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from . import nvcc
+from .nvcc import BuildInfo
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "lru_scan.cu"
+#: where the shared library is built (listed in .gitignore).
+BUILD_DIR = nvcc.BUILD_DIR
+NVCC_FLAGS = nvcc.BASE_FLAGS
+_MAX_GRID_Y = 65535  # the batch is the grid's y dimension
+
+#: kernel launches; bumped only where the kernel launches.
+LAUNCHES = {"lru_scan": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------- plain
+
+def lru_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The sequential definition in fp32 (``ref.lru_scan_ref`` of the
+    reference): a loop over S of h = a_t * h + b_t, stacked.
+    a, b: (B, S, C) -> (B, S, C) float32."""
+    a, b = a.float(), b.float()
+    if a.shape[1] == 0:
+        return torch.zeros_like(a)
+    h = torch.zeros_like(a[:, 0])
+    out = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out.append(h)
+    return torch.stack(out, dim=1)
+
+
+# ---------------------------------------------------------------- build
+
+_LIB: Optional[ctypes.CDLL] = None
+_BUILD: Optional[BuildInfo] = None
+
+
+def build() -> BuildInfo:
+    """Compile ``csrc/lru_scan.cu`` into ``BUILD_DIR`` unless a library
+    built from the same source and flags is already there."""
+    global _BUILD
+    if _BUILD is None:
+        _BUILD = nvcc.build(SOURCE, NVCC_FLAGS, BUILD_DIR)
+    return _BUILD
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build().path))
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        for fn in (lib.repro_lru_scan_f32, lib.repro_lru_scan_bf16):
+            fn.argtypes = [p, p, p, i64, i64, i64, p]
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+# -------------------------------------------------------------- wrapper
+
+def _check(a: torch.Tensor, b: torch.Tensor) -> None:
+    for name, x in (("a", a), ("b", b)):
+        if x.device.type != "cuda":
+            raise ValueError(f"{name}: the scan kernel takes CUDA tensors "
+                             f"(plain version: CPU tensors), got {x.device}")
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name}: the scan kernel takes float32 or "
+                            f"bfloat16, got {x.dtype}")
+        if x.dim() != 3:
+            raise ValueError(f"{name}: expected a 3-D (B, S, C) tensor, "
+                             f"got shape {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: the scan kernel takes a contiguous "
+                             "tensor")
+    if a.shape != b.shape:
+        raise ValueError(f"a and b must have one (B, S, C) shape, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if a.dtype != b.dtype:
+        raise TypeError(f"a and b must share a dtype, got {a.dtype} and "
+                        f"{b.dtype}")
+    if a.device != b.device:
+        raise ValueError("a and b must be on one device")
+    if a.shape[0] > _MAX_GRID_Y:
+        raise ValueError(f"the scan kernel takes a batch of at most "
+                         f"{_MAX_GRID_Y}, got {a.shape[0]}")
+
+
+def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b: (B, S, C) -> h: (B, S, C) float32 with
+    h_t = a_t h_{t-1} + b_t."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return lru_scan_plain(a, b)
+    _check(a, b)
+    B, S, C = a.shape
+    out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    if a.numel():
+        lib = _lib()
+        fn = (lib.repro_lru_scan_f32 if a.dtype == torch.float32
+              else lib.repro_lru_scan_bf16)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            nvcc.raise_on(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                             B, S, C, stream), "lru_scan")
+        LAUNCHES["lru_scan"] += 1
+    return out

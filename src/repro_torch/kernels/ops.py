@@ -1,10 +1,10 @@
 """Public wrappers around the port's hand-written kernels.
 
-Counterpart of ``repro/kernels/ops.py`` for the kernels ported so far
-(the row-norm sigma kernel and flash attention; the LRU scan is still
-to be ported).  Same signatures as the reference, minus its
-``interpret`` flag: the device of the inputs decides, CUDA tensors
-launch the CUDA kernel and CPU tensors take its plain version.
+Counterpart of ``repro/kernels/ops.py``: the row-norm sigma kernel,
+flash attention and the linear-recurrence scan.  Same signatures as the
+reference, minus its ``interpret`` flag and block sizes: the device of
+the inputs decides, CUDA tensors launch the CUDA kernel and CPU tensors
+take its plain version.
 """
 from __future__ import annotations
 
@@ -14,9 +14,10 @@ import torch
 
 from .flash_attention import flash_attention
 from .gradnorm import gradnorm_sigma, rownorm2
+from .lru_scan import lru_scan
 
 __all__ = ["flash_attention_bhsd", "rownorm2", "gradnorm_sigma",
-           "sigma_from_head"]
+           "lru_scan", "sigma_from_head"]
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

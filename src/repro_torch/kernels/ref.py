@@ -9,3 +9,4 @@ from __future__ import annotations
 from .flash_attention import flash_attention_plain as flash_attention_ref  # noqa: F401
 from .gradnorm import gradnorm_sigma_plain as gradnorm_sigma_ref  # noqa: F401
 from .gradnorm import rownorm2_plain as rownorm2_ref  # noqa: F401
+from .lru_scan import lru_scan_plain as lru_scan_ref  # noqa: F401

@@ -1,12 +1,14 @@
 """Batched serving driver: prefill a batch of prompts, then greedy
-decode with the KV cache.
+decode with the cache (KV for attention, conv and SSM state for mamba).
 
-Counterpart of ``repro/launch/serve.py`` for text decoders.  Runs on
-the GPU unless ``--device cpu`` is given; without a GPU and without it,
-it raises.
+Counterpart of ``repro/launch/serve.py`` for text decoders
+(``llama3.2-3b``, ``falcon-mamba-7b``).  Runs on the GPU unless
+``--device cpu`` is given; without a GPU and without it, it raises.
 
     python -m repro_torch.launch.serve --full --batch 4 \\
         --prompt-len 2048 --new-tokens 32                      # GPU
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b --full \\
+        --batch 4 --prompt-len 2048 --new-tokens 32            # GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --batch 2 --prompt-len 16 --new-tokens 4               # smoke
 """
@@ -21,7 +23,7 @@ import torch
 
 from ..configs import ALIASES, ARCHS, get_config, smoke_config
 from ..device import DeviceLike, resolve_device, synchronize
-from ..kernels import flash_attention
+from ..kernels import flash_attention, lru_scan
 from ..models import (init_model, make_cache, make_decode_step,
                       make_prefill_step, param_count)
 
@@ -31,8 +33,17 @@ class ServeResult:
     tokens: torch.Tensor      # (batch, new_tokens + 1): prefill's, then each step's
     prefill_s: float          # prefill wall time, device synchronized
     decode_s: List[float]     # wall time of each decode step
-    launches: Dict[str, int]  # flash-attention kernel launches per phase
+    launches: Dict[str, Dict[str, int]]  # per phase, per kernel
     n_params: int
+
+
+def _launch_counts() -> Dict[str, int]:
+    """The serving path's kernels and their launch counts so far."""
+    return {**flash_attention.LAUNCHES, **lru_scan.LAUNCHES}
+
+
+def _diff(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
+    return {k: after[k] - before[k] for k in after}
 
 
 def serve(arch: str = "llama3.2-3b", batch: int = 4, prompt_len: int = 32,
@@ -54,16 +65,15 @@ def serve(arch: str = "llama3.2-3b", batch: int = 4, prompt_len: int = 32,
     cache = make_cache(cfg, batch, prompt_len + new_tokens, device=dev)
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
-    count = flash_attention.LAUNCHES
 
     synchronize(dev)
-    n0 = count["flash_attention"]
+    n0 = _launch_counts()
     t0 = time.perf_counter()
     logits, cache = prefill(model, {"tokens": prompts}, cache)
     tok = torch.argmax(logits[:, -1], dim=-1)  # greedy
     synchronize(dev)
     t_prefill = time.perf_counter() - t0
-    n1 = count["flash_attention"]
+    n1 = _launch_counts()
 
     toks, steps = [tok], []
     for i in range(new_tokens):
@@ -74,11 +84,12 @@ def serve(arch: str = "llama3.2-3b", batch: int = 4, prompt_len: int = 32,
         synchronize(dev)
         steps.append(time.perf_counter() - t0)
         toks.append(tok)
-    launches = {"prefill": n1 - n0, "decode": count["flash_attention"] - n1}
+    launches = {"prefill": _diff(n1, n0),
+                "decode": _diff(_launch_counts(), n1)}
     ms = 1e3 * sum(steps) / max(new_tokens, 1)
     print(f"prefill {prompt_len} toks x{batch}: {t_prefill:.3f}s; decode "
           f"{new_tokens} steps: {sum(steps):.3f}s ({ms:.2f} ms/step); "
-          f"flash-attention launches {launches}")
+          f"kernel launches {launches}")
     return ServeResult(torch.stack(toks, dim=1).cpu(), t_prefill, steps,
                        launches, n_params)
 

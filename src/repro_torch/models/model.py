@@ -2,11 +2,11 @@
 prefill / decode step functions the serving driver calls.
 
 Counterpart of ``repro/models/model.py`` for the text modality and the
-serving path.  The model is an ``nn.Module`` (``Model``) holding the
-decoder, the embedding table and the LM head, with no gradients
-tracked; the steps run under ``torch.no_grad``.  Training, the FEEL
-integration and the vlm/audio modalities are not ported yet (ROADMAP.md
-queue 1, item 10).
+serving path (attention and mamba decoders).  The model is an
+``nn.Module`` (``Model``) holding the decoder, the embedding table and
+the LM head, with no gradients tracked; the steps run under
+``torch.no_grad``.  Training, the FEEL integration and the vlm/audio
+modalities are not ported yet (ROADMAP.md queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -18,8 +18,10 @@ from torch import nn
 
 from .config import ArchConfig
 from .layers import MLP, Attention, _TODO, frozen, init_dense
-from .transformer import (Block, Cache, Decoder, _layer_plan, apply_decoder,
-                          check_supported, init_cache, init_decoder)
+from .ssm import FP32_LEAVES, Mamba
+from .transformer import (Block, Cache, Decoder, MambaBlock, _layer_plan,
+                          apply_decoder, check_supported, init_cache,
+                          init_decoder)
 
 Tensor = torch.Tensor
 
@@ -74,15 +76,21 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping,
     of ``tree["decoder"]["body"]["pos{p}"]`` is unstacked into one
     ``Block`` per layer, repeat r and pattern position p at
     ``decoder.body[r * P + p]``.  Values are carried exactly, in
-    ``cfg.act_dtype``.
+    ``cfg.act_dtype``, except the mamba mixer's float32 leaves
+    (``ssm.FP32_LEAVES``), which stay float32 as in the reference.
     """
     check_supported(cfg)
     dtype = cfg.act_dtype
 
-    def t(a):
-        return _tensor(a, dtype, device)
+    def t(a, dt=dtype):
+        return _tensor(a, dt, device)
 
-    def block(p):
+    def block(kind, p):
+        if kind == "mamba":
+            m = p["mixer"]
+            return MambaBlock(t(p["ln1"]), Mamba(**{
+                n: t(m[n], torch.float32 if n in FP32_LEAVES else dtype)
+                for n in Mamba.LEAVES}))
         a, f = p["attn"], p["ffn"]
         return Block(t(p["ln1"]),
                      Attention(t(a["wq"]), t(a["wk"]), t(a["wv"]),
@@ -91,14 +99,15 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping,
                      MLP(t(f["w_gate"]), t(f["w_up"]), t(f["w_down"])))
 
     dec = tree["decoder"]
-    _, n_body, pattern, _ = _layer_plan(cfg)
+    head, n_body, pattern, tail = _layer_plan(cfg)
     body = []
     for r in range(n_body):
-        for p in range(len(pattern)):
+        for p, kind in enumerate(pattern):
             stacked = dec["body"][f"pos{p}"]
-            body.append(block(_index(stacked, r)))
-    decoder = Decoder([block(p) for p in dec["head"]], body,
-                      [block(p) for p in dec["tail"]], t(dec["final_norm"]))
+            body.append(block(kind, _index(stacked, r)))
+    decoder = Decoder([block(k, p) for k, p in zip(head, dec["head"])], body,
+                      [block(k, p) for k, p in zip(tail, dec["tail"])],
+                      t(dec["final_norm"]))
     return Model(decoder, t(tree["embed"]),
                  None if cfg.tie_embeddings else t(tree["lm_head"]))
 

@@ -1,0 +1,145 @@
+"""Mamba-1 selective SSM mixer (Falcon-Mamba-7B architecture).
+
+Counterpart of ``repro/models/ssm.py``.  The recurrence
+    h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t
+is diagonal per (channel, state).  Prefill materialises dA = exp(dt A)
+and dBx = dt B x over the (B, S, d_inner, n) plane in fp32, as the
+reference does, and runs the recurrence through the hand-written scan
+kernel (``kernels.ops.lru_scan``, with the (d_inner, n) plane flattened
+into channels) where the reference runs ``jax.lax.associative_scan``;
+the two compute the same h.  Decode is the single-step recurrence on the
+carried (conv_state, ssm_state) in eager torch, and launches no kernel
+of the port.
+
+Cache layout: {"conv": (B, k-1, d_inner) in the activation dtype,
+"h": (B, d_inner, n) fp32}.  The mixer writes both in place
+(``copy_``), so the views of a stacked cache that ``apply_decoder``
+hands each layer are updated.  The ``train`` mode is not ported yet and
+raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+from .config import ArchConfig
+from .layers import _TODO, frozen, init_dense
+
+Tensor = torch.Tensor
+
+#: the mixer's leaves that stay float32 whatever the activation dtype
+#: (the reference's ``init_mamba`` keeps them so).
+FP32_LEAVES = ("dt_bias", "A_log", "D")
+
+
+class Mamba(nn.Module):
+    """Mixer weights under the reference's names: in_proj (d, 2 di),
+    conv_w (k, di), conv_b (di,), x_proj (di, dtr + 2n), dt_proj
+    (dtr, di), and out_proj (di, d) in the activation dtype; dt_bias
+    (di,), A_log (di, n) and D (di,) in float32."""
+
+    LEAVES = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
+              "dt_bias", "A_log", "D", "out_proj")
+
+    def __init__(self, **leaves: Tensor):
+        super().__init__()
+        for name in self.LEAVES:
+            setattr(self, name, frozen(leaves[name]))
+
+
+def init_mamba(generator: torch.Generator, cfg: ArchConfig,
+               dtype: torch.dtype, device=None) -> Mamba:
+    """The reference's distributions, drawn on ``device`` from
+    ``generator``: dense weights N(0, 1/d_in); conv_w N(0, 1/k); dt_bias
+    the inverse softplus of a log-uniform draw in [1e-3, 1e-1];
+    A_log = log(1..n) in every channel; D = 1."""
+    d, di, n = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state
+    dtr, k = cfg.ssm_dt_rank_, cfg.ssm_conv
+    f32 = torch.float32
+    conv_w = torch.randn((k, di), generator=generator, device=device,
+                         dtype=f32) * (1.0 / k ** 0.5)
+    log_dt = torch.empty(di, device=device, dtype=f32).uniform_(
+        math.log(1e-3), math.log(1e-1), generator=generator)
+    a = torch.arange(1, n + 1, dtype=f32, device=device)
+    return Mamba(
+        in_proj=init_dense(generator, d, 2 * di, dtype, device),
+        conv_w=conv_w.to(dtype),
+        conv_b=torch.zeros(di, dtype=dtype, device=device),
+        x_proj=init_dense(generator, di, dtr + 2 * n, dtype, device),
+        dt_proj=init_dense(generator, dtr, di, dtype, device),
+        dt_bias=torch.log(torch.expm1(torch.exp(log_dt))),
+        A_log=torch.log(a).expand(di, n).contiguous(),
+        D=torch.ones(di, dtype=f32, device=device),
+        out_proj=init_dense(generator, di, d, dtype, device))
+
+
+def _ssm_params(cfg: ArchConfig, p: Mamba, s: Tensor
+                ) -> Tuple[Tensor, Tensor, Tensor]:
+    """dt (B,S,di), Bmat (B,S,n), Cmat (B,S,n) in fp32 from conv output
+    s."""
+    dtr, n = cfg.ssm_dt_rank_, cfg.ssm_state
+    dt_raw, Bmat, Cmat = (s @ p.x_proj).split([dtr, n, n], dim=-1)
+    dt = F.softplus(dt_raw.float() @ p.dt_proj.float() + p.dt_bias)
+    return dt, Bmat.float(), Cmat.float()
+
+
+def _causal_conv(p: Mamba, x: Tensor, k: int) -> Tensor:
+    """Depthwise causal conv along seq: x (B, S, di), summed tap by tap
+    in the input dtype as the reference sums."""
+    S = x.shape[1]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = 0
+    for j in range(k):
+        out = out + pad[:, j:j + S, :] * p.conv_w[j]
+    return out + p.conv_b
+
+
+def mamba_mixer(cfg: ArchConfig, p: Mamba, x: Tensor, mode: str,
+                cache: dict) -> Tensor:
+    """x (B, S, d) -> y (B, S, d).  ``prefill`` writes the last k-1
+    inputs (zero-left-padded when S < k-1) and the final state into
+    ``cache``; ``decode`` (S = 1) advances both by one step."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mode {mode!r} is {_TODO}")
+    B, S, _ = x.shape
+    di, n, k = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_conv
+    A = -torch.exp(p.A_log)  # (di, n)
+    xs, z = (x @ p.in_proj).chunk(2, dim=-1)
+
+    if mode == "prefill":
+        s = F.silu(_causal_conv(p, xs, k))
+        dt, Bmat, Cmat = _ssm_params(cfg, p, s)
+        sf = s.float()
+        # (B, S, di, n) fp32 planes, in the reference's order of products;
+        # exp_ and mul_ in place are exact and save one plane each
+        dA = (dt[..., None] * A).exp_()
+        dBx = (dt[..., None] * Bmat[:, :, None, :]).mul_(sf[..., None])
+        h = ops.lru_scan(dA.view(B, S, di * n),
+                         dBx.view(B, S, di * n)).view(B, S, di, n)
+        del dA, dBx
+        y = torch.einsum("bsdn,bsn->bsd", h, Cmat) + p.D * sf
+        xp = F.pad(xs, (0, 0, max(k - 1 - S, 0), 0))
+        cache["conv"].copy_(xp[:, xp.shape[1] - (k - 1):, :])
+        cache["h"].copy_(h[:, -1])
+    else:
+        conv_buf = torch.cat([cache["conv"], xs.to(cache["conv"].dtype)],
+                             dim=1)
+        conv_out = (torch.einsum("bkd,kd->bd", conv_buf, p.conv_w)
+                    + p.conv_b)[:, None, :]
+        s = F.silu(conv_out)
+        dt, Bmat, Cmat = _ssm_params(cfg, p, s)
+        sf = s.float()
+        dA = torch.exp(dt[:, 0, :, None] * A)                 # (B, di, n)
+        dBx = dt[:, 0, :, None] * Bmat[:, 0, None, :] * sf[:, 0, :, None]
+        h1 = dA * cache["h"] + dBx
+        y = (torch.einsum("bdn,bn->bd", h1, Cmat[:, 0])
+             + p.D * sf[:, 0])[:, None, :]
+        cache["conv"].copy_(conv_buf[:, 1:, :])
+        cache["h"].copy_(h1)
+
+    return (y.to(x.dtype) * F.silu(z)) @ p.out_proj

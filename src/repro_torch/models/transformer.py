@@ -7,17 +7,21 @@ pattern prefix.  Where the reference stacks the repeated layers and
 runs one ``lax.scan`` over them, the port keeps one ``Block`` per layer
 in an ``nn.ModuleList`` and runs a Python loop.
 
-The cache keeps the reference's layout: ``{"head": [...], "body":
-{"pos{p}": {"k", "v"}: (n_body, B, C, Hk, Dh)}, "tail": [...]}``.  The
-port updates it in place: prefill writes slots [0, S) of the cache it is
-given, decode writes slot ``cache_index``, and both return the same
-dict.  That keeps one cache of ``prompt_len + new_tokens`` slots for a
-whole request, where the reference builds new arrays each step.
+Block kinds and their caches (the reference's layout):
+    attn   {"k", "v"}: (B, C, Hk, Dh)
+    mamba  {"conv": (B, k-1, d_inner), "h": (B, d_inner, n) fp32}
+stacked over the repeats in ``{"head": [...], "body": {"pos{p}": ...},
+"tail": [...]}``.  The port updates the cache in place: prefill writes
+slots [0, S) of an attention cache and the final state of a mamba
+cache, decode writes slot ``cache_index`` or advances the state, and
+both return the same dict.  That keeps one cache of ``prompt_len +
+new_tokens`` slots for a whole request, where the reference builds new
+arrays each step.
 
-Only ``"attn"`` blocks with a dense FFN, text inputs and the ``prefill``
-and ``decode`` modes are ported.  ``attn_local``, ``mla``, ``mamba``,
-``rglru``, MoE and the ``train`` mode raise ``NotImplementedError``
-(ROADMAP.md queue 1, item 10).
+Only ``"attn"`` blocks with a dense FFN and ``"mamba"`` blocks (no FFN),
+text inputs and the ``prefill`` and ``decode`` modes are ported.
+``attn_local``, ``mla``, ``rglru``, MoE and the ``train`` mode raise
+``NotImplementedError`` (ROADMAP.md queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -30,15 +34,18 @@ from .config import ArchConfig
 from .layers import (MLP, Attention, _TODO, apply_rope, causal_attend,
                      decode_attend, frozen, init_attention, init_mlp, mlp,
                      rmsnorm)
+from .ssm import Mamba, init_mamba, mamba_mixer
 
 Tensor = torch.Tensor
 Cache = dict
+
+KINDS = ("attn", "mamba")
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for what of ``cfg`` the port does not run yet."""
     for kind in cfg.layer_pattern:
-        if kind != "attn":
+        if kind not in KINDS:
             raise NotImplementedError(f"{cfg.name}: {kind!r} blocks are "
                                       f"{_TODO}")
     if cfg.n_experts:
@@ -64,13 +71,24 @@ class Block(nn.Module):
         self.ffn = ffn
 
 
+class MambaBlock(nn.Module):
+    """Pre-norm residual mamba block: ln1, mixer (no ln2, no FFN)."""
+
+    def __init__(self, ln1: Tensor, mixer: Mamba):
+        super().__init__()
+        self.ln1 = frozen(ln1)
+        self.mixer = mixer
+
+
 def init_block(generator: torch.Generator, cfg: ArchConfig, kind: str,
                use_moe: bool, dense_ff: Optional[int] = None,
-               device=None) -> Block:
-    if kind != "attn" or use_moe:
+               device=None) -> Union[Block, MambaBlock]:
+    if kind not in KINDS or use_moe:
         raise NotImplementedError(f"{kind!r} blocks and MoE are {_TODO}")
     dtype, d = cfg.act_dtype, cfg.d_model
     ones = torch.ones(d, dtype=dtype, device=device)
+    if kind == "mamba":
+        return MambaBlock(ones, init_mamba(generator, cfg, dtype, device))
     return Block(ones, init_attention(generator, cfg, dtype, device),
                  ones.clone(),
                  init_mlp(generator, d, dense_ff or cfg.d_ff, dtype, device))
@@ -101,14 +119,17 @@ def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
     return out.reshape(B, S, H * Dh) @ ap.wo
 
 
-def apply_block(cfg: ArchConfig, kind: str, use_moe: bool, p: Block,
-                x: Tensor, positions: Tensor, mode: str, cache: Cache,
+def apply_block(cfg: ArchConfig, kind: str, use_moe: bool,
+                p: Union[Block, MambaBlock], x: Tensor, positions: Tensor,
+                mode: str, cache: Cache,
                 cache_index: Union[int, Tensor]) -> Tensor:
     """Pre-norm residual block. Returns the new x (the reference's aux
     loss belongs to MoE, which is not ported)."""
-    if kind != "attn" or use_moe:
+    if kind not in KINDS or use_moe:
         raise NotImplementedError(f"{kind!r} blocks and MoE are {_TODO}")
     h = rmsnorm(x, p.ln1)
+    if kind == "mamba":
+        return x + mamba_mixer(cfg, p.mixer, h, mode, cache)
     x = x + _attn_apply(cfg, kind, p, h, positions, mode, cache, cache_index)
     return x + mlp(p.ffn, rmsnorm(x, p.ln2), cfg.act)
 
@@ -159,15 +180,22 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     check_supported(cfg)
     dtype = dtype or cfg.act_dtype
     head, n_body, pattern, tail = _layer_plan(cfg)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
 
-    def zeros(*lead):
-        return {n: torch.zeros(lead + shape, dtype=dtype, device=device)
+    def zeros(kind, *lead):
+        if kind == "mamba":
+            di = cfg.ssm_d_inner
+            return {"conv": torch.zeros(lead + (batch, cfg.ssm_conv - 1, di),
+                                        dtype=dtype, device=device),
+                    "h": torch.zeros(lead + (batch, di, cfg.ssm_state),
+                                     dtype=torch.float32, device=device)}
+        shape = lead + (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+        return {n: torch.zeros(shape, dtype=dtype, device=device)
                 for n in ("k", "v")}
 
-    return {"head": [zeros() for _ in head],
-            "body": {f"pos{i}": zeros(n_body) for i in range(len(pattern))},
-            "tail": [zeros() for _ in tail]}
+    return {"head": [zeros(kind) for kind in head],
+            "body": {f"pos{i}": zeros(kind, n_body)
+                     for i, kind in enumerate(pattern)},
+            "tail": [zeros(kind) for kind in tail]}
 
 
 def apply_decoder(cfg: ArchConfig, dec: Decoder, x: Tensor,

@@ -8,14 +8,17 @@ a CUDA kernel has no CPU mode.  The file imports only torch and
 
 Tolerances: the row-norm kernels at rtol 1e-5 (float32 sums taken in
 another order); flash attention at atol/rtol 2e-5 in fp32 and 2e-2 in
-bf16, the reference's kernel tolerances (tests/test_kernels.py).
+bf16, the reference's kernel tolerances (tests/test_kernels.py); the
+linear-recurrence scan at atol/rtol 1e-5 (the kernel's fused
+multiply-add against the plain version's multiply, then add), the
+reference's scan tolerance.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import flash_attention, gradnorm, ops  # noqa: E402
+from repro_torch.kernels import flash_attention, gradnorm, lru_scan, ops  # noqa: E402
 
 SHAPES = [(10, 50), (300, 700), (8, 4096), (1000, 130)]
 MAIN_PATH = [(2000, 84), (2000, 10)]  # K*D̂ rows of h and of p - y
@@ -148,3 +151,66 @@ def test_cuda_flash_rejects_what_the_kernel_does_not_take(cuda):
     out = flash_attention.flash_attention(empty, empty, empty)
     assert out.shape == (0, 8, 32)
     assert flash_attention.LAUNCHES == {"flash_attention": 0}
+
+
+# ------------------------------------------------------ linear-recurrence scan
+
+SCAN_SHAPES = [(1, 17, 8), (2, 300, 130), (3, 256, 256), (2, 512, 64)]
+
+
+def _ab(seed, shape, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.3, 0.999, shape).astype(np.float32)
+    b = rng.standard_normal(shape).astype(np.float32)
+    return (torch.from_numpy(a).to(device, dtype),
+            torch.from_numpy(b).to(device, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,c", SCAN_SHAPES)
+def test_cuda_lru_scan_matches_plain(cuda, b, s, c, dtype):
+    a, bb = _ab(b * s + c, (b, s, c), cuda, dtype)
+    lru_scan.reset_launch_counts()
+    got = ops.lru_scan(a, bb)
+    torch.cuda.synchronize()
+    assert lru_scan.LAUNCHES == {"lru_scan": 1}
+    assert got.dtype == torch.float32 and got.shape == (b, s, c)
+    torch.testing.assert_close(got, lru_scan.lru_scan_plain(a, bb),
+                               atol=1e-5, rtol=1e-5)
+    zero = lru_scan.lru_scan(torch.zeros_like(a), bb)  # the identity on b
+    torch.testing.assert_close(zero, bb.float(), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_lru_scan_past_2_31_bytes(cuda):
+    """One fp32 operand of 2,147,500,032 bytes: offsets past 2^31 bytes
+    (the Mamba serving shape is 4.3e9 bytes per operand)."""
+    a, bb = _ab(7, (1, 4096, 131073), cuda)
+    assert a.numel() * a.element_size() > 2 ** 31
+    got = lru_scan.lru_scan(a, bb)
+    want = lru_scan.lru_scan_plain(a, bb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_lru_scan_rejects_what_the_kernel_does_not_take(cuda):
+    a, bb = _ab(8, (2, 64, 32), cuda)
+    lru_scan.reset_launch_counts()
+    with pytest.raises(TypeError):
+        lru_scan.lru_scan(a.int(), bb.int())
+    with pytest.raises(TypeError):
+        lru_scan.lru_scan(a, bb.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        lru_scan.lru_scan(a.transpose(1, 2), bb.transpose(1, 2))
+    with pytest.raises(ValueError, match="3-D"):
+        lru_scan.lru_scan(a[0], bb[0])
+    with pytest.raises(ValueError, match="shape"):
+        lru_scan.lru_scan(a, bb[:, :32].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        lru_scan.lru_scan(a, bb.cpu())
+    assert lru_scan.LAUNCHES == {"lru_scan": 0}
+    empty = torch.empty((2, 0, 32), device=cuda)
+    assert lru_scan.lru_scan(empty, empty).shape == (2, 0, 32)
+    assert lru_scan.LAUNCHES == {"lru_scan": 0}

@@ -111,7 +111,7 @@ def test_unported_attention_paths_raise():
     with pytest.raises(NotImplementedError):
         tl.decode_attend(q[:, :1], q, q, 2, rolling=True)
     with pytest.raises(NotImplementedError):
-        tt.init_decoder(smoke_config(ARCH).scaled(layer_pattern=("mamba",)),
+        tt.init_decoder(smoke_config(ARCH).scaled(layer_pattern=("rglru",)),
                         torch.Generator().manual_seed(0))
 
 

@@ -1,9 +1,10 @@
 """The port's serving entry point (``repro_torch.launch.serve``) on the
 CPU at the smoke size, and its refusal to fall back to the CPU.
 
-The serving numbers of the card (full width, the flash kernel) come
-from chip_smoke.py; on the CPU, prefill attention takes the flash
-kernel's plain version, so no kernel launch is counted.
+The serving numbers of the card (full width, the flash and scan
+kernels) come from chip_smoke.py; on the CPU, prefill attention and the
+mamba scan take their kernels' plain versions, so no kernel launch is
+counted.  The mamba serve's own CPU tests are in tests/test_torch_ssm.py.
 """
 import pytest
 
@@ -21,7 +22,8 @@ def test_serve_smoke_on_cpu_returns_greedy_tokens_and_times():
     assert bool(((res.tokens >= 0) & (res.tokens < 512)).all())
     assert res.prefill_s > 0 and len(res.decode_s) == 3
     assert all(t > 0 for t in res.decode_s)
-    assert res.launches == {"prefill": 0, "decode": 0}  # CPU: plain version
+    none = {"flash_attention": 0, "lru_scan": 0}  # CPU: plain versions
+    assert res.launches == {"prefill": none, "decode": none}
     assert res.n_params == 301_536
     again = serve_mod.serve("llama3_2-3b", batch=2, prompt_len=9,
                             new_tokens=3, smoke=True, seed=0, device="cpu")
@@ -56,4 +58,4 @@ def test_main_raises_without_a_gpu_unless_cpu_is_asked(monkeypatch):
         serve_mod.main(["--batch", "1", "--prompt-len", "4",
                         "--new-tokens", "1"])
     with pytest.raises(ValueError, match="not yet ported"):
-        serve_mod.serve("falcon-mamba-7b", device="cpu")
+        serve_mod.serve("recurrentgemma-9b", device="cpu")
