@@ -9,15 +9,19 @@ exit) if anything in it fails; no failure is caught:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: ``kernels/csrc/gradnorm.cu``, ``kernels/csrc/flash_attention.cu``
+   (fp32), ``kernels/csrc/flash_attention_sm90.cu`` (bf16, tensor cores)
    and ``kernels/csrc/lru_scan.cu`` compiled with nvcc for sm_90a, one
-   nvcc each, started together;
+   nvcc each, started together; ptxas's register and spill lines;
 3. kernels: each CUDA entry point against its plain PyTorch version on
    the card, at the test shapes and at the main paths' shapes, with
    device times (CUDA events over a CUDA graph of back-to-back calls),
    the plain version's time, a one-call PyTorch equivalent where one
-   exists (for flash attention ``scaled_dot_product_attention``, which
-   nothing in the port calls), and the least time the card could take
-   (bytes or operations);
+   exists (for flash attention ``scaled_dot_product_attention``, with
+   ``enable_gqa`` at the GQA serving shape; nothing in the port calls
+   it), and the least time the card could take (bytes or operations);
+   bf16 flash also on views offset by one element (d = 20 and the GQA
+   serving shape), which TMA cannot read in place and the wrapper pads
+   into an aligned copy;
 4. FEEL path: 3 rounds of the paper's §VI-A setup (K=10, N=5, Q=2,
    D̂=200, 28x28 images, faithful selection with 400 GP steps) through
    ``FEELTrainer.run_round``, which scores sigma through the kernel;
@@ -28,11 +32,13 @@ exit) if anything in it fails; no failure is caught:
 7. serving path: ``repro_torch.launch.serve.serve`` on llama3.2-3b at
    full width and depth (28 layers, random weights from a seed), batch
    4, prompt length 2048, 32 greedy tokens; prefill attention goes
-   through the flash kernel, 28 launches per prefill and none in decode;
-   then one prefill and one decode step under ``torch.profiler``;
+   through the bf16 flash kernel, reading the (B, S, H, d) q and
+   (B, S, Hk, d) K/V in place, 28 launches per prefill and none in
+   decode; then one prefill and one decode step under ``torch.profiler``;
 8. LLM replay: llama3.2-3b at full width cut to 2 layers, in fp32 with
    TF32 off, the same weights on the card and on the CPU: prefill
-   logits of a 256-token prompt and 8 greedy steps;
+   logits of a 256-token prompt and 8 greedy steps; the card's prefill
+   runs the fp32 flash kernel, one launch per layer;
 9. mamba serving path: ``serve`` on falcon-mamba-7b at full width and
    depth (64 mamba layers, 7,272,665,088 parameters), batch 4, prompt
    length 2048, 32 greedy tokens; each layer's prefill recurrence goes
@@ -43,9 +49,10 @@ exit) if anything in it fails; no failure is caught:
    logits and each layer's SSM state after a 256-token prompt, and 8
    greedy steps.
 
-Launch counts are zeroed just before each path (4, 7 and 9) and read
-just after.  It prints one ``{"kernels": [...]}`` line and, last, the
-``{"ok": true, "device": ...}`` line.  Without a GPU, or without the
+Launch counts are zeroed just before each path (4, 7, 9, and the
+card's run in 8) and read just after.  It prints one
+``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
+line.  Without a GPU, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero before
 printing either.
 """
@@ -56,6 +63,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -77,7 +85,13 @@ NOISE = 1e-6             # Adam first moment at float32 noise (see tests)
 # flash attention: the reference's kernel tests' shapes and tolerances
 # (tests/test_kernels.py), and the serving path's shape
 FLASH_TEST_SHAPES = [(4, 128, 64), (2, 200, 32), (3, 513, 128), (1, 64, 256)]
-FLASH_SLICE = (4, 24, 2048, 128)   # llama3.2-3b prefill: B, H, S, Dh
+FLASH_EDGE_SHAPES = [(1, 130, 24), (2, 77, 20), (3, 1, 64), (1, 129, 256)]
+# llama3.2-3b prefill as (B, S, H, Hk, Dh): heads folded into one (BH, S,
+# d) batch as the reference's kernel takes them, and the serving path's
+# GQA layout read in place; and the fp32 replay's layers (phase 8)
+FLASH_SLICE = (96, 2048, 1, 1, 128)
+FLASH_GQA = (4, 2048, 24, 8, 128)
+FLASH_F32_REPLAY = (1, 256, 24, 8, 128)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ARCH, SERVE_BATCH, PROMPT, NEW_TOKENS = "llama3.2-3b", 4, 2048, 32
 REPLAY_LAYERS, REPLAY_PROMPT, REPLAY_STEPS = 2, 256, 8
@@ -214,77 +228,96 @@ def phase_kernels(torch, gradnorm):
     return main_norm, main_sigma
 
 
-def flash_bound(bh: int, s: int, d: int, causal: bool, itemsize: int
-                ) -> tuple[float, str]:
+def flash_bound(b: int, s: int, h: int, hk: int, d: int, causal: bool,
+                itemsize: int) -> tuple[float, str]:
     """Operations: 2 flops per multiply-add of q k^T and of p v over the
-    (query, key) pairs the mask keeps; bytes: q, k, v read and o written
-    once.  The peak is that of the input type: the dense bf16 tensor
-    cores for bf16, the CUDA cores' float32 rate for float32."""
+    (query, key) pairs the mask keeps; bytes: q and k, v (Hk heads) read
+    and o written once.  The peak is that of the input type: the dense
+    bf16 tensor cores for bf16, the CUDA cores' float32 rate for
+    float32."""
     pairs = s * (s + 1) / 2 if causal else s * s
-    flops = 4.0 * bh * d * pairs
+    flops = 4.0 * b * h * d * pairs
     peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
-    return bound(4.0 * bh * s * d * itemsize, flops, peak)
+    return bound(2.0 * b * s * (h + hk) * d * itemsize, flops, peak)
 
 
 def phase_flash(torch, fa, ops):
-    """The flash kernel against its plain version at the test shapes and
-    at the serving shape; returns the record of the serving shape."""
+    """The flash kernels against their plain versions at the test shapes,
+    the edge shapes and the main paths' shapes; returns the records of
+    the llama serving shape (bf16, GQA read in place) and of the fp32
+    replay's shape.  Each case: (B, S, H, Hk, d), dtype, causal, and
+    whether it goes through the (BH, S, d) entry (H = Hk, folded) or the
+    strided (B, S, H, d) one, there also as views one element past an
+    aligned base ("bshd+1": q, k and v copied into aligned buffers)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     F = torch.nn.functional
-    cases = [((bh, s, d), dt, True, False) for bh, s, d in FLASH_TEST_SHAPES
-             for dt in ("float32", "bfloat16")]
-    cases += [((2, 96, 64), "float32", False, False),    # non-causal
-              ((2, 130, 3, 32), "float32", True, True),  # (B, S, H, d) fold
-              (FLASH_SLICE, "bfloat16", True, False)]
-    slice_rec = None
-    for shape, dt, causal, bhsd in cases:
+    cases = [((bh, s, 1, 1, d), dt, True, "bhsd") for bh, s, d in
+             FLASH_TEST_SHAPES for dt in ("float32", "bfloat16")]
+    cases += [((2, 96, 1, 1, 64), dt, False, "bhsd")      # non-causal
+              for dt in ("float32", "bfloat16")]
+    cases += [((bh, s, 1, 1, d), "bfloat16", True, "bhsd")
+              for bh, s, d in FLASH_EDGE_SHAPES]
+    cases += [((2, 130, 3, 3, 32), "float32", True, "bshd"),
+              (FLASH_SLICE, "bfloat16", True, "bhsd"),
+              ((1, 77, 6, 2, 20), "bfloat16", True, "bshd+1"),
+              (FLASH_GQA, "bfloat16", True, "bshd"),
+              (FLASH_GQA, "bfloat16", True, "bshd+1"),
+              (FLASH_F32_REPLAY, "float32", True, "bshd")]
+    recs = {}
+    for shape, dt, causal, layout in cases:
         dtype = getattr(torch, dt)
-        if bhsd:                      # q, k, v: (B, S, H, d)
-            b, s, h, d = shape
-        elif len(shape) == 4:         # (B, H, S, d), folded to (B*H, S, d)
-            b, h, s, d = shape
-        else:
-            (bh, s, d), b = shape, 1
-            h = bh
-        qkv = [torch.randn((b * h, s, d), generator=gen, device="cuda"
-                           ).to(dtype) for _ in range(3)]
-        q, k, v = qkv
-        if bhsd:
-            qs = [x.reshape(b, h, s, d).movedim(1, 2) for x in qkv]
-            got = ops.flash_attention_bhsd(*qs, causal=causal)
-            got = got.movedim(2, 1).reshape(b * h, s, d)
-        else:
-            got = fa.flash_attention(q, k, v, causal=causal)
-        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        b, s, h, hk, d = shape
+
+        def randn(heads):
+            off = int(layout == "bshd+1")
+            x = torch.randn(b * s * heads * d + off, generator=gen,
+                            device="cuda").to(dtype)
+            return x[off:].view(b, s, heads, d)
+
+        q4, k4, v4 = randn(h), randn(hk), randn(hk)
+        if layout == "bhsd":          # (B*H, S, d): b is B*H, h == 1
+            q, k, v = (x[:, :, 0] for x in (q4, k4, v4))
+            run = partial(fa.flash_attention, q, k, v, causal=causal)
+            plain = partial(fa.flash_attention_plain, q, k, v, causal=causal)
+            qs, ks, vs = (x[None] for x in (q, k, v))
+        else:                         # (B, S, H, d), k/v with Hk heads
+            q, k, v = q4, k4, v4
+            run = partial(ops.flash_attention_bhsd, q, k, v, causal=causal)
+            plain = partial(fa.flash_attention_bhsd_plain, q, k, v,
+                            causal=causal)
+            qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        got, want = run(), plain()
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         tol = FLASH_TOL[dt]
         check(bool(torch.allclose(got.float(), want.float(), atol=tol,
                                   rtol=tol)),
-              f"flash_attention {shape} {dt} causal={causal}: max abs err "
-              f"{err:.3g} above {tol}")
+              f"flash_attention {layout} {shape} {dt} causal={causal}: max "
+              f"abs err {err:.3g} above {tol}")
+        del got, want
         big = s >= 1024
         calls, replays = (5, 3) if big else (50, 5)
-        q4, k4, v4 = (x.view(b, h, s, d) for x in qkv)
-        b_ms, b_by = flash_bound(b * h, s, d, causal, q.element_size())
+        b_ms, b_by = flash_bound(b, s, h, hk, d, causal, q.element_size())
         rec = {"max_abs_err": err,
-               "ms": device_ms(torch, lambda: fa.flash_attention(
-                   q, k, v, causal=causal), calls, replays),
-               "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(
-                   q, k, v, causal=causal), calls, replays),
+               "ms": device_ms(torch, run, calls, replays),
+               "plain_ms": device_ms(torch, plain, *((2, 2) if big else
+                                                     (calls, replays))),
                "library_ms": device_ms(
                    torch, lambda: F.scaled_dot_product_attention(
-                       q4, k4, v4, is_causal=causal), calls, replays),
+                       qs, ks, vs, is_causal=causal, enable_gqa=hk != h),
+                   calls, replays),
                "bound_ms": b_ms, "bound_by": b_by}
-        print(f"flash_attention {'bhsd ' if bhsd else ''}{shape} {dt} "
-              f"causal={causal}: max_abs_err {err:.3g} (tol {tol}) | device "
-              f"ms: kernel {rec['ms']:.6f} plain {rec['plain_ms']:.6f} sdpa "
-              f"{rec['library_ms']:.6f} bound {b_ms:.6f} ({b_by}) | kernel/"
-              f"bound {rec['ms'] / b_ms:.1f}x kernel/sdpa "
-              f"{rec['ms'] / rec['library_ms']:.1f}x")
-        if shape == FLASH_SLICE:
-            slice_rec = rec
-    return slice_rec
+        print(f"flash_attention {layout} {shape} {dt} causal={causal}: "
+              f"max_abs_err {err:.3g} (tol {tol}) | device ms: kernel "
+              f"{rec['ms']:.6f} plain {rec['plain_ms']:.6f} sdpa "
+              f"{rec['library_ms']:.6f} bound {b_ms:.6f} ({b_by}) | "
+              f"kernel/bound {rec['ms'] / b_ms:.2f}x kernel/sdpa "
+              f"{rec['ms'] / rec['library_ms']:.2f}x")
+        recs[(shape, dt, layout)] = rec
+        del q, k, v, q4, k4, v4, qs, ks, vs
+    torch.cuda.empty_cache()
+    return (recs[(FLASH_GQA, "bfloat16", "bshd")],
+            recs[(FLASH_F32_REPLAY, "float32", "bshd")])
 
 
 def phase_scan(torch, lru, ops):
@@ -427,6 +460,7 @@ def phase_serve(torch, serve_mod, kernels, arch, expected, vocab):
     del warm
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     for m in kernels:
         m.reset_launch_counts()
     res = serve_mod.serve(arch, batch=SERVE_BATCH, prompt_len=PROMPT,
@@ -454,7 +488,8 @@ def phase_serve(torch, serve_mod, kernels, arch, expected, vocab):
           f"ms/step mean {1e3 * sum(steps) / len(steps):.3f} median "
           f"{1e3 * steps[len(steps) // 2]:.3f} min {1e3 * steps[0]:.3f} "
           f"max {1e3 * steps[-1]:.3f} first {1e3 * res.decode_s[0]:.3f} | "
-          f"peak memory {peak / 2**30:.3f} GiB | launches {launches} "
+          f"peak memory {peak / 2**30:.3f} GiB ({before / 2**30:.3f} "
+          f"allocated before the request) | launches {launches} "
           f"per phase {res.launches}")
     print(f"serve {arch} tokens of sequence 0: {res.tokens[0].tolist()}")
     return launches, res.n_params
@@ -503,10 +538,13 @@ def phase_serve_profile(torch, tm, get_config, arch):
         "tokens": tok, "cache_index": PROMPT}))
 
 
-def phase_llm_replay(torch, tm, get_config, full_fp32, arch, states=False):
+def phase_llm_replay(torch, tm, get_config, full_fp32, arch, kernels,
+                     states=False):
     """``arch`` at full width, depth cut to 2 layers, fp32 with TF32 off:
     the same weights and prompt on the CPU and on the card.  With
-    ``states``, each layer's SSM state after the prefill is held too."""
+    ``states``, each layer's SSM state after the prefill is held too.
+    Returns the kernel launches of the card's run (counts zeroed just
+    before it): the fp32 kernels' own path."""
     cfg = get_config(arch).scaled(n_layers=REPLAY_LAYERS, dtype="float32")
     model = tm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     prompt = torch.randint(0, cfg.vocab, (1, REPLAY_PROMPT),
@@ -536,7 +574,10 @@ def phase_llm_replay(torch, tm, get_config, full_fp32, arch, states=False):
 
     cpu = run("cpu")
     model.to("cuda")
+    for m in kernels:
+        m.reset_launch_counts()
     gpu = run("cuda")
+    launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
     ref = cpu[0]
     atol = LOGITS_RTOL * float(ref.abs().max())
     err = float((gpu[0] - ref).abs().max())
@@ -561,7 +602,8 @@ def phase_llm_replay(torch, tm, get_config, full_fp32, arch, states=False):
           f"prefill logits max abs err {err:.3g} (max |logit| "
           f"{float(ref.abs().max()):.3g}){state_msg}, decode logits max abs "
           f"err {step_err:.3g}, tokens equal {gpu[1]}; cpu {cpu[3]:.2f} s, "
-          f"card {gpu[3]:.2f} s")
+          f"card {gpu[3]:.2f} s; card launches {launches}")
+    return launches
 
 
 def main() -> None:
@@ -605,8 +647,10 @@ def main() -> None:
 
     # -- 2. build: one nvcc per source, started together -----------------
     kernels = (gradnorm, flash_attention, lru_scan)
-    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
-        futures = [pool.submit(m.build) for m in kernels]
+    builds = (gradnorm.build, flash_attention.build,
+              flash_attention.build_sm90, lru_scan.build)
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        futures = [pool.submit(fn) for fn in builds]
         infos = [f.result() for f in futures]
     for info in infos:
         print(f"build: {info.path.name} in {info.seconds:.2f} s")
@@ -618,7 +662,7 @@ def main() -> None:
 
     # -- 3. kernels against their plain versions ------------------------
     norm_rec, sigma_rec = phase_kernels(torch, gradnorm)
-    flash_rec = phase_flash(torch, flash_attention, ops)
+    flash_rec, flash_f32_rec = phase_flash(torch, flash_attention, ops)
     scan_rec = phase_scan(torch, lru_scan, ops)
     done("3 kernels")
 
@@ -692,12 +736,16 @@ def main() -> None:
         {"prefill": {"flash_attention": 28, "lru_scan": 0},
          "decode": {"flash_attention": 0, "lru_scan": 0}}, 128256)
     print(f"flash_attention device time of one prefill's 28 launches: "
-          f"{28 * flash_rec['ms']:.3f} ms (28 x the {FLASH_SLICE} time)")
+          f"{28 * flash_rec['ms']:.3f} ms (28 x the {FLASH_GQA} time)")
     phase_serve_profile(torch, tm, get_config, ARCH)
     done("7 serve")
 
     # -- 8. LLM replay on the CPU ----------------------------------------
-    phase_llm_replay(torch, tm, get_config, full_fp32, ARCH)
+    replay_launches = phase_llm_replay(torch, tm, get_config, full_fp32,
+                                       ARCH, kernels)
+    check(replay_launches["flash_attention"] == REPLAY_LAYERS,
+          f"fp32 replay: flash launches {replay_launches}, expected "
+          f"{REPLAY_LAYERS} (one per layer's prefill)")
     done("8 LLM replay")
 
     # -- 9. the mamba serving path --------------------------------------
@@ -717,7 +765,8 @@ def main() -> None:
 
     # -- 10. mamba replay on the CPU ------------------------------------
     torch.cuda.empty_cache()
-    phase_llm_replay(torch, tm, get_config, full_fp32, MAMBA, states=True)
+    phase_llm_replay(torch, tm, get_config, full_fp32, MAMBA, kernels,
+                     states=True)
     done("10 mamba replay")
 
     # -- 11. results ----------------------------------------------------
@@ -738,9 +787,13 @@ def main() -> None:
         entry("gradnorm_sigma", gn_src, "src/repro/kernels/gradnorm.py:62",
               feel_launches["gradnorm_sigma"], sigma_rec),
         entry("flash_attention",
-              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
               "src/repro/kernels/flash_attention.py:112",
               serve_launches["flash_attention"], flash_rec),
+        entry("flash_attention_f32",
+              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:112",
+              replay_launches["flash_attention"], flash_f32_rec),
         entry("lru_scan", "src/repro_torch/kernels/csrc/lru_scan.cu",
               "src/repro/kernels/lru_scan.py:70",
               mamba_launches["lru_scan"], scan_rec)]}))

@@ -1,22 +1,30 @@
-// Forward flash attention (online softmax) on CUDA cores, for Hopper.
+// Forward flash attention (online softmax) on CUDA cores, fp32, for Hopper.
 //
 // Replaces the Pallas TPU kernel
-// src/repro/kernels/flash_attention.py::flash_attention (_flash_kernel):
-// softmax(scale * q k^T) v over (BH, S, d) tensors with batch and heads
-// merged, causal or not, fp32 or bf16 in, the same type out.  Products,
-// the running max m, the running sum l and the output accumulator are
-// fp32.  Masked logits are -1e30 (keys at positions >= S, and with
-// `causal` keys after the query), and the denominator is max(l, 1e-30),
-// as in the TPU kernel.
+// src/repro/kernels/flash_attention.py::flash_attention (_flash_kernel)
+// for float32 inputs: softmax(scale * q k^T) v, causal or not, fp32 in and
+// out.  Products, the running max m, the running sum l and the output
+// accumulator are fp32.  Masked logits are -1e30 (keys at positions >= S,
+// and with `causal` keys after the query), and the denominator is
+// max(l, 1e-30), as in the TPU kernel.  bf16 inputs go to the tensor-core
+// kernel of flash_attention_sm90.cu; float32 stays here, on the CUDA cores,
+// because tensor cores would round its operands to TF32.
+//
+// Layout.  q and o are (B, S, H, d), k and v (B, S, Hk, d), each with its
+// own 64-bit element strides for batch, sequence and head and a unit
+// stride over d, so the serving path's strided views are read in place.
+// Query head h reads kv head h / (H / Hk), the grouping of GQA.  A
+// (BH, S, d) tensor is the case H = Hk = 1.
 //
 // Design.  The TPU kernel walks the k blocks as a sequential grid axis
 // and carries m, l and acc in VMEM scratch from one grid step to the
 // next.  Hopper blocks run in parallel and in no order, so here one
-// thread block owns a 64-row q tile and loops over the k tiles itself:
+// thread block owns a 64-row q tile of one (batch, head) and loops over
+// the k tiles itself:
 //   - 8 warps of 32 lanes; each warp owns 8 q rows of the tile.
-//   - The q tile is staged once in shared memory as fp32.  Each 32-key
-//     K tile and V tile is staged in shared memory as fp32, zero-filled
-//     past S and past d (loads are masked, not only logits).
+//   - The q tile is staged once in shared memory.  Each 32-key K tile
+//     and V tile is staged in shared memory, zero-filled past S and past
+//     d (loads are masked, not only logits).
 //   - Scores: lane j computes the dot products of key j of the tile with
 //     the warp's 8 q rows (float4 reads of the K row; the q rows are
 //     read by every lane at once, which shared memory broadcasts).  K
@@ -25,7 +33,7 @@
 //   - Online softmax per row: a warp-shuffle max and sum update m and l,
 //     and the accumulator is rescaled by exp(m_old - m_new).
 //   - P V: the lanes' probabilities go through a per-warp shared buffer;
-//     lane j owns output columns j, j + 32, ... of the fp32 accumulator
+//     lane j owns output columns j, j + 32, ... of the accumulator
 //     (conflict-free reads of the V row, coalesced stores).
 //   - With `causal`, k tiles wholly after a block's last row are never
 //     loaded, and a warp skips a tile wholly after its own last row
@@ -34,18 +42,14 @@
 // The head dimension is a template bucket (32, 64, 128 or 256, d <= the
 // bucket, zero-padded), so every loop over it unrolls.
 //
-// Bound.  Causal attention at the serving shape (96, 2048, 128) bf16 is
-// ~1.0e11 flops on ~2e8 bytes: bound by operations.  This kernel runs
-// them as fp32 FMAs on the CUDA cores (67 TFLOP/s peak, not the 989 of
-// the bf16 tensor cores) and feeds them from shared memory, so it sits
-// well above the tensor-core bound; mma/wgmma, TMA and pipelining are
-// later work.
+// Bound.  Causal fp32 attention at (96, 2048, 128) is ~1.0e11 flops on
+// ~4e8 bytes: bound by operations, at the CUDA cores' 67 TFLOP/s.
 //
-// Interface.  Plain C entry points for ctypes: device pointers and the
-// CUDA stream arrive as void*, sizes and flags as int, the scale as
-// float.  Each returns a cudaError_t as int (0 = success), the result
-// of cudaGetLastError() after its launch.
-#include <cuda_bf16.h>
+// Interface.  A plain C entry point for ctypes: device pointers, the
+// stride array (host memory, 12 int64: batch, seq, head of q, k, v, o)
+// and the CUDA stream arrive as pointers, sizes and flags as int, the
+// scale as float.  It returns a cudaError_t as int (0 = success), the
+// result of cudaGetLastError() after its launch.
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,15 +60,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kBlockQ = kRowsPerWarp * kWarps;  // 64 q rows per block
 constexpr int kBlockK = 32;                     // one key per lane
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -93,27 +88,37 @@ struct Smem {
   static constexpr size_t kBytes = (kQ + kK + kV + kP) * sizeof(float);
 };
 
-// Rows [row0, row0 + n_rows) of a (seq, d) matrix into an fp32 tile with
-// row stride `stride`; rows >= seq and columns >= d are zero.
-template <typename T, int D>
+// Element strides (batch, sequence, head) of q, k, v and o; the stride
+// over d is 1.
+struct Strides {
+  long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
+};
+
+// Rows [row0, row0 + n_rows) of a (seq, d) matrix whose rows lie
+// `row_stride` elements apart into a tile with row stride `stride`; rows
+// >= seq and columns >= d are zero.
+template <int D>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst, int stride,
                                           int n_rows,
-                                          const T* __restrict__ src,
-                                          int row0, int seq, int d) {
+                                          const float* __restrict__ src,
+                                          long long row_stride, int row0,
+                                          int seq, int d) {
   for (int i = threadIdx.x; i < n_rows * D; i += kThreads) {
     const int r = i / D;
     const int c = i % D;
     const int row = row0 + r;
     float x = 0.0f;
-    if (row < seq && c < d) x = to_float(src[static_cast<long long>(row) * d + c]);
+    if (row < seq && c < d) x = src[row * row_stride + c];
     dst[r * stride + c] = x;
   }
 }
 
-template <typename T, int D>
+// grid: x = batch * H + head, y = q tile (reversed: longest rows first).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int seq, int d,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 Strides st, int seq, int n_heads, int group, int d,
                  int causal, float scale) {
   using L = Smem<D>;
   constexpr int R = kRowsPerWarp;
@@ -127,10 +132,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // longest rows first
-  const long long base = static_cast<long long>(blockIdx.x) * seq * d;
+  const long long b = blockIdx.x / n_heads;
+  const int h = blockIdx.x % n_heads;
+  const int hk = h / group;  // the kv head of this q head (GQA)
+  const float* q_bh = q + b * st.qb + h * st.qh;
+  const float* k_bh = k + b * st.kb + hk * st.kh;
+  const float* v_bh = v + b * st.vb + hk * st.vh;
+  float* o_bh = o + b * st.ob + h * st.oh;
   const int row0 = q0 + warp * R;  // this warp's first q row
 
-  load_tile<T, D>(q_s, D, kBlockQ, q + base, q0, seq, d);
+  load_tile<D>(q_s, D, kBlockQ, q_bh, st.qs, q0, seq, d);
 
   float m[R], l[R], acc[R][C];
 #pragma unroll
@@ -149,8 +160,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBlockK;
     __syncthreads();  // every warp is done with the previous K and V tile
-    load_tile<T, D>(k_s, L::kKStride, kBlockK, k + base, k0, seq, d);
-    load_tile<T, D>(v_s, D, kBlockK, v + base, k0, seq, d);
+    load_tile<D>(k_s, L::kKStride, kBlockK, k_bh, st.ks, k0, seq, d);
+    load_tile<D>(v_s, D, kBlockK, v_bh, st.vs, k0, seq, d);
     __syncthreads();  // the tiles (and, at t = 0, the q tile) are in place
     if (causal && k0 > row0 + R - 1) continue;  // warp-uniform
 
@@ -214,62 +225,64 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = row0 + r;
     if (row >= seq) break;
     const float denom = fmaxf(l[r], 1e-30f);
-    T* out_row = o + base + static_cast<long long>(row) * d;
+    float* out_row = o_bh + row * st.os;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int col = lane + 32 * c;
-      if (col < d) store(out_row + col, acc[r][c] / denom);
+      if (col < d) out_row[col] = acc[r][c] / denom;
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int seq, int d, int causal, float scale, cudaStream_t stream) {
+template <int D>
+int launch(const float* q, const float* k, const float* v, float* o,
+           const Strides& st, int batch, int seq, int n_heads, int group,
+           int d, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = Smem<D>::kBytes;
   // Above 48 KB of dynamic shared memory a kernel must opt in, once per
   // instantiation (before any launch, so also before a graph capture).
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
-  const dim3 grid(bh, (seq + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), seq, d, causal, scale);
+  const dim3 grid(batch * n_heads, (seq + kBlockQ - 1) / kBlockQ);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, st, seq, n_heads, group, d, causal, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
-             int seq, int d, int causal, float scale, void* stream) {
-  if (bh <= 0 || seq <= 0 || seq > 65535 * kBlockQ || d <= 0 || d > 256) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 32) return launch<T, 32>(q, k, v, o, bh, seq, d, causal, scale, s);
-  if (d <= 64) return launch<T, 64>(q, k, v, o, bh, seq, d, causal, scale, s);
-  if (d <= 128) return launch<T, 128>(q, k, v, o, bh, seq, d, causal, scale, s);
-  return launch<T, 256>(q, k, v, o, bh, seq, d, causal, scale, s);
 }
 
 }  // namespace
 
-extern "C" int repro_flash_attention_f32(const void* q, const void* k,
-                                         const void* v, void* o, int bh,
-                                         int seq, int d, int causal,
-                                         float scale, void* stream) {
-  return dispatch<float>(q, k, v, o, bh, seq, d, causal, scale, stream);
-}
-
-extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
-                                          const void* v, void* o, int bh,
-                                          int seq, int d, int causal,
-                                          float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, bh, seq, d, causal, scale,
-                                 stream);
+// q, o: (batch, seq, n_heads, d); k, v: (batch, seq, n_kv_heads, d);
+// strides: 12 element strides (batch, seq, head) of q, k, v, o.
+extern "C" int repro_flash_attention_f32(
+    const void* q, const void* k, const void* v, void* o, int batch, int seq,
+    int n_heads, int n_kv_heads, int d, const long long* strides, int causal,
+    float scale, void* stream) {
+  if (batch <= 0 || seq <= 0 || seq > 65535 * kBlockQ || d <= 0 || d > 256 ||
+      n_heads <= 0 || n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
+      static_cast<long long>(batch) * n_heads > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Strides st{strides[0], strides[1], strides[2],  strides[3],
+                   strides[4], strides[5], strides[6],  strides[7],
+                   strides[8], strides[9], strides[10], strides[11]};
+  const int group = n_heads / n_kv_heads;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_FLASH_F32(D)                                                 \
+  return launch<D>(qf, kf, vf, of, st, batch, seq, n_heads, group, d,      \
+                   causal, scale, s)
+  if (d <= 32) REPRO_FLASH_F32(32);
+  if (d <= 64) REPRO_FLASH_F32(64);
+  if (d <= 128) REPRO_FLASH_F32(128);
+  REPRO_FLASH_F32(256);
+#undef REPRO_FLASH_F32
 }

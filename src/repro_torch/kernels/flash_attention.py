@@ -1,14 +1,30 @@
-"""Causal flash attention: the hand-written CUDA kernel and its plain version.
+"""Flash attention: the hand-written CUDA kernels and their plain versions.
 
 Counterpart of ``repro/kernels/flash_attention.py``: forward softmax
-attention over (BH, S, d) tensors with batch and heads merged, causal or
-not, scale d^-0.5 by default, fp32 or bf16 in and the same type out.
-``flash_attention`` launches the CUDA C++ kernel of
-``csrc/flash_attention.cu`` (built for sm_90a with nvcc at first use and
-loaded with ctypes) on CUDA tensors, and uses ``flash_attention_plain``
-only for CPU tensors.  Any other device, a dtype other than float32 or
-bfloat16, a rank other than 3, a non-contiguous tensor, mismatched
-shapes or d > 256 raises: there is no silent fallback.
+attention, causal or not, scale d^-0.5 by default, fp32 or bf16 in and
+the same type out.  Two entries:
+
+- ``flash_attention(q, k, v)`` keeps the reference's (BH, S, d)
+  signature, batch and heads merged;
+- ``flash_attention_bhsd(q, k, v)``, the reference's MHA entry widened
+  to GQA, reads the serving layout in place: q (B, S, H, d) and k, v
+  (B, S, Hk, d) with Hk dividing H, any strides with a unit stride over
+  d; query head h reads kv head h // (H / Hk), as
+  ``models.layers._gqa_split`` groups them.  It makes no fold copy of
+  q, k or v and no per-head copy of the kv heads, and writes a
+  contiguous (B, S, H, d) output.
+
+On CUDA tensors, bf16 launches the TMA + wgmma tensor-core kernel of
+``csrc/flash_attention_sm90.cu`` and fp32 the CUDA-core kernel of
+``csrc/flash_attention.cu``; both are built for sm_90a with nvcc at
+first use and loaded with ctypes.  TMA reads a bf16 operand in place
+when d % 8 == 0 and its pointer and strides are 16-byte aligned, as on
+the serving path; any other bf16 operand is first copied into an
+aligned buffer with d zero-padded to a multiple of 8 (``_tma_operand``).
+CPU tensors take the plain version.
+Any other device, a dtype other than float32 or bfloat16, a wrong rank,
+a non-unit stride over d, mismatched shapes or d > 256 raises: there is
+no silent fallback.
 """
 from __future__ import annotations
 
@@ -21,14 +37,18 @@ import torch
 from . import nvcc
 from .nvcc import BuildInfo
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-#: where the shared library is built (listed in .gitignore).
+_CSRC = Path(__file__).resolve().parent / "csrc"
+#: the fp32 CUDA-core kernel
+SOURCE = _CSRC / "flash_attention.cu"
+#: the bf16 tensor-core kernel
+SOURCE_SM90 = _CSRC / "flash_attention_sm90.cu"
+#: where the shared libraries are built (listed in .gitignore).
 BUILD_DIR = nvcc.BUILD_DIR
 NVCC_FLAGS = nvcc.BASE_FLAGS
 MAX_HEAD_DIM = 256
 _NEG_INF = -1e30
 
-#: kernel launches; bumped only where the kernel launches.
+#: kernel launches; bumped only where a kernel launches.
 LAUNCHES = {"flash_attention": 0}
 
 
@@ -56,54 +76,94 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bqk,bkd->bqd", probs, v.float()).to(q.dtype)
 
 
+def flash_attention_bhsd_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, causal: bool = True,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """The plain version in the serving layout: the kv heads are
+    broadcast to the query heads, then ``flash_attention_plain``.
+    q: (B, S, H, d); k, v: (B, S, Hk, d) -> contiguous (B, S, H, d)."""
+    B, S, H, d = q.shape
+
+    def fold(x):
+        if x.shape[2] != H:
+            x = x.repeat_interleave(H // x.shape[2], dim=2)
+        return x.movedim(2, 1).reshape(B * H, S, d)
+
+    out = flash_attention_plain(fold(q), fold(k), fold(v), causal=causal,
+                                scale=scale)
+    return out.reshape(B, H, S, d).movedim(1, 2).contiguous()
+
+
 # ---------------------------------------------------------------- build
 
-_LIB: Optional[ctypes.CDLL] = None
+_FNS: dict = {}
 _BUILD: Optional[BuildInfo] = None
+_BUILD_SM90: Optional[BuildInfo] = None
 
 
 def build() -> BuildInfo:
-    """Compile ``csrc/flash_attention.cu`` into ``BUILD_DIR`` unless a
-    library built from the same source and flags is already there."""
+    """Compile ``csrc/flash_attention.cu`` (fp32) into ``BUILD_DIR``
+    unless a library built from the same source and flags is there."""
     global _BUILD
     if _BUILD is None:
         _BUILD = nvcc.build(SOURCE, NVCC_FLAGS, BUILD_DIR)
     return _BUILD
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build().path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.repro_flash_attention_f32,
-                   lib.repro_flash_attention_bf16):
-            fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p]
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+def build_sm90() -> BuildInfo:
+    """Compile ``csrc/flash_attention_sm90.cu`` (bf16) likewise."""
+    global _BUILD_SM90
+    if _BUILD_SM90 is None:
+        _BUILD_SM90 = nvcc.build(SOURCE_SM90, NVCC_FLAGS, BUILD_DIR)
+    return _BUILD_SM90
+
+
+def _fn(dtype: torch.dtype):
+    """The C entry point for ``dtype``, its library loaded at first use."""
+    if dtype not in _FNS:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q, k, v, o; B, S, H, Hk, d; strides; causal, scale
+        args = [p, p, p, p, i, i, i, i, i, p, i, f]
+        if dtype == torch.float32:
+            fn = ctypes.CDLL(str(build().path)).repro_flash_attention_f32
+        else:
+            fn = ctypes.CDLL(
+                str(build_sm90().path)).repro_flash_attention_bf16
+        fn.argtypes = args + [p]  # stream
+        fn.restype = ctypes.c_int
+        _FNS[dtype] = fn
+    return _FNS[dtype]
 
 
 # -------------------------------------------------------------- wrapper
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def _on_cpu(**tensors: torch.Tensor) -> bool:
+    """True if every tensor lies on the CPU (the plain version's case),
+    False if every one is a CUDA tensor (the kernel's); anything else
+    raises."""
+    if all(x.device.type == "cpu" for x in tensors.values()):
+        return True
+    for name, x in tensors.items():
         if x.device.type != "cuda":
             raise ValueError(f"{name}: the flash kernel takes CUDA tensors "
                              f"(plain version: CPU tensors), got {x.device}")
-        if x.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{name}: the flash kernel takes float32 or "
-                            f"bfloat16, got {x.dtype}")
-        if x.dim() != 3:
-            raise ValueError(f"{name}: expected a 3-D (BH, S, d) tensor, "
-                             f"got shape {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name}: the flash kernel takes a contiguous "
-                             "tensor")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("q, k and v must have one (BH, S, d) shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    return False
+
+
+def _check_tensor(name: str, x: torch.Tensor, rank: int) -> None:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: the flash kernel takes float32 or "
+                        f"bfloat16, got {x.dtype}")
+    if x.dim() != rank:
+        layout = "(BH, S, d)" if rank == 3 else "(B, S, H, d)"
+        raise ValueError(f"{name}: expected a {rank}-D {layout} tensor, "
+                         f"got shape {tuple(x.shape)}")
+    if x.stride(-1) != 1 and x.shape[-1] > 1:
+        raise ValueError(f"{name}: the flash kernel takes tensors whose "
+                         "last dimension (d) is contiguous")
+
+
+def _check_pair(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must share a dtype, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
@@ -112,8 +172,61 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"the flash kernel takes d <= {MAX_HEAD_DIM}, "
                          f"got d={q.shape[-1]}")
-    if q.numel() >= 2 ** 31:
-        raise ValueError("too large for the kernel's int sizes")
+
+
+def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                o: torch.Tensor) -> tuple:
+    """Sizes (B, S, H, Hk, d) and the 12 element strides (batch, seq,
+    head of q, k, v, o) that the C entry points take, for (B, S, H, d)
+    q and o and (B, S, Hk, d) k and v."""
+    B, S, H, d = q.shape
+    strides = tuple(s for x in (q, k, v, o) for s in x.stride()[:3])
+    return (B, S, H, k.shape[2], d), strides
+
+
+def _tma_readable(x: torch.Tensor) -> bool:
+    """Whether TMA reads the bf16 (B, S, H, d) view ``x`` in place: its
+    base is 16-byte aligned, and d and every stride it steps (over a
+    dimension longer than 1) are positive multiples of 8 elements."""
+    return (x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0
+            and all(n == 1 or (st > 0 and st % 8 == 0)
+                    for n, st in zip(x.shape[:3], x.stride()[:3])))
+
+
+def _tma_operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself where TMA reads it in place, else a fresh contiguous
+    copy with d zero-padded to a multiple of 8: zero columns add nothing
+    to q k^T, and the output's padded columns are dropped."""
+    if _tma_readable(x):
+        return x
+    d = x.shape[-1]
+    buf = x.new_empty(x.shape[:-1] + (-(-d // 8) * 8,))
+    buf[..., :d] = x
+    buf[..., d:] = 0
+    return buf
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: Optional[float]) -> torch.Tensor:
+    """One kernel launch on (B, S, H, d) q and (B, S, Hk, d) k, v;
+    returns a contiguous (B, S, H, d) output."""
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else float(scale)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_operand(x) for x in (q, k, v))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if not out.numel():
+        return out[..., :d]
+    sizes, strides = kernel_args(q, k, v, out)
+    fn = _fn(q.dtype)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        nvcc.raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), *sizes,
+                         (ctypes.c_longlong * 12)(*strides), int(causal),
+                         scale, stream), "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out if out.shape[-1] == d else out[..., :d].contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -121,20 +234,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q, k, v: (BH, S, d), batch and heads merged (MHA layout) ->
     (BH, S, d) in the input dtype."""
-    if all(x.device.type == "cpu" for x in (q, k, v)):
+    if _on_cpu(q=q, k=k, v=v):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    _check(q, k, v)
-    bh, s, d = q.shape
-    scale = d ** -0.5 if scale is None else float(scale)
-    out = torch.empty_like(q)
-    if q.numel():
-        lib = _lib()
-        fn = (lib.repro_flash_attention_f32 if q.dtype == torch.float32
-              else lib.repro_flash_attention_bf16)
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            nvcc.raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             out.data_ptr(), bh, s, d, int(causal), scale,
-                             stream), "flash_attention")
-        LAUNCHES["flash_attention"] += 1
-    return out
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_tensor(name, x, 3)
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("q, k and v must have one (BH, S, d) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    _check_pair(q, k, v)
+    return _launch(q[:, :, None], k[:, :, None], v[:, :, None], causal,
+                   scale)[:, :, 0]
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, S, H, d); k, v: (B, S, Hk, d) with Hk dividing H, read in
+    place (GQA: query head h reads kv head h // (H / Hk)) -> contiguous
+    (B, S, H, d) in the input dtype.  With Hk == H it is the reference's
+    ``ops.flash_attention_bhsd``."""
+    if _on_cpu(q=q, k=k, v=v):
+        return flash_attention_bhsd_plain(q, k, v, causal=causal,
+                                          scale=scale)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_tensor(name, x, 4)
+    B, S, H, d = q.shape
+    Hk = k.shape[2]
+    if (k.shape != v.shape or k.shape[:2] != (B, S) or k.shape[3] != d
+            or Hk == 0 or H % Hk):
+        raise ValueError("expected q (B, S, H, d) and k, v (B, S, Hk, d) "
+                         f"with Hk dividing H, got shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _check_pair(q, k, v)
+    return _launch(q, k, v, causal, scale)

@@ -8,35 +8,14 @@ take its plain version.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention_bhsd
 from .gradnorm import gradnorm_sigma, rownorm2
 from .lru_scan import lru_scan
 
 __all__ = ["flash_attention_bhsd", "rownorm2", "gradnorm_sigma",
            "lru_scan", "sigma_from_head"]
-
-
-def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """q,k,v: (B, S, H, d) MHA layout -> (B, S, H, d).
-
-    GQA callers broadcast kv heads first (the kernel is head-merged).
-    The (B, S, H, d) -> (B*H, S, d) fold copies into the contiguous
-    layout the kernel takes (a reshape alone is a strided view when
-    B == 1)."""
-    B, S, H, d = q.shape
-
-    def fold(x):
-        return x.movedim(2, 1).contiguous().view(B * H, S, d)
-
-    out = flash_attention(fold(q), fold(k), fold(v), causal=causal,
-                          scale=scale)
-    return out.reshape(B, H, S, d).movedim(1, 2)
 
 
 def sigma_from_head(h: torch.Tensor, logits: torch.Tensor,

@@ -173,20 +173,16 @@ def causal_attend(q: Tensor, k: Tensor, v: Tensor, q_offset: int = 0,
     """Causal GQA attention over a whole sequence, through the flash
     kernel.  q: (B,S,H,Dh); k/v: (B,S,Hk,Dh); positions 0..S-1.
 
-    The kernel is head-merged (MHA), so the kv heads are broadcast
-    first: q head h reads kv head h // G, as ``_gqa_split`` groups
-    them."""
+    The kernel reads the kv heads in place: q head h reads kv head
+    h // (H / Hk), as ``_gqa_split`` groups them."""
     if window or softcap:
         raise NotImplementedError(f"windowed and softcapped attention is "
                                   f"{_TODO}")
     if q_offset or k.shape[1] != q.shape[1]:
         raise NotImplementedError("causal_attend runs a prefill from "
                                   "position 0 (queries and keys alike)")
-    G = q.shape[2] // k.shape[2]
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    return ops.flash_attention_bhsd(q, k.repeat_interleave(G, dim=2),
-                                    v.repeat_interleave(G, dim=2),
-                                    causal=True, scale=scale)
+    return ops.flash_attention_bhsd(q, k, v, causal=True, scale=scale)
 
 
 def decode_attend(q: Tensor, k_cache: Tensor, v_cache: Tensor,

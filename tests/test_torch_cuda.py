@@ -13,6 +13,8 @@ linear-recurrence scan at atol/rtol 1e-5 (the kernel's fused
 multiply-add against the plain version's multiply, then add), the
 reference's scan tolerance.
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -77,6 +79,11 @@ def test_cuda_wrappers_reject_what_the_kernel_does_not_take(cuda):
 FLASH_SHAPES = [(4, 128, 64), (2, 200, 32), (3, 513, 128), (1, 64, 256)]
 FLASH_SLICE = (96, 2048, 128)  # llama3.2-3b prefill: B*H=4*24, S, Dh
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# d = 24 (16-byte rows, padded to a 64-column TMA box), d = 20 (rows
+# TMA cannot read: copied with d zero-padded to 24), S = 1, one key past
+# a 128-row tile at d = 256
+FLASH_EDGES = [(2, 96, 64), (1, 130, 24), (2, 77, 20), (3, 1, 64),
+               (1, 129, 256)]
 
 
 def _qkv(seed, shape, dtype, device):
@@ -86,7 +93,7 @@ def _qkv(seed, shape, dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,s,d", FLASH_SHAPES + [(2, 96, 64), (1, 130, 24)])
+@pytest.mark.parametrize("bh,s,d", FLASH_SHAPES + FLASH_EDGES)
 def test_cuda_flash_matches_plain(cuda, bh, s, d, dtype, causal):
     q, k, v = _qkv(s + d, (bh, s, d), dtype, cuda)
     flash_attention.reset_launch_counts()
@@ -109,6 +116,58 @@ def test_cuda_flash_matches_plain_at_the_serving_shape(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+def _offset(x, offset):
+    """The values of ``x`` as a view starting ``offset`` elements past a
+    fresh (aligned) allocation."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    flat[offset:] = x.flatten()
+    return flat[offset:].view(x.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_flash_gqa_at_the_serving_shape(cuda, offset):
+    """llama3.2-3b's prefill: q (4, 2048, 24, 128) and k, v (4, 2048, 8,
+    128), each kv head serving 3 query heads; read in place, and as
+    views one element past alignment, which TMA cannot read and the
+    wrapper copies into aligned buffers (the same kernel on the same
+    values: the same output, bit for bit)."""
+    q = _normal(0, (4, 2048, 24, 128), cuda).bfloat16()
+    k, v = (_normal(i, (4, 2048, 8, 128), cuda).bfloat16() for i in (1, 2))
+    qo, ko, vo = (_offset(x, offset) for x in (q, k, v))
+    flash_attention.reset_launch_counts()
+    got = ops.flash_attention_bhsd(qo, ko, vo)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash_attention": 1}
+    assert got.is_contiguous() and got.shape == q.shape
+    want = flash_attention.flash_attention_bhsd_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(ops.flash_attention_bhsd(q, k, v), got,
+                               atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hk,d", [(1, 6, 2, 64), (2, 4, 1, 128),
+                                      (1, 3, 3, 20)])
+def test_cuda_flash_strided_gqa_views(cuda, dtype, b, h, hk, d):
+    """q, k and v as strided views of one (B, S, H + 2 Hk, d) tensor (the
+    shape of a fused projection), at batch 1 too, in both dtypes: the
+    fp32 CUDA-core kernel and the bf16 tensor-core kernels take the
+    same strided interface."""
+    base = _normal(b * h + d, (b, 200, h + 2 * hk, d), cuda).to(dtype)
+    q, k, v = base[:, :, :h], base[:, :, h:h + hk], base[:, :, h + hk:]
+    got = ops.flash_attention_bhsd(q, k, v)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and got.shape == (b, 200, h, d)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(),
+        flash_attention.flash_attention_bhsd_plain(q, k, v).float(),
+        atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -139,14 +198,31 @@ def test_cuda_flash_rejects_what_the_kernel_does_not_take(cuda):
         big = _normal(3, (1, 8, 288), cuda)
         flash_attention.flash_attention(big, big, big)
     with pytest.raises(ValueError, match="contiguous"):
-        flash_attention.flash_attention(q.transpose(0, 1), k, v)
+        flash_attention.flash_attention(q.transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="3-D"):
         flash_attention.flash_attention(q[0], k[0], v[0])
     with pytest.raises(ValueError, match="shape"):
         flash_attention.flash_attention(q, k[:, :32].contiguous(), v)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention.flash_attention(q, k.cpu(), v)
+    q4 = q.view(2, 64, 1, 32).expand(2, 64, 3, 32)
+    k4 = k.view(2, 64, 1, 32).expand(2, 64, 2, 32)
+    with pytest.raises(ValueError, match="Hk dividing H"):
+        ops.flash_attention_bhsd(q4, k4, k4)
+    with pytest.raises(ValueError, match="4-D"):
+        ops.flash_attention_bhsd(q, k, v)
     assert flash_attention.LAUNCHES == {"flash_attention": 0}
+    # the bf16 C entry refuses, without a launch, a layout TMA cannot read
+    # (the wrapper pads such operands first): d % 8 != 0, an unaligned base
+    fn = flash_attention._fn(torch.bfloat16)
+    for d, off in ((20, 0), (32, 1)):
+        x = _offset(_normal(4, (1, 64, 1, d), cuda).bfloat16(), off)
+        o = torch.empty_like(x)
+        sizes, strides = flash_attention.kernel_args(x, x, x, o)
+        err = fn(x.data_ptr(), x.data_ptr(), x.data_ptr(), o.data_ptr(),
+                 *sizes, (ctypes.c_longlong * 12)(*strides), 1, 1.0,
+                 torch.cuda.current_stream().cuda_stream)
+        assert err != 0
     empty = torch.empty((0, 8, 32), device=cuda)
     out = flash_attention.flash_attention(empty, empty, empty)
     assert out.shape == (0, 8, 32)

@@ -19,7 +19,9 @@ torch = pytest.importorskip("torch")
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
 from repro_torch.kernels import flash_attention, gradnorm, nvcc, ops, ref  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -81,21 +83,124 @@ def test_flash_attention_bhsd_matches_reference():
         atol=2e-5)
 
 
-@pytest.mark.parametrize("b", [1, 2])
-def test_flash_attention_bhsd_hands_the_kernel_contiguous_tensors(
-        monkeypatch, b):
-    """The kernel takes contiguous (B*H, S, d) tensors; the fold must
-    copy for every batch size (at B == 1 a reshape alone is a view)."""
+GQA = [(1, 3, 3), (2, 6, 2), (1, 4, 1), (2, 8, 2)]  # (B, H, Hk)
+
+
+@pytest.mark.parametrize("b,h,hk", GQA)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_bhsd_gqa_matches_reference(b, h, hk, dtype):
+    """The strided GQA entry against the Pallas kernel (interpret mode)
+    on kv heads repeated per query head, and against the JAX zoo's
+    ``causal_attend``, which reads the kv heads grouped."""
+    rng = np.random.default_rng(10 * h + hk + b)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((b, 37, h, 16), (b, 37, hk, 16), (b, 37, hk, 16))]
+    (qj, kj, vj), (q, k, v) = _both(arrays, dtype)
+    tol = DTYPES[dtype][2]
+    got = ops.flash_attention_bhsd(q, k, v)
+    assert got.shape == (b, 37, h, 16) and got.dtype == q.dtype
+    assert got.is_contiguous()
+    rep = [jnp.repeat(x, h // hk, axis=2) for x in (kj, vj)]
+    for want in (jops.flash_attention_bhsd(qj, *rep, interpret=True),
+                 jlayers.causal_attend(qj, kj, vj)):
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_f32(tlayers.causal_attend(q, k, v)),
+                               _f32(got), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("b,h,hk", GQA)
+def test_flash_attention_bhsd_hands_the_kernel_the_strided_tensors_in_place(
+        monkeypatch, b, h, hk):
+    """``ops.flash_attention_bhsd`` and ``layers.causal_attend`` hand the
+    kernel entry the caller's tensors themselves: no fold copy of q, k
+    or v and no per-head copy of the kv heads, at every batch size (at
+    B == 1 too, where the old fold had to copy)."""
+    base = torch.from_numpy(_qkv(6, (b, 20, h + 2 * hk, 8))[0])
+    q, k, v = base[:, :, :h], base[:, :, h:h + hk], base[:, :, h + hk:]
+    assert not q.is_contiguous()  # strided views of one (B, S, ., d)
     seen = []
 
-    def kernel(q, k, v, causal, scale):
-        seen.append(all(x.is_contiguous() for x in (q, k, v)))
-        return flash_attention.flash_attention_plain(q, k, v, causal, scale)
+    def kernel(q_, k_, v_, causal, scale):
+        seen.append(all(x is y for x, y in ((q_, q), (k_, k), (v_, v))))
+        return torch.zeros(q_.shape)
 
-    monkeypatch.setattr(ops, "flash_attention", kernel)
-    q, k, v = (torch.from_numpy(a) for a in _qkv(5, (b, 20, 3, 8)))
-    got = ops.flash_attention_bhsd(q, k, v)
-    assert seen == [True] and got.shape == (b, 20, 3, 8)
+    def no_copy(*args, **kwargs):
+        raise AssertionError("a copy of q, k or v")
+
+    # take the kernel's branch with CPU tensors: the launch is replaced
+    monkeypatch.setattr(flash_attention, "_on_cpu", lambda **_: False)
+    monkeypatch.setattr(flash_attention, "_launch", kernel)
+    monkeypatch.setattr(torch.Tensor, "repeat_interleave", no_copy)
+    monkeypatch.setattr(torch.Tensor, "contiguous", no_copy)
+    assert ops.flash_attention_bhsd(q, k, v).shape == (b, 20, h, 8)
+    assert tlayers.causal_attend(q, k, v).shape == (b, 20, h, 8)
+    assert seen == [True, True]
+
+
+def _bf16_views(b, h, hk, d, offset=0):
+    """q, k, v as (B, 20, H|Hk, d) bf16 views of one fused projection,
+    its data starting ``offset`` elements past an aligned base."""
+    n = b * 20 * (h + 2 * hk) * d
+    flat = torch.arange(n + offset, dtype=torch.float32).bfloat16()
+    base = flat[offset:].view(b, 20, h + 2 * hk, d)
+    return base[:, :, :h], base[:, :, h:h + hk], base[:, :, h + hk:]
+
+
+@pytest.mark.parametrize("b,h,hk,d", [(1, 4, 2, 8), (2, 6, 2, 64),
+                                      (4, 24, 8, 128), (1, 1, 1, 256)])
+def test_tma_reads_aligned_bf16_views_in_place(b, h, hk, d):
+    """The serving path's views (d % 8 == 0, 16-byte aligned base and
+    strides) reach the bf16 kernel as they are: no copy."""
+    for x in _bf16_views(b, h, hk, d):
+        assert flash_attention._tma_readable(x)
+        assert flash_attention._tma_operand(x) is x
+
+
+@pytest.mark.parametrize("b,h,hk,d,offset", [(1, 3, 3, 20, 0), (2, 6, 2, 64, 1),
+                                             (4, 24, 8, 128, 1), (1, 4, 1, 12, 1)])
+def test_tma_operand_pads_what_tma_cannot_read(b, h, hk, d, offset):
+    """A bf16 view TMA cannot read in place (d % 8 != 0, or a base one
+    element past alignment) becomes an aligned contiguous copy with d
+    zero-padded to a multiple of 8."""
+    for x in _bf16_views(b, h, hk, d, offset):
+        assert not flash_attention._tma_readable(x)
+        y = flash_attention._tma_operand(x)
+        dp = -(-d // 8) * 8
+        assert y.shape == x.shape[:3] + (dp,) and y.is_contiguous()
+        assert y.data_ptr() % 16 == 0 and flash_attention._tma_readable(y)
+        assert torch.equal(y[..., :d], x)
+        assert not y[..., d:].any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hk,d", [(1, 3, 3, 20), (2, 4, 2, 13)])
+def test_zero_padded_d_leaves_attention_unchanged(b, h, hk, d, causal):
+    """What the bf16 route relies on for d % 8 != 0: attention over the
+    zero-padded operands, scaled by the real d, equals attention over
+    the originals in its first d columns, and is 0 in the rest."""
+    rng = np.random.default_rng(d + h)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, 29, n, d))
+                                .astype(np.float32))
+               for n in (h, hk, hk))
+    pad = [flash_attention._tma_operand(x) for x in (q, k, v)]
+    got = flash_attention.flash_attention_bhsd_plain(*pad, causal=causal,
+                                                     scale=d ** -0.5)
+    want = flash_attention.flash_attention_bhsd_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got[..., :d], want, atol=2e-5, rtol=2e-5)
+    assert not got[..., d:].any()
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_kernel_args_are_the_views_own_strides(b):
+    """The sizes and strides the C entry points receive are those of the
+    strided views, kv heads not repeated; the output is contiguous."""
+    base = torch.zeros((b, 12, 7, 16))
+    q, k, v = base[:, :, :4], base[:, :, 4:6], base[:, :, 6:]
+    o = torch.empty((b, 12, 4, 16))
+    sizes, strides = flash_attention.kernel_args(q, k, v, o)
+    assert sizes == (b, 12, 4, 2, 16)
+    assert strides == (12 * 7 * 16, 7 * 16, 16) * 3 + (12 * 4 * 16, 4 * 16,
+                                                      16)
 
 
 def test_ref_name_is_the_plain_version():
@@ -135,6 +240,30 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         flash_attention.build()
     assert flash_attention._BUILD is None
     assert not any((tmp_path / "build").glob("*.so"))
+
+
+def test_sm90_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """The bf16 tensor-core kernels build from their own source, with the
+    same refusal when nvcc is missing."""
+    monkeypatch.setattr(flash_attention, "_BUILD_SM90", None)
+    monkeypatch.setattr(flash_attention, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        flash_attention.build_sm90()
+    assert flash_attention._BUILD_SM90 is None
+    assert not any((tmp_path / "build").glob("*.so"))
+
+
+def test_flash_sources_build_into_distinct_libraries():
+    """fp32 (CUDA cores) and bf16 (tensor cores) are two sources and two
+    libraries, beside the other kernels'."""
+    names = {nvcc.library_path(src, flash_attention.NVCC_FLAGS).name
+             .rsplit("-", 1)[0]
+             for src in (flash_attention.SOURCE, flash_attention.SOURCE_SM90,
+                         gradnorm.SOURCE)}
+    assert names == {"flash_attention", "flash_attention_sm90", "gradnorm"}
+    assert flash_attention.SOURCE_SM90.exists()
 
 
 def test_build_key_hashes_source_and_flags(tmp_path):
