@@ -47,10 +47,21 @@ exit) if anything in it fails; no failure is caught:
 10. mamba replay: falcon-mamba-7b at full width cut to 2 layers, fp32,
    TF32 off, the same weights on the card and on the CPU: prefill
    logits and each layer's SSM state after a 256-token prompt, and 8
-   greedy steps.
+   greedy steps;
+11. schemes: 3 rounds of each of baselines 1-4 at phase 4's setup
+   through ``FEELTrainer.run_round`` (sigma through the kernel, one
+   launch a round; random half or all samples; greedy min- or max-gain
+   RBs; closed-form powers), then baseline 1's round 0 replayed on the
+   CPU;
+12. CCP power (Algorithm 3): (a) paper Fig. 3 on phase 4's round-0
+   channel: 5 random feasible starts on its closed-form matching, each
+   trajectory, the spread of the finals, their gap to the closed form,
+   ms per ``ccp_power`` call, and the Newton step's derivatives in
+   closed form against ``torch.func``; (b) one proposed round with the
+   CCP evaluator in the matching, and its replay on the CPU.
 
-Launch counts are zeroed just before each path (4, 7, 9, and the
-card's run in 8) and read just after.  It prints one
+Launch counts are zeroed just before each path (4, 7, 9, 11, 12b, and
+the card's run in 8) and read just after.  It prints one
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
 line.  Without a GPU, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero before
@@ -81,6 +92,7 @@ SELECTION_BAND = 1e-3    # |delta† - 1/2| below this: a tie for Alg. 5
 SIGMA_RTOL = 1e-4        # card vs CPU sigma (other conv algorithms)
 NET_COST_RTOL = 1e-5
 NOISE = 1e-6             # Adam first moment at float32 noise (see tests)
+CCP_GAP = 5e-3           # CCP vs closed-form cost (the reference's bound)
 
 # flash attention: the reference's kernel tests' shapes and tolerances
 # (tests/test_kernels.py), and the serving path's shape
@@ -375,8 +387,8 @@ def make_data(rt):
                                  mislabel_prop=0.1, seed=0)
 
 
-def make_trainer(rt, torch, data, state_dict, device):
-    cfg = rt.fed.FEELConfig(d_hat=D_HAT, gp_steps=GP_STEPS, lr=LR)
+def make_trainer(rt, torch, data, state_dict, device, **options):
+    cfg = rt.fed.FEELConfig(d_hat=D_HAT, gp_steps=GP_STEPS, lr=LR, **options)
     model = rt.models.cnn.CNN(rt.models.cnn.CNNConfig(side=SIDE))
     model.load_state_dict(state_dict)
     sys_ = rt.core.default_system(K=K, N=N, Q=Q, D_hat=D_HAT, device=device)
@@ -387,24 +399,43 @@ def host(tensors):
     return {n: t.detach().cpu().clone() for n, t in tensors.items()}
 
 
-def phase_replay(rt, torch, data, init_sd, gpu0):
-    """Round 0 on the CPU against the card's round 0."""
-    cpu = make_trainer(rt, torch, data, init_sd, "cpu")
+def round_record(tr):
+    """What a replay holds the card's round against."""
+    st, dec = tr.last_state, tr.last_decision
+    return {"rho": dec.rho.copy(), "delta": dec.delta.cpu(),
+            "delta_cont": (None if dec.delta_cont is None
+                           else dec.delta_cont.cpu()),
+            "sigma": st.sigma.cpu(), "net_cost": dec.net_cost,
+            "params": host(tr.params), "mu": host(tr.opt_state.mu),
+            "state": st}
+
+
+def phase_replay(rt, torch, data, init_sd, gpu0, label="", **options):
+    """Round 0 on the CPU against the card's round 0 (same trainer
+    ``options``).  A faithful selection may differ only where one side's
+    continuous GP point lies within SELECTION_BAND of 1/2; any other
+    selection must be equal."""
+    cpu = make_trainer(rt, torch, data, init_sd, "cpu", **options)
     t0 = time.perf_counter()
     cpu.run_round(0)
     wall = time.perf_counter() - t0
     dec = cpu.last_decision
-    check(bool((dec.rho == gpu0["rho"]).all()), "replay: RB assignment differs")
+    check(bool((dec.rho == gpu0["rho"]).all()),
+          f"replay{label}: RB assignment differs")
     sig_rel = max_rel(gpu0["sigma"], cpu.last_state.sigma)
-    check(sig_rel <= SIGMA_RTOL, f"replay: sigma rel err {sig_rel:.3g}")
+    check(sig_rel <= SIGMA_RTOL, f"replay{label}: sigma rel err {sig_rel:.3g}")
     cont_g, cont_c = gpu0["delta_cont"], dec.delta_cont
-    in_band = ((cont_g - 0.5).abs() < SELECTION_BAND) | (
-        (cont_c - 0.5).abs() < SELECTION_BAND)
     differ = gpu0["delta"] != dec.delta
+    if cont_g is None:
+        in_band = torch.zeros_like(differ)
+    else:
+        in_band = ((cont_g - 0.5).abs() < SELECTION_BAND) | (
+            (cont_c - 0.5).abs() < SELECTION_BAND)
     check(not bool((differ & ~in_band).any()),
-          "replay: selection differs outside the band around 1/2")
+          f"replay{label}: selection differs outside the band around 1/2")
     nc_rel = abs(dec.net_cost - gpu0["net_cost"]) / abs(gpu0["net_cost"])
-    check(nc_rel <= NET_COST_RTOL, f"replay: net cost rel err {nc_rel:.3g}")
+    check(nc_rel <= NET_COST_RTOL,
+          f"replay{label}: net cost rel err {nc_rel:.3g}")
     worst, n_noise, n_total = 0.0, 0, 0
     same_selection = not bool(differ.any())
     for name, p in cpu.params.items():
@@ -416,16 +447,172 @@ def phase_replay(rt, torch, data, init_sd, gpu0):
         if same_selection:
             tight = 1e-6 + 1e-5 * p_g.abs()
             check(bool(torch.all(diff[~noise] <= tight[~noise])),
-                  f"replay: params {name} differ")
-        check(bool(torch.all(diff <= 2 * LR)), f"replay: params {name} differ")
+                  f"replay{label}: params {name} differ")
+        check(bool(torch.all(diff <= 2 * LR)),
+              f"replay{label}: params {name} differ")
         worst = max(worst, float(diff.max()))
-    print(f"replay round 0 on cpu ({wall:.2f} s): rho equal, selection equal "
+    print(f"replay{label} round 0 on cpu ({wall:.2f} s): rho equal, "
+          f"selection equal "
           f"outside |delta-1/2|<{SELECTION_BAND} ({int(in_band.sum())} entries "
           f"in the band, {int(differ.sum())} differ), sigma max rel err "
           f"{sig_rel:.3g}, net_cost gpu {gpu0['net_cost']:.6f} cpu "
           f"{dec.net_cost:.6f}, params max abs err {worst:.3g} "
           f"({n_noise}/{n_total} entries with a first moment at float32 "
           f"noise held at 2*lr)")
+
+
+def print_round(label, i, m):
+    print(f"{label} round {i}: wall {m.wall_s * 1e3:.3f} ms net_cost "
+          f"{m.net_cost:.6f} n_selected {m.n_selected} swaps {m.swaps} "
+          f"uploaded {m.n_uploaded} stages "
+          + " ".join(f"{k}={v * 1e3:.3f}ms" for k, v in m.stage_s.items()))
+
+
+def check_assignment(rho, alpha, label):
+    """Definition 1 / constraints (12)-(14): each available device at
+    most one RB, each RB at most Q devices, no RB for an unavailable
+    device."""
+    per_dev, per_rb = rho.sum(axis=1), rho.sum(axis=0)
+    avail = alpha > 0
+    check(bool((per_dev[avail] <= 1).all()) and bool((per_dev[~avail] == 0)
+                                                     .all()),
+          f"{label}: a device holds more than one RB or is unavailable")
+    check(bool((per_rb <= Q).all()), f"{label}: an RB holds more than {Q}")
+
+
+def phase_schemes(rt, torch, data, init_sd, kernels, gradnorm):
+    """Baselines 1-4 on the card, 3 rounds each; returns the launches of
+    the 12 rounds and baseline 1's round-0 record."""
+    for m in kernels:
+        m.reset_launch_counts()
+    base1 = None
+    for b in (1, 2, 3, 4):
+        scheme = f"baseline{b}"
+        tr = make_trainer(rt, torch, data, init_sd, "cuda", scheme=scheme)
+        want_sel = K * (D_HAT // 2 if b in (1, 2) else D_HAT)
+        start = gradnorm.LAUNCHES["gradnorm_sigma"]
+        walls = []
+        for i in range(ROUNDS):
+            m = tr.run_round(i)
+            walls.append(m.wall_s)
+            st, dec = tr.last_state, tr.last_decision
+            check(all(bool(torch.isfinite(p).all())
+                      for p in tr.params.values()),
+                  f"{scheme}: params not finite")
+            check(m.n_selected == want_sel, f"{scheme}: n_selected "
+                  f"{m.n_selected}, expected {want_sel}")
+            check(gradnorm.LAUNCHES["gradnorm_sigma"] == start + i + 1,
+                  f"{scheme}: gradnorm_sigma launches "
+                  f"{gradnorm.LAUNCHES['gradnorm_sigma'] - start} after "
+                  f"round {i}")
+            check_assignment(dec.rho, st.alpha.cpu().numpy(), scheme)
+            print_round(scheme, i, m)
+            if b == 1 and i == 0:
+                base1 = round_record(tr)
+        print(f"{scheme}: {ROUNDS} rounds, gradnorm_sigma launches "
+              f"{gradnorm.LAUNCHES['gradnorm_sigma'] - start}, wall ms per "
+              f"round {[round(w * 1e3, 3) for w in walls]}")
+        del tr
+    launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
+    check(launches == {"rownorm2": 0, "gradnorm_sigma": 4 * ROUNDS,
+                       "flash_attention": 0, "lru_scan": 0},
+          f"launches on the schemes' path {launches}")
+    print(f"schemes path launches: {launches}")
+    return launches, base1
+
+
+def phase_ccp_fig3(rt, torch, sys_, st0):
+    """Paper Fig. 3 on the card's setup: 5 random feasible starts on the
+    closed-form matching of phase 4's round-0 channel."""
+    import numpy as np
+    power, matching = rt.core.power, rt.core.matching
+    res = matching.swap_matching(sys_, st0.h, st0.alpha)
+    rho = torch.as_tensor(res.rho, device="cuda")
+    p_cf, _ = power.closed_form_power(sys_, rho, st0.h, st0.alpha)
+    cost_cf = float(power.upload_cost(sys_, p_cf, rho))
+    rng = np.random.default_rng(7)
+    finals, ms = [], []
+    for i in range(5):
+        scale = float(rng.uniform(1.2, 4.0))
+        p0 = torch.minimum(p_cf * scale,
+                           sys_.p_max[:, None] * rho * (1 - 1e-4))
+        t0 = time.perf_counter()
+        out = power.ccp_power(sys_, rho, st0.h, st0.alpha, p0=p0)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(out.feasible and out.p.device.type == "cuda",
+              "ccp_power: infeasible or powers off the card")
+        gap = abs(out.trajectory[-1] - cost_cf) / cost_cf
+        check(gap <= CCP_GAP, f"ccp start {i}: final {out.trajectory[-1]} "
+              f"is {gap:.3g} from the closed form {cost_cf}")
+        finals.append(out.trajectory[-1])
+        print(f"ccp start {i} (scale {scale:.4f}): iterations "
+              f"{out.iterations} trajectory {[float(x) for x in out.trajectory]}"
+              f" gap to closed form {gap:.3g} | {ms[-1]:.3f} ms")
+    spread = (max(finals) - min(finals)) / max(finals)
+    check(spread <= CCP_GAP, f"ccp finals spread {spread:.3g}")
+    print(f"ccp Fig. 3: {int(rho.sum())} active devices, closed form "
+          f"{cost_cf:.9g}, finals spread {spread:.3g}, ms per ccp_power call "
+          f"{[round(x, 3) for x in ms]} (mean {sum(ms) / len(ms):.3f})")
+
+    # the Newton step's derivatives: closed form against torch.func
+    s64 = power.system64(sys_)
+    rho64, h64, alpha64, p_cf64 = (power.host64(a)
+                                   for a in (rho, st0.h, st0.alpha, p_cf))
+    sub = power.subproblem(s64, rho64, h64, alpha64).linearize(p_cf64 * 1.5)
+    x = p_cf64[sub.ki, sub.ni] * 1.2
+    t = 10.0 / float(np.sum(sub.cost_grad * x))
+
+    def phi(z):
+        return sub.phi(z, t)
+
+    def by_func():
+        xt = torch.from_numpy(x)
+        return torch.func.grad(phi)(xt), torch.func.hessian(phi)(xt)
+
+    (g, hs), (g2, h2) = sub.derivatives(x, t), by_func()
+    err = max(float(np.abs(g - g2.numpy()).max() / np.abs(g).max()),
+              float(np.abs(hs - h2.numpy()).max() / np.abs(hs).max()))
+    check(err <= 1e-9, f"ccp derivatives differ from torch.func: {err:.3g}")
+    us = {}
+    for name, fn in (("closed form", lambda: sub.derivatives(x, t)),
+                     ("torch.func", by_func)):  # one warm call each
+        t0 = time.perf_counter()
+        fn()
+        us[name] = (time.perf_counter() - t0) * 1e6
+    print(f"ccp Newton derivatives at {x.size} unknowns (host, float64, "
+          "one warm call each): "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in us.items())
+          + f"; max rel diff {err:.3g}")
+
+
+def phase_ccp_round(rt, torch, data, init_sd, kernels, gradnorm):
+    """One proposed round with the CCP evaluator on the card; returns its
+    launches and round-0 record."""
+    tr = make_trainer(rt, torch, data, init_sd, "cuda",
+                      power_evaluator="ccp")
+    for m in kernels:
+        m.reset_launch_counts()
+    m = tr.run_round(0)
+    launches = {k: v for mod in kernels for k, v in mod.LAUNCHES.items()}
+    check(launches == {"rownorm2": 0, "gradnorm_sigma": 1,
+                       "flash_attention": 0, "lru_scan": 0},
+          f"launches on the CCP round {launches}")
+    st, dec = tr.last_state, tr.last_decision
+    check(all(bool(torch.isfinite(p).all()) for p in tr.params.values()),
+          "ccp round: params not finite")
+    check_assignment(dec.rho, st.alpha.cpu().numpy(), "ccp round")
+    print_round("proposed+ccp", 0, m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rt.core.matching.swap_matching(tr.sys, st.h, st.alpha,
+                                         evaluator="ccp")
+    wall = (time.perf_counter() - t0) * 1e3
+    check(bool((res.rho == dec.rho).all()), "ccp matching not reproducible")
+    print(f"ccp matching on round 0's inputs: {wall:.3f} ms, "
+          f"{res.rb_evals} per-RB evaluations, {res.ccp_solves} CCP solves, "
+          f"{res.swaps} swaps in {res.sweeps} sweeps, feasible "
+          f"{res.feasible}; launches {launches}")
+    return launches, round_record(tr)
 
 
 def profile_round(torch, tr, i):
@@ -695,11 +882,7 @@ def main() -> None:
                                    for k, v in m.stage_s.items())
               + ("" if m.test_acc is None else f" test_acc {m.test_acc:.4f}"))
         if i == 0:
-            gpu0 = {"rho": dec.rho.copy(), "delta": dec.delta.cpu(),
-                    "delta_cont": dec.delta_cont.cpu(),
-                    "sigma": st.sigma.cpu(), "net_cost": dec.net_cost,
-                    "params": host(tr.params),
-                    "mu": host(tr.opt_state.mu), "state": st}
+            gpu0 = round_record(tr)
     feel_launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
     check(feel_launches == {"rownorm2": 0, "gradnorm_sigma": ROUNDS,
                             "flash_attention": 0, "lru_scan": 0},
@@ -727,6 +910,8 @@ def main() -> None:
         print(f"decision stage, round 0 inputs: {name} "
               f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
     profile_round(torch, tr, ROUNDS)
+    st0_host = {f: getattr(st0, f).cpu() for f in
+                ("h", "alpha", "sigma", "sigma_mask")}
     del tr, gpu0, st0, data
     done("6 FEEL profile")
 
@@ -769,7 +954,26 @@ def main() -> None:
                      states=True)
     done("10 mamba replay")
 
-    # -- 11. results ----------------------------------------------------
+    # -- 11. the baseline schemes ---------------------------------------
+    torch.cuda.empty_cache()
+    data = make_data(rt)
+    schemes_launches, base1 = phase_schemes(rt, torch, data, init_sd,
+                                            kernels, gradnorm)
+    phase_replay(rt, torch, data, init_sd, base1, label=" baseline1",
+                 scheme="baseline1")
+    done("11 schemes")
+
+    # -- 12. CCP power (Algorithm 3) ------------------------------------
+    sys_ = rt.core.default_system(K=K, N=N, Q=Q, D_hat=D_HAT, device="cuda")
+    st0 = rt.core.RoundState(**{k: v.cuda() for k, v in st0_host.items()})
+    phase_ccp_fig3(rt, torch, sys_, st0)
+    ccp_launches, ccp0 = phase_ccp_round(rt, torch, data, init_sd, kernels,
+                                         gradnorm)
+    phase_replay(rt, torch, data, init_sd, ccp0, label=" proposed+ccp",
+                 power_evaluator="ccp")
+    done("12 ccp")
+
+    # -- results --------------------------------------------------------
     def entry(name, source, replaces, launches, rec):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -785,7 +989,9 @@ def main() -> None:
               feel_launches["rownorm2"] + serve_launches["rownorm2"]
               + mamba_launches["rownorm2"], norm_rec),
         entry("gradnorm_sigma", gn_src, "src/repro/kernels/gradnorm.py:62",
-              feel_launches["gradnorm_sigma"], sigma_rec),
+              feel_launches["gradnorm_sigma"]
+              + schemes_launches["gradnorm_sigma"]
+              + ccp_launches["gradnorm_sigma"], sigma_rec),
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
               "src/repro/kernels/flash_attention.py:112",

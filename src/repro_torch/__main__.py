@@ -2,10 +2,12 @@
 
 Counterpart of ``examples/feel_e2e.py``'s core flags: the §VI-A CNN on
 the synthetic MNIST-like set with mislabels, K=10 devices (one class
-each), N=5 RBs, Q=2, the proposed scheme, with sigma scored by the CUDA
-row-norm kernel (the reference's ``sigma_method="last_layer_kernel"``).
+each), N=5 RBs, Q=2, the proposed scheme or a baseline (``--scheme``),
+with sigma scored by the CUDA row-norm kernel (the reference's
+``sigma_method="last_layer_kernel"``).
 
     PYTHONPATH=src python -m repro_torch --rounds 150            # GPU
+    PYTHONPATH=src python -m repro_torch --scheme baseline4 --rounds 150
     PYTHONPATH=src python -m repro_torch --rounds 2 --d-hat 12 --side 10 --device cpu
 """
 from __future__ import annotations
@@ -19,12 +21,14 @@ from .core import default_system
 from .data import SyntheticImages, non_iid_split
 from .device import resolve_device
 from .fed import FEELConfig, FEELTrainer, RoundMetrics
+from .fed.rounds import SCHEMES
 from .models import cnn
 
 
 def main(argv: Optional[List[str]] = None) -> List[RoundMetrics]:
     ap = argparse.ArgumentParser(prog="python -m repro_torch")
     ap.add_argument("--rounds", type=int, default=150)
+    ap.add_argument("--scheme", default="proposed", choices=SCHEMES)
     ap.add_argument("--mislabel", type=float, default=0.1)
     ap.add_argument("--d-hat", type=int, default=60)
     ap.add_argument("--side", type=int, default=20)
@@ -40,7 +44,8 @@ def main(argv: Optional[List[str]] = None) -> List[RoundMetrics]:
     data = non_iid_split(train, test, K=10, per_device=600,
                          mislabel_prop=args.mislabel, seed=0)
     sys_ = default_system(K=10, N=5, Q=2, D_hat=args.d_hat, device=device)
-    cfg = FEELConfig(d_hat=args.d_hat, selection_method=args.selection)
+    cfg = FEELConfig(scheme=args.scheme, d_hat=args.d_hat,
+                     selection_method=args.selection)
     model = cnn.CNN(cnn.CNNConfig(side=args.side),
                     generator=torch.Generator().manual_seed(cfg.seed))
     metrics = FEELTrainer(sys_, data, model, cfg).run(args.rounds,

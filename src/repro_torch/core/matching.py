@@ -1,10 +1,19 @@
 """Swap-matching RB assignment (paper §IV-A, Algorithm 2).
 
-Counterpart of ``repro/core/matching.py`` with the closed-form power
-evaluator (the CCP evaluator waits for the CCP port).  Each available
-device gets one RB, each RB carries at most Q devices; pairs of devices
-exchange RBs (or a device moves into an open slot) whenever that
-strictly lowers the upload cost, until a sweep makes no change.
+Counterpart of ``repro/core/matching.py``.  Each available device gets
+one RB, each RB carries at most Q devices; pairs of devices exchange
+RBs (or a device moves into an open slot) whenever that strictly lowers
+the upload cost, until a sweep makes no change.
+
+``evaluator``: ``"closed_form"`` prices a candidate RB with the exact
+per-RB solution; ``"ccp"`` runs Algorithm 3 (``power.allocate_power``
+with ``method="ccp"``) on an assignment holding only that RB's members,
+as the reference does.  Every other available device is then unmatched
+in that assignment, so the closed-form start is infeasible and the
+candidate costs inf unless the RB holds every available device; a
+swap's cost difference is then inf - inf = nan, which never counts as a
+gain, so the sweep keeps its initial matching (the reference makes the
+same decisions).
 
 The sweep stays on the host, in float64 numpy, as in the reference:
 the reference casts h and alpha to float64 and ``_BatchScorer`` is
@@ -16,9 +25,10 @@ power allocation of the chosen assignment runs on the device.
 
 ``mode``: ``"scalar"`` scores one candidate per Python call,
 ``"batched"`` scores all remaining candidate moves of a device in one
-vectorized evaluation and applies the first improving one in the same
-enumeration order (same decisions, move for move); ``"auto"`` picks
-batched at ``AUTO_BATCH_MIN`` available devices.
+vectorized closed-form evaluation and applies the first improving one in
+the same enumeration order (same decisions, move for move); ``"auto"``
+picks batched at ``AUTO_BATCH_MIN`` available devices with the
+closed-form evaluator and stays scalar with the CCP one.
 """
 from __future__ import annotations
 
@@ -53,12 +63,10 @@ class MatchingResult:
         default_factory=lambda: np.zeros(0, np.int64))
     #: sweep implementation that ran ("scalar" or "batched").
     mode: str = "scalar"
-
-
-def _host64(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
-    return np.asarray(x, np.float64)
+    #: candidate per-RB cost evaluations, and how many of them ran a CCP
+    #: solve (the others had an infeasible closed-form start)
+    rb_evals: int = 0
+    ccp_solves: int = 0
 
 
 def _rb_cost(members: np.ndarray, h: np.ndarray, c: np.ndarray,
@@ -80,10 +88,13 @@ def _rb_cost(members: np.ndarray, h: np.ndarray, c: np.ndarray,
 
 
 class _Scorer:
-    """Per-RB closed-form costs, one candidate member set per call."""
+    """Per-RB costs, one candidate member set per call."""
 
-    def __init__(self, sys: SystemParams, h: np.ndarray):
+    def __init__(self, sys: SystemParams, h: np.ndarray, alpha: np.ndarray,
+                 evaluator: str):
         self.h = h
+        self.alpha = alpha
+        self.evaluator = evaluator
         self.gamma = float(power_mod.snr_target(sys))
         # float32, as the reference's scalar scorer keeps them: the
         # p_max tolerance product then rounds as it does there
@@ -91,10 +102,24 @@ class _Scorer:
         self.p_max = sys.p_max.cpu().numpy()
         self.N0 = float(sys.N0)
         self.T = float(sys.T)
+        self.sys64 = power_mod.system64(sys) if evaluator == "ccp" else None
+        self.evals = 0
+        self.ccp_solves = 0
 
     def rb_cost(self, n: int, members: np.ndarray) -> float:
-        return _rb_cost(members, self.h[members, n], self.c[members],
-                        self.p_max[members], self.gamma, self.N0, self.T)
+        self.evals += 1
+        if self.evaluator == "closed_form":
+            return _rb_cost(members, self.h[members, n], self.c[members],
+                            self.p_max[members], self.gamma, self.N0,
+                            self.T)
+        # paper-faithful: per-RB CCP (Algorithm 3) on a masked assignment
+        rho = np.zeros(self.h.shape)
+        rho[members, n] = 1.0
+        _, cost, ok = power_mod.allocate_power(self.sys64, rho, self.h,
+                                               self.alpha, method="ccp")
+        # CCP solves exactly when its closed-form start is feasible
+        self.ccp_solves += ok
+        return cost
 
 
 class _BatchScorer:
@@ -104,15 +129,17 @@ class _BatchScorer:
     def __init__(self, sys: SystemParams, h: np.ndarray):
         self.gamma = float(power_mod.snr_target(sys))
         self.h = h
-        self.c = _host64(sys.c)
-        self.p_max = _host64(sys.p_max)
+        self.c = power_mod.host64(sys.c)
+        self.p_max = power_mod.host64(sys.p_max)
         self.N0 = float(sys.N0)
         self.T = float(sys.T)
+        self.evals = 0
 
     def rb_costs(self, ids: np.ndarray, rbs: np.ndarray) -> np.ndarray:
         """``ids``: (C, Qp) member ids, -1 padding after the real members;
         ``rbs``: (C,) RB of each row.  Returns (C,) float64 costs."""
         C, Qp = ids.shape
+        self.evals += C
         act = ids >= 0
         safe = np.where(act, ids, 0)
         h = np.where(act, self.h[safe, rbs[:, None]], _INF)
@@ -289,18 +316,28 @@ def _scalar_sweeps(sys: SystemParams, scorer: _Scorer, avail: np.ndarray,
     return swaps, sweeps
 
 
-def swap_matching(sys: SystemParams, h, alpha, allow_moves: bool = True,
-                  max_sweeps: int = 50, mode: str = "auto") -> MatchingResult:
+def swap_matching(sys: SystemParams, h, alpha, evaluator: str = "closed_form",
+                  allow_moves: bool = True, max_sweeps: int = 50,
+                  mode: str = "auto") -> MatchingResult:
     """Algorithm 2. ``h``: (K, N) gains; ``alpha``: (K,) availability,
-    as tensors (any device) or arrays."""
+    as tensors (any device) or arrays.  ``evaluator``: ``"closed_form"``
+    or ``"ccp"`` (scalar sweep only); the final powers of the chosen
+    assignment are the closed form's with either, as in the reference."""
     if mode not in ("auto", "scalar", "batched"):
         raise ValueError(f"unknown matching mode: {mode!r}")
-    h64 = _host64(h)
-    alpha64 = _host64(alpha)
+    if evaluator not in ("closed_form", "ccp"):
+        raise ValueError(f"unknown power evaluator: {evaluator!r}")
+    if mode == "batched" and evaluator != "closed_form":
+        raise ValueError("mode='batched' requires evaluator='closed_form' "
+                         "(per-candidate CCP solves cannot be vectorized); "
+                         "use mode='scalar' or mode='auto'")
+    h64 = power_mod.host64(h)
+    alpha64 = power_mod.host64(alpha)
     K, N, Q = sys.K, sys.N, sys.Q
     avail = np.flatnonzero(alpha64 > 0)
     use_batched = (mode == "batched"
-                   or (mode == "auto" and avail.size >= AUTO_BATCH_MIN))
+                   or (mode == "auto" and evaluator == "closed_form"
+                       and avail.size >= AUTO_BATCH_MIN))
 
     # ---- initial matching Psi_0: greedy best-gain with capacity ----
     assign = np.full(K, -1, np.int64)
@@ -329,7 +366,7 @@ def swap_matching(sys: SystemParams, h, alpha, allow_moves: bool = True,
                                         counts, rb_costs, allow_moves,
                                         max_sweeps)
     else:
-        scorer = _Scorer(sys, h64)
+        scorer = _Scorer(sys, h64, alpha64, evaluator)
         members = [np.flatnonzero(assign == n) for n in range(N)]
         rb_costs = np.array([scorer.rb_cost(n, members[n])
                              for n in range(N)])
@@ -351,4 +388,6 @@ def swap_matching(sys: SystemParams, h, alpha, allow_moves: bool = True,
     return MatchingResult(assign=assign, rho=rho, p=p, cost=cost,
                           swaps=swaps, sweeps=sweeps, feasible=feasible,
                           unmatched=unmatched,
-                          mode="batched" if use_batched else "scalar")
+                          mode="batched" if use_batched else "scalar",
+                          rb_evals=scorer.evals,
+                          ccp_solves=0 if use_batched else scorer.ccp_solves)

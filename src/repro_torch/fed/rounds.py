@@ -1,15 +1,16 @@
 """The FEEL communication-round loop (paper §II + Algorithm 1).
 
-Counterpart of ``repro/fed/rounds.py``, plain path (proposed scheme,
-FedSGD, Adam).  Each round:
+Counterpart of ``repro/fed/rounds.py``, plain path (the proposed scheme
+or a baseline, FedSGD, Adam).  Each round:
 
   1. every device samples |D̂_k| local samples and scores them
      (sigma_{k,j} = per-sample gradient-norm^2 of the output layer, the
      reference's ``sigma_method="last_layer_kernel"``: one fused
      all-device pass through the CUDA row-norm kernel);
   2. channel gains h_{k,n} and availability alpha_k are drawn;
-  3. the server runs Algorithm 1 to fix (rho*, p*, delta*) and is
-     billed the net cost (eq. 18);
+  3. the server runs Algorithm 1 (``cfg.scheme="proposed"``, with the
+     closed-form or CCP power evaluator) or baseline 1-4 to fix
+     (rho*, p*, delta*) and is billed the net cost (eq. 18);
   4. devices compute local gradients on their selected samples (eq. 4);
   5. the server aggregates with inverse-propensity weights (eq. 19) and
      takes an Adam step.
@@ -18,13 +19,16 @@ Randomness: data subsets come from a numpy ``Generator`` seeded with
 ``cfg.seed``, as in the reference, so they match it bit for bit; h and
 alpha come from the trainer's own CPU ``torch.Generator`` (the reference
 draws them with ``jax.random``), or from ``channel_source(i)``, which a
-test uses to replay the reference's draws.  Every draw is made on the
+test uses to replay the reference's draws; baselines 1 and 2 then draw
+their random half from the same generator.  Every draw is made on the
 CPU, so a run on the GPU and a run on the CPU see the same inputs.
 
-Not ported yet: the baseline schemes, warmup rounds, ``local_steps > 1``
-(FedAvg), the resilience layer (faults, retries, quarantine,
-checkpoints) and the telemetry sink; per-stage wall times are returned
-in ``RoundMetrics.stage_s`` instead.
+Not ported yet: warmup rounds, ``local_steps > 1`` (FedAvg), the
+optimizers other than Adam, ``gp_step0``, the chunked GP, the "full"
+and "last_layer" sigma methods, the resilience layer (faults, retries,
+quarantine, checkpoints, the solver fallback chain) and the telemetry
+sink; per-stage wall times are returned in ``RoundMetrics.stage_s``
+instead.
 """
 from __future__ import annotations
 
@@ -49,14 +53,28 @@ from . import server as server_mod
 ChannelSource = Callable[[int], Tuple[np.ndarray, np.ndarray]]
 
 
+#: the schemes of paper §VI-A: Algorithm 1 and baselines 1-4
+SCHEMES = ("proposed", "baseline1", "baseline2", "baseline3", "baseline4")
+
+
 @dataclasses.dataclass
 class FEELConfig:
+    scheme: str = "proposed"            # proposed | baseline1..baseline4
     selection_method: str = "faithful"  # faithful (Alg 4+5) | exact
+    power_evaluator: str = "closed_form"  # closed_form | ccp (Alg. 3)
     lr: float = 1e-3
     d_hat: int = 200
     gp_steps: int = 400
     eval_every: int = 10
     seed: int = 0
+
+    def __post_init__(self):
+        if self.scheme not in SCHEMES:
+            raise ValueError(f"unknown scheme {self.scheme!r}; one of "
+                             f"{SCHEMES}")
+        if self.power_evaluator not in ("closed_form", "ccp"):
+            raise ValueError(
+                f"unknown power evaluator {self.power_evaluator!r}")
 
 
 @dataclasses.dataclass
@@ -150,9 +168,14 @@ class FEELTrainer:
                            sigma_mask=torch.ones_like(sigma))
 
         with self._stage(st, "decision"):
-            dec = joint_mod.proposed_scheme(
-                sys, state, selection_method=cfg.selection_method,
-                gp_steps=cfg.gp_steps)
+            if cfg.scheme == "proposed":
+                dec = joint_mod.proposed_scheme(
+                    sys, state, selection_method=cfg.selection_method,
+                    power_evaluator=cfg.power_evaluator,
+                    gp_steps=cfg.gp_steps)
+            else:
+                dec = joint_mod.baseline_scheme(
+                    sys, state, int(cfg.scheme[-1]), generator=self.gen)
         delta = dec.delta
         matched = torch.as_tensor(dec.rho.sum(axis=1) > 0,
                                   dtype=torch.float32, device=self.device)
