@@ -22,13 +22,14 @@ exit) if anything in it fails; no failure is caught:
    bf16 flash also on views offset by one element (d = 20 and the GQA
    serving shape), which TMA cannot read in place and the wrapper pads
    into an aligned copy;
-4. FEEL path: 3 rounds of the paper's §VI-A setup (K=10, N=5, Q=2,
-   D̂=200, 28x28 images, faithful selection with 400 GP steps) through
-   ``FEELTrainer.run_round``, which scores sigma through the kernel;
+4. FEEL path: 3 untraced rounds of the paper's §VI-A setup (K=10, N=5,
+   Q=2, D̂=200, 28x28 images, faithful selection with 400 GP steps)
+   through ``FEELTrainer.run_round``, which scores sigma through the
+   kernel;
 5. replay: round 0 again with the port on the CPU, held against the
    card's round 0;
-6. where the time goes: the decision stage split into matching and
-   selection, and one more round under ``torch.profiler``;
+6. where the time goes: the decision's matching and selection timed
+   alone, and one more round under ``torch.profiler``;
 7. serving path: ``repro_torch.launch.serve.serve`` on llama3.2-3b at
    full width and depth (28 layers, random weights from a seed), batch
    4, prompt length 2048, 32 greedy tokens; prefill attention goes
@@ -58,10 +59,27 @@ exit) if anything in it fails; no failure is caught:
    trajectory, the spread of the finals, their gap to the closed form,
    ms per ``ccp_power`` call, and the Newton step's derivatives in
    closed form against ``torch.func``; (b) one proposed round with the
-   CCP evaluator in the matching, and its replay on the CPU.
+   CCP evaluator in the matching, and its replay on the CPU;
+13. traced rounds: 3 proposed rounds and 1 baseline-4 round of phase 4's
+   setup with everything on (a ``repro_torch.obs`` file sink with
+   profiling and ``torch.profiler`` annotation, a metrics registry, a
+   convergence monitor).  Checks: every required stage in each round;
+   the span tree whole, each child inside its parent's time; the stages
+   between 0.5x (the round's profiling calls aside) and 1.01x the round
+   wall; ``gradnorm_sigma`` once a round plus once per profiling call;
+   the ``sigma_all`` profile's FLOPs are the flop counter's plus the
+   kernel's own count (``gradnorm.cost``); round 0 decides as phase 4's
+   untraced round 0 under phase 5's replay rule; the trace file
+   round-trips through ``load_trace`` and ``summarize``.  Prints the
+   per-stage medians, the top span self-times, each profile's FLOPs,
+   bytes and FLOP/s against ``peak_flops()``, and each traced round's
+   wall beside an untraced trainer's same round (run in turns with it,
+   checked to call ``torch.cuda.synchronize`` not once) and phase 4's.  Phase 4's untraced rounds call
+   ``torch.cuda.synchronize`` not once (checked); phases 11-12 read
+   their stage times from an in-memory sink.
 
-Launch counts are zeroed just before each path (4, 7, 9, 11, 12b, and
-the card's run in 8) and read just after.  It prints one
+Launch counts are zeroed just before each path (4, 7, 9, 11, 12b, 13,
+and the card's run in 8) and read just after.  It prints one
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
 line.  Without a GPU, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero before
@@ -197,7 +215,8 @@ def phase_kernels(torch, gradnorm):
         torch.cuda.synchronize()
         rel = max_rel(got, want)
         check(rel <= KERNEL_RTOL, f"rownorm2 {(n, f)}: rel err {rel:.3g}")
-        b_ms, b_by = bound(4.0 * (n * f + n), 2.0 * n * f)
+        flops, n_bytes = gradnorm.cost(n, f)
+        b_ms, b_by = bound(n_bytes, flops)
         rec = {"max_abs_err": float((got - want).abs().max()),
                "ms": device_ms(torch, lambda: gradnorm.rownorm2(x)),
                "plain_ms": device_ms(torch,
@@ -223,7 +242,8 @@ def phase_kernels(torch, gradnorm):
         torch.cuda.synchronize()
         rel = max_rel(got, want)
         check(rel <= KERNEL_RTOL, f"gradnorm_sigma {(n, f)}: rel err {rel:.3g}")
-        b_ms, b_by = bound(4.0 * (n * (f + 10) + n), 2.0 * n * (f + 10) + 2 * n)
+        flops, n_bytes = gradnorm.cost(n, f, 10)
+        b_ms, b_by = bound(n_bytes, flops)
         rec = {"max_abs_err": float((got - want).abs().max()),
                "ms": device_ms(torch, lambda: gradnorm.gradnorm_sigma(h, d)),
                "plain_ms": device_ms(
@@ -387,12 +407,20 @@ def make_data(rt):
                                  mislabel_prop=0.1, seed=0)
 
 
-def make_trainer(rt, torch, data, state_dict, device, **options):
+def make_trainer(rt, torch, data, state_dict, device, telemetry=None,
+                 monitor=False, **options):
+    """A trainer at the §VI-A setup; ``telemetry``: an ``obs`` sink;
+    ``monitor``: attach a ``ConvergenceMonitor`` writing to that sink
+    and to the process-default metrics registry."""
     cfg = rt.fed.FEELConfig(d_hat=D_HAT, gp_steps=GP_STEPS, lr=LR, **options)
     model = rt.models.cnn.CNN(rt.models.cnn.CNNConfig(side=SIDE))
     model.load_state_dict(state_dict)
     sys_ = rt.core.default_system(K=K, N=N, Q=Q, D_hat=D_HAT, device=device)
-    return rt.fed.FEELTrainer(sys_, data, model, cfg)
+    mon = (rt.obs.ConvergenceMonitor(sys_, telemetry=telemetry,
+                                     registry=rt.obs.metrics.get_default())
+           if monitor else None)
+    return rt.fed.FEELTrainer(sys_, data, model, cfg, telemetry=telemetry,
+                              monitor=mon)
 
 
 def host(tensors):
@@ -410,32 +438,42 @@ def round_record(tr):
             "state": st}
 
 
+def check_same_decision(torch, want, dec, label):
+    """The replay rule: the same RB assignment; a faithful selection may
+    differ only where one side's continuous GP point lies within
+    SELECTION_BAND of 1/2, any other selection must be equal; net cost
+    at NET_COST_RTOL.  ``want``: a ``round_record``; ``dec``: a
+    ``RoundDecision``.  Returns (entries that differ, entries in the
+    band)."""
+    check(bool((dec.rho == want["rho"]).all()),
+          f"{label}: RB assignment differs")
+    cont_w = want["delta_cont"]
+    differ = want["delta"] != dec.delta.cpu()
+    if cont_w is None:
+        in_band = torch.zeros_like(differ)
+    else:
+        in_band = ((cont_w - 0.5).abs() < SELECTION_BAND) | (
+            (dec.delta_cont.cpu() - 0.5).abs() < SELECTION_BAND)
+    check(not bool((differ & ~in_band).any()),
+          f"{label}: selection differs outside the band around 1/2")
+    nc_rel = abs(dec.net_cost - want["net_cost"]) / abs(want["net_cost"])
+    check(nc_rel <= NET_COST_RTOL, f"{label}: net cost rel err {nc_rel:.3g}")
+    return differ, in_band
+
+
 def phase_replay(rt, torch, data, init_sd, gpu0, label="", **options):
     """Round 0 on the CPU against the card's round 0 (same trainer
-    ``options``).  A faithful selection may differ only where one side's
-    continuous GP point lies within SELECTION_BAND of 1/2; any other
-    selection must be equal."""
+    ``options``), under ``check_same_decision``'s rule; sigma and params
+    are held too."""
     cpu = make_trainer(rt, torch, data, init_sd, "cpu", **options)
     t0 = time.perf_counter()
     cpu.run_round(0)
     wall = time.perf_counter() - t0
     dec = cpu.last_decision
-    check(bool((dec.rho == gpu0["rho"]).all()),
-          f"replay{label}: RB assignment differs")
+    differ, in_band = check_same_decision(torch, gpu0, dec,
+                                          f"replay{label}")
     sig_rel = max_rel(gpu0["sigma"], cpu.last_state.sigma)
     check(sig_rel <= SIGMA_RTOL, f"replay{label}: sigma rel err {sig_rel:.3g}")
-    cont_g, cont_c = gpu0["delta_cont"], dec.delta_cont
-    differ = gpu0["delta"] != dec.delta
-    if cont_g is None:
-        in_band = torch.zeros_like(differ)
-    else:
-        in_band = ((cont_g - 0.5).abs() < SELECTION_BAND) | (
-            (cont_c - 0.5).abs() < SELECTION_BAND)
-    check(not bool((differ & ~in_band).any()),
-          f"replay{label}: selection differs outside the band around 1/2")
-    nc_rel = abs(dec.net_cost - gpu0["net_cost"]) / abs(gpu0["net_cost"])
-    check(nc_rel <= NET_COST_RTOL,
-          f"replay{label}: net cost rel err {nc_rel:.3g}")
     worst, n_noise, n_total = 0.0, 0, 0
     same_selection = not bool(differ.any())
     for name, p in cpu.params.items():
@@ -461,11 +499,18 @@ def phase_replay(rt, torch, data, init_sd, gpu0, label="", **options):
           f"noise held at 2*lr)")
 
 
-def print_round(label, i, m):
+def stage_ms(obs, tele, i):
+    """{stage: ms} of round ``i`` in the sink's events."""
+    return {e.stage: e.dur_s * 1e3 for e in tele.events
+            if isinstance(e, obs.StageEvent) and e.round == i}
+
+
+def print_round(label, i, m, obs=None, tele=None):
+    stages = "" if tele is None else " stages " + " ".join(
+        f"{k}={v:.3f}ms" for k, v in stage_ms(obs, tele, i).items())
     print(f"{label} round {i}: wall {m.wall_s * 1e3:.3f} ms net_cost "
           f"{m.net_cost:.6f} n_selected {m.n_selected} swaps {m.swaps} "
-          f"uploaded {m.n_uploaded} stages "
-          + " ".join(f"{k}={v * 1e3:.3f}ms" for k, v in m.stage_s.items()))
+          f"uploaded {m.n_uploaded}" + stages)
 
 
 def check_assignment(rho, alpha, label):
@@ -488,7 +533,9 @@ def phase_schemes(rt, torch, data, init_sd, kernels, gradnorm):
     base1 = None
     for b in (1, 2, 3, 4):
         scheme = f"baseline{b}"
-        tr = make_trainer(rt, torch, data, init_sd, "cuda", scheme=scheme)
+        tele = rt.obs.Telemetry()  # in memory: the stage times
+        tr = make_trainer(rt, torch, data, init_sd, "cuda", telemetry=tele,
+                          scheme=scheme)
         want_sel = K * (D_HAT // 2 if b in (1, 2) else D_HAT)
         start = gradnorm.LAUNCHES["gradnorm_sigma"]
         walls = []
@@ -506,7 +553,7 @@ def phase_schemes(rt, torch, data, init_sd, kernels, gradnorm):
                   f"{gradnorm.LAUNCHES['gradnorm_sigma'] - start} after "
                   f"round {i}")
             check_assignment(dec.rho, st.alpha.cpu().numpy(), scheme)
-            print_round(scheme, i, m)
+            print_round(scheme, i, m, rt.obs, tele)
             if b == 1 and i == 0:
                 base1 = round_record(tr)
         print(f"{scheme}: {ROUNDS} rounds, gradnorm_sigma launches "
@@ -588,7 +635,8 @@ def phase_ccp_fig3(rt, torch, sys_, st0):
 def phase_ccp_round(rt, torch, data, init_sd, kernels, gradnorm):
     """One proposed round with the CCP evaluator on the card; returns its
     launches and round-0 record."""
-    tr = make_trainer(rt, torch, data, init_sd, "cuda",
+    tele = rt.obs.Telemetry()  # in memory: the stage times
+    tr = make_trainer(rt, torch, data, init_sd, "cuda", telemetry=tele,
                       power_evaluator="ccp")
     for m in kernels:
         m.reset_launch_counts()
@@ -601,7 +649,7 @@ def phase_ccp_round(rt, torch, data, init_sd, kernels, gradnorm):
     check(all(bool(torch.isfinite(p).all()) for p in tr.params.values()),
           "ccp round: params not finite")
     check_assignment(dec.rho, st.alpha.cpu().numpy(), "ccp round")
-    print_round("proposed+ccp", 0, m)
+    print_round("proposed+ccp", 0, m, rt.obs, tele)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = rt.core.matching.swap_matching(tr.sys, st.h, st.alpha,
@@ -613,6 +661,219 @@ def phase_ccp_round(rt, torch, data, init_sd, kernels, gradnorm):
           f"{res.swaps} swaps in {res.sweeps} sweeps, feasible "
           f"{res.feasible}; launches {launches}")
     return launches, round_record(tr)
+
+
+class SyncCounter:
+    """Counts ``torch.cuda.synchronize`` calls inside a ``with`` block."""
+
+    def __init__(self, torch):
+        self.cuda, self.n = torch.cuda, 0
+
+    def __enter__(self):
+        self.real = self.cuda.synchronize
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return self.real(*args, **kwargs)
+
+        self.cuda.synchronize = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cuda.synchronize = self.real
+        return False
+
+
+def emit_us(obs, path, n=2000):
+    """Host cost of one trace record: ``n`` stage records written (a JSON
+    line and a flush each) to a scratch sink, in µs per record."""
+    tele = obs.Telemetry(path=path)
+    event = obs.StageEvent(stage="sigma", t0_s=1.25, dur_s=0.001, round=1,
+                           span_id=7, parent_id=1)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        tele.emit(event)
+    us = (time.perf_counter() - t0) * 1e6 / n
+    tele.close()
+    return us
+
+
+def phase_traced(rt, torch, data, init_sd, kernels, gradnorm, gpu0,
+                 untraced_walls):
+    """3 proposed rounds and 1 baseline-4 round of phase 4's setup on the
+    card with everything on: a file sink with profiling and annotation,
+    a metrics registry and a convergence monitor; an untraced trainer's
+    3 proposed rounds run in turns with them.  Returns the launches of
+    all 7 rounds."""
+    import statistics
+    import tempfile
+
+    obs = rt.obs
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    path = str(Path(tmp.name) / "trace.jsonl")
+    tele = obs.Telemetry(path=path, profile=True, annotate=True,
+                         meta={"source": "chip_smoke phase 13"})
+    reg = obs.Registry()
+    obs.metrics.set_default(reg)
+    proposed = make_trainer(rt, torch, data, init_sd, "cuda",
+                            telemetry=tele, monitor=True)
+    base4 = make_trainer(rt, torch, data, init_sd, "cuda", telemetry=tele,
+                         monitor=True, scheme="baseline4")
+    # (trainer, round index): the baseline's round is numbered 3, so
+    # every round of the trace has its own index
+    runs = [(proposed, i) for i in range(ROUNDS)] + [(base4, ROUNDS)]
+    # an untraced trainer's rounds interleaved with the traced ones (in
+    # turns, which runs first), so the two walls share the host's load
+    plain, plain_m = make_trainer(rt, torch, data, init_sd, "cuda"), []
+
+    def run_plain(i):
+        obs.metrics.set_default(None)
+        with SyncCounter(torch) as sc:
+            plain_m.append(plain.run_round(i, eval_now=i == ROUNDS - 1))
+        obs.metrics.set_default(reg)
+        check(sc.n == 0, f"untraced round {i} called "
+              f"torch.cuda.synchronize {sc.n} times")
+
+    for m in kernels:
+        m.reset_launch_counts()
+    work0 = dict(gradnorm.WORK)
+    per_round, syncs, metrics = [], [], []
+    for tr, i in runs:
+        if tr is proposed and i % 2:
+            run_plain(i)
+        start = gradnorm.LAUNCHES["gradnorm_sigma"]
+        with SyncCounter(torch) as sc:
+            metrics.append(tr.run_round(i, eval_now=i == ROUNDS - 1))
+        syncs.append(sc.n)
+        per_round.append(gradnorm.LAUNCHES["gradnorm_sigma"] - start)
+        if tr is proposed and i == 0:
+            check_same_decision(torch, gpu0, tr.last_decision,
+                                "traced round 0 against phase 4's")
+        if tr is proposed and not i % 2:
+            run_plain(i)
+    launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
+    tele.close()
+    obs.metrics.set_default(None)
+
+    # -- checks ---------------------------------------------------------
+    events = tele.events
+    profiles = [e for e in events if isinstance(e, obs.ProfileEvent)]
+    for (tr, i), n in zip(runs, per_round):
+        n_prof = sum(p.name == "sigma_all" and p.round == i
+                     for p in profiles)
+        check(n == 1 + n_prof, f"traced round {i}: gradnorm_sigma "
+              f"launched {n} times, {n_prof} of them profiling")
+    check(launches == {"rownorm2": 0,
+                       "gradnorm_sigma": sum(per_round) + ROUNDS,
+                       "flash_attention": 0, "lru_scan": 0},
+          f"launches on the traced and untraced rounds {launches}")
+    kernel_flops, kernel_bytes = gradnorm.cost(K * D_HAT, 84, 10)
+    check(gradnorm.WORK["flops"] - work0["flops"]
+          == (sum(per_round) + ROUNDS) * kernel_flops, "gradnorm.WORK flops")
+    rounds = [e for e in events if isinstance(e, obs.RoundEvent)]
+    check([r.round for r in rounds] == [i for _, i in runs],
+          f"round events {[r.round for r in rounds]}")
+    for r in rounds:
+        names = stage_ms(obs, tele, r.round)
+        missing = set(obs.REQUIRED_STAGES) - set(names)
+        check(not missing, f"traced round {r.round}: stages {missing} "
+              "missing")
+        total = sum(names.values()) / 1e3
+        # a round that profiles a function pays for the counted call
+        # outside its stages (the profile records that time)
+        prof_s = sum(p.compile_s for p in profiles if p.round == r.round)
+        check(0.5 * (r.wall_s - prof_s) <= total <= 1.01 * r.wall_s,
+              f"traced round {r.round}: stages {total:.6f} s against a "
+              f"round wall of {r.wall_s:.6f} s ({prof_s:.6f} s profiling)")
+        print(f"traced round {r.round}: stages {total * 1e3:.3f} ms of the "
+              f"round wall {r.wall_s * 1e3:.3f} ms, of which profiling "
+              f"{prof_s * 1e3:.3f} ms")
+    roots, orphans = obs.build_tree(events, strict=True)
+    check(not orphans and [n.name for n in roots] == ["round"] * len(runs),
+          f"span roots {[n.name for n in roots]}")
+    n_spans = 0
+    for root in roots:
+        for node in root.walk():
+            n_spans += 1
+            for c in node.children:
+                check(node.t0_s - 1e-6 <= c.t0_s
+                      and c.end_s <= node.end_s + 1e-6,
+                      f"span {c.path()} outside its parent's time")
+    check(all(n >= len(obs.REQUIRED_STAGES) for n in syncs),
+          f"traced rounds called torch.cuda.synchronize {syncs} times")
+    sig_prof = [p for p in profiles if p.name == "sigma_all"]
+    check(len(sig_prof) == 2, f"{len(sig_prof)} sigma_all profiles, "
+          "expected one per trainer")
+    # the profile's FLOPs: the forward's convolutions and matmuls as the
+    # flop counter sees them, plus the kernel's own count
+    from torch.utils.flop_counter import FlopCounterMode
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    images = torch.rand((K, D_HAT, SIDE, SIDE), generator=gen,
+                        device="cuda")
+    labels = torch.randint(0, 10, (K, D_HAT), generator=gen, device="cuda")
+    with FlopCounterMode(display=False) as fc:
+        rt.fed.client.batched_sigma(proposed.model, images, labels)
+    visible = fc.get_total_flops()
+    for p in sig_prof:
+        check(p.flops > 0 and p.flops == visible + kernel_flops,
+              f"sigma_all profile: {p.flops} FLOPs, expected {visible} "
+              f"+ the kernel's {kernel_flops}")
+    records = obs.load_trace(path)
+    check(records[0]["ev"] == "header"
+          and records[1:] == [e.to_record() for e in events],
+          "the trace file does not round-trip")
+    summary = obs.summarize(records)
+    check(summary.n_rounds == len(runs)
+          and set(obs.REQUIRED_STAGES) <= set(summary.stages),
+          "the trace's summary")
+    for tr, _ in runs:
+        check(all(bool(torch.isfinite(p).all()) for p in tr.params.values()),
+              "traced rounds: params not finite")
+
+    # -- report ---------------------------------------------------------
+    stage_names = list(dict.fromkeys(
+        e.stage for e in events if isinstance(e, obs.StageEvent)))
+    for label, ids in (("proposed, rounds 1-2", range(1, ROUNDS)),
+                       (f"baseline4, round {ROUNDS}", [ROUNDS])):
+        med = {n: statistics.median(stage_ms(obs, tele, i).get(n, 0.0)
+                                    for i in ids) for n in stage_names}
+        print(f"traced {label}: per-stage median ms "
+              + " ".join(f"{n}={v:.3f}" for n, v in med.items()))
+    top = sorted(obs.self_seconds_by_path(events).items(),
+                 key=lambda kv: -kv[1])[:10]
+    print("traced span self time, top 10: " + "; ".join(
+        f"{p} {v * 1e3:.3f} ms" for p, v in top))
+    for p in profiles:
+        per_call = statistics.median(stage_ms(obs, tele, i)[p.stage]
+                                     for i in range(1, ROUNDS)) / 1e3
+        rate = p.flops / per_call
+        print(f"profile {p.name} (round {p.round}, stage {p.stage}): "
+              f"{p.flops:.6g} FLOPs {p.bytes_accessed:.6g} bytes "
+              f"({p.flops / max(p.bytes_accessed, 1.0):.3f} FLOP/byte), "
+              f"counted call {p.compile_s * 1e3:.3f} ms; per call at the "
+              f"median stage time of proposed rounds 1-2 "
+              f"{per_call * 1e3:.3f} ms: {rate:.6g} "
+              f"FLOP/s = {rate / p.peak_flops:.6f} of peak_flops() "
+              f"{p.peak_flops:.6g}")
+    n_rec = [sum(1 for e in events if getattr(e, "round", None) == i)
+             for _, i in runs]
+    us = emit_us(obs, str(Path(tmp.name) / "emit.jsonl"))
+    for (tr, i), m, n, sc in zip(runs, metrics, n_rec, syncs):
+        untraced = (f"untraced beside it {plain_m[i].wall_s * 1e3:.3f} ms "
+                    f"(net_cost {plain_m[i].net_cost:.6f}), phase 4's "
+                    f"{untraced_walls[i] * 1e3:.3f} ms"
+                    if i < ROUNDS else "baseline4")
+        print(f"traced round {i}: wall {m.wall_s * 1e3:.3f} ms ({untraced})"
+              f"; {n} trace records ({n * us / 1e3:.3f} ms at {us:.2f} µs "
+              f"each), {sc} torch.cuda.synchronize calls, net_cost "
+              f"{m.net_cost:.6f}")
+    mon = proposed.monitor.summary()
+    print(f"traced: {n_spans} spans in {len(runs)} rounds, monitor "
+          f"{mon['rounds']} rounds, bound_gap_ratio "
+          f"{mon['bound_gap_ratio']}, violations {mon['violations']}, "
+          f"{len(reg.snapshot())} metric families; launches {launches}")
+    tmp.cleanup()
+    return launches
 
 
 def profile_round(torch, tr, i):
@@ -630,9 +891,8 @@ def profile_round(torch, tr, i):
     kernels = sorted({e.name for e in dev if "gradnorm" in e.name})
     print(f"round {i} under the profiler: {len(dev)} device operations, "
           f"device busy {busy_ms:.3f} ms of wall {wall * 1e3:.3f} ms, device "
-          f"idle share {1 - busy_ms / (wall * 1e3):.4f}; stages "
-          + " ".join(f"{k}={v * 1e3:.3f}ms" for k, v in m.stage_s.items())
-          + f"; gradnorm kernels seen: {kernels}")
+          f"idle share {1 - busy_ms / (wall * 1e3):.4f}, round wall "
+          f"{m.wall_s * 1e3:.3f} ms; gradnorm kernels seen: {kernels}")
 
 
 def phase_serve(torch, serve_mod, kernels, arch, expected, vocab):
@@ -806,6 +1066,7 @@ def main() -> None:
     import repro_torch.data  # noqa: F401
     import repro_torch.fed  # noqa: F401
     import repro_torch.models  # noqa: F401
+    import repro_torch.obs  # noqa: F401
     from repro_torch.configs import get_config
     from repro_torch.core import matching, selection
     from repro_torch.device import full_fp32
@@ -864,8 +1125,13 @@ def main() -> None:
     for m in kernels:
         m.reset_launch_counts()
     gpu0 = None
+    feel_walls = []
     for i in range(ROUNDS):
-        m = tr.run_round(i, eval_now=i == ROUNDS - 1)
+        with SyncCounter(torch) as syncs:
+            m = tr.run_round(i, eval_now=i == ROUNDS - 1)
+        check(syncs.n == 0, f"untraced round {i} called "
+              f"torch.cuda.synchronize {syncs.n} times")
+        feel_walls.append(m.wall_s)
         st, dec = tr.last_state, tr.last_decision
         check(tuple(st.sigma.shape) == (K, D_HAT), "sigma shape")
         check(bool(torch.isfinite(st.sigma).all()), "sigma not finite")
@@ -878,8 +1144,7 @@ def main() -> None:
         print(f"round {i}: wall {m.wall_s * 1e3:.3f} ms net_cost "
               f"{m.net_cost:.6f} n_selected {m.n_selected} swaps {m.swaps} "
               f"uploaded {m.n_uploaded} launches {dict(gradnorm.LAUNCHES)} "
-              "stages " + " ".join(f"{k}={v * 1e3:.3f}ms"
-                                   for k, v in m.stage_s.items())
+              "torch.cuda.synchronize calls 0"
               + ("" if m.test_acc is None else f" test_acc {m.test_acc:.4f}"))
         if i == 0:
             gpu0 = round_record(tr)
@@ -912,7 +1177,7 @@ def main() -> None:
     profile_round(torch, tr, ROUNDS)
     st0_host = {f: getattr(st0, f).cpu() for f in
                 ("h", "alpha", "sigma", "sigma_mask")}
-    del tr, gpu0, st0, data
+    del tr, st0, data
     done("6 FEEL profile")
 
     # -- 7. the serving path --------------------------------------------
@@ -973,6 +1238,11 @@ def main() -> None:
                  power_evaluator="ccp")
     done("12 ccp")
 
+    # -- 13. traced rounds ----------------------------------------------
+    traced_launches = phase_traced(rt, torch, data, init_sd, kernels,
+                                   gradnorm, gpu0, feel_walls)
+    done("13 traced rounds")
+
     # -- results --------------------------------------------------------
     def entry(name, source, replaces, launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -987,11 +1257,13 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry("rownorm2", gn_src, "src/repro/kernels/gradnorm.py:62",
               feel_launches["rownorm2"] + serve_launches["rownorm2"]
-              + mamba_launches["rownorm2"], norm_rec),
+              + mamba_launches["rownorm2"] + traced_launches["rownorm2"],
+              norm_rec),
         entry("gradnorm_sigma", gn_src, "src/repro/kernels/gradnorm.py:62",
               feel_launches["gradnorm_sigma"]
               + schemes_launches["gradnorm_sigma"]
-              + ccp_launches["gradnorm_sigma"], sigma_rec),
+              + ccp_launches["gradnorm_sigma"]
+              + traced_launches["gradnorm_sigma"], sigma_rec),
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
               "src/repro/kernels/flash_attention.py:112",

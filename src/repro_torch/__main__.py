@@ -9,6 +9,16 @@ with sigma scored by the CUDA row-norm kernel (the reference's
     PYTHONPATH=src python -m repro_torch --rounds 150            # GPU
     PYTHONPATH=src python -m repro_torch --scheme baseline4 --rounds 150
     PYTHONPATH=src python -m repro_torch --rounds 2 --d-hat 12 --side 10 --device cpu
+
+Observability, as the reference example's flags: ``--trace PATH``
+writes a schema-v4 JSONL trace and prints its summary after ``FINAL``
+(``--dash PATH`` also renders it as an HTML dashboard), ``--monitor``
+checks every round against Lemma 2 and prints the monitor's summary,
+``--metrics PATH`` writes the Prometheus exposition of the run's
+metrics registry:
+
+    PYTHONPATH=src python -m repro_torch --rounds 4 --trace /tmp/t.jsonl --monitor --metrics /tmp/m.prom
+    PYTHONPATH=src python -m repro_torch.obs summary /tmp/t.jsonl
 """
 from __future__ import annotations
 
@@ -17,6 +27,7 @@ from typing import List, Optional
 
 import torch
 
+from . import obs
 from .core import default_system
 from .data import SyntheticImages, non_iid_split
 from .device import resolve_device
@@ -36,6 +47,21 @@ def main(argv: Optional[List[str]] = None) -> List[RoundMetrics]:
                     choices=["faithful", "exact"])
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu must be asked for)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a repro_torch.obs JSONL telemetry trace "
+                         "(per-round stage timings, solver counters, "
+                         "per-device energy) and print its summary")
+    ap.add_argument("--dash", default=None, metavar="PATH",
+                    help="with --trace: also render the trace as a "
+                         "self-contained HTML round dashboard at PATH "
+                         "(same as `python -m repro_torch.obs dash`)")
+    ap.add_argument("--monitor", action="store_true",
+                    help="attach a ConvergenceMonitor checking each round "
+                         "against the paper's Lemma-2 bound; print its "
+                         "summary (violations go to --trace if given)")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="install a process-wide metrics registry and "
+                         "write its Prometheus exposition to PATH")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -48,11 +74,50 @@ def main(argv: Optional[List[str]] = None) -> List[RoundMetrics]:
                      selection_method=args.selection)
     model = cnn.CNN(cnn.CNNConfig(side=args.side),
                     generator=torch.Generator().manual_seed(cfg.seed))
-    metrics = FEELTrainer(sys_, data, model, cfg).run(args.rounds,
-                                                      verbose=True)
+    tele = None
+    if args.trace:
+        tele = obs.Telemetry(path=args.trace,
+                             meta={"source": "repro_torch",
+                                   "scheme": args.scheme,
+                                   "rounds": args.rounds,
+                                   "device": str(device)})
+    reg = None
+    if args.metrics:
+        reg = obs.Registry()
+        obs.metrics.set_default(reg)
+    monitor = None
+    if args.monitor:
+        monitor = obs.ConvergenceMonitor(sys_, telemetry=tele, registry=reg)
+    try:
+        metrics = FEELTrainer(sys_, data, model, cfg, telemetry=tele,
+                              monitor=monitor).run(args.rounds, verbose=True)
+    finally:
+        if reg is not None:
+            obs.metrics.set_default(None)
+        if tele is not None:
+            tele.close()
     final = metrics[-1]
     print(f"\nFINAL: acc={final.test_acc:.3f} "
           f"cum_net_cost={final.cum_net_cost:+.3f} device={device}")
+    if tele is not None:
+        print(f"\ntelemetry trace -> {args.trace}")
+        print("name,us_per_call,derived")
+        obs.emit_summary(obs.summarize(tele.events))
+        if args.dash:
+            obs.write_dashboard(args.trace, args.dash)
+            print(f"round dashboard -> {args.dash}")
+        print(f"inspect: python -m repro_torch.obs export {args.trace}  "
+              f"(Perfetto), ... diff, ... dash")
+    if monitor is not None:
+        s = monitor.summary()
+        ratio = s["bound_gap_ratio"]
+        print(f"\nmonitor: rounds={s['rounds']} bound_gap_ratio="
+              f"{'n/a' if ratio is None else f'{ratio:.3f}'} "
+              f"violations={s['violations'] or '{}'}")
+    if reg is not None:
+        with open(args.metrics, "w") as f:
+            f.write(reg.render())
+        print(f"metrics exposition -> {args.metrics}")
     return metrics
 
 

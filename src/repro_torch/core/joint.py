@@ -6,6 +6,12 @@ Counterpart of ``repro/core/joint.py``, no-fault path: solve Problem 3
 then Problem 4 (data selection) with Algorithms 4/5, and bill the
 decision (eqs. 18, 26).  The solver fallback chain is not ported yet: a
 failed solve raises.
+
+Telemetry, as in the reference: the proposed scheme's stages run
+``matching`` and ``power`` (inside ``swap_matching``), ``selection``
+and ``objective``; a baseline's run ``selection``, ``matching``,
+``power`` and ``objective``.  ``_finish`` sets the ``feel_decision*``
+metrics.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
+from ..obs import metrics as metrics_mod
 from . import cost as cost_mod
 from . import delta as delta_mod
 from . import matching as matching_mod
@@ -46,12 +54,23 @@ class RoundDecision:
 def _finish(sys: SystemParams, rho: np.ndarray, p: torch.Tensor,
             delta: torch.Tensor, state: RoundState, feasible: bool,
             swaps: int = 0, unmatched=None,
-            delta_cont: Optional[torch.Tensor] = None) -> RoundDecision:
-    rho_t = torch.as_tensor(rho, dtype=torch.float32, device=sys.device)
-    n_sel = torch.sum(delta, dim=1)
-    nc = float(cost_mod.net_cost(sys, rho_t, p, n_sel))
-    dv = float(delta_mod.delta(sys, delta, state.sigma))
-    obj = float(sys.lam) * dv + (1.0 - float(sys.lam)) * nc
+            delta_cont: Optional[torch.Tensor] = None,
+            telemetry=None) -> RoundDecision:
+    tele = obs.resolve(telemetry)
+    with tele.stage("objective"):
+        rho_t = torch.as_tensor(rho, dtype=torch.float32, device=sys.device)
+        n_sel = torch.sum(delta, dim=1)
+        nc = float(cost_mod.net_cost(sys, rho_t, p, n_sel))
+        dv = float(delta_mod.delta(sys, delta, state.sigma))
+        obj = float(sys.lam) * dv + (1.0 - float(sys.lam)) * nc
+    reg = metrics_mod.get_default()
+    if reg.enabled:
+        reg.counter("feel_decisions_total",
+                    "round decisions evaluated (eq. 18 + eq. 26)").inc()
+        reg.gauge("feel_decision_net_cost",
+                  "net cost (eq. 18) of the last round decision").set(nc)
+        reg.gauge("feel_decision_delta_obj",
+                  "Delta_hat (eq. 26) of the last round decision").set(dv)
     if unmatched is None:
         unmatched = np.zeros(0, np.int64)
     return RoundDecision(rho=np.asarray(rho), p=p, delta=delta, net_cost=nc,
@@ -64,17 +83,21 @@ def _finish(sys: SystemParams, rho: np.ndarray, p: torch.Tensor,
 def proposed_scheme(sys: SystemParams, state: RoundState,
                     selection_method: str = "faithful",
                     power_evaluator: str = "closed_form",
-                    gp_steps: int = 400) -> RoundDecision:
+                    gp_steps: int = 400, telemetry=None) -> RoundDecision:
     """Algorithm 1 (the paper's proposed scheme).  ``power_evaluator``
     prices the matching's candidates (``"closed_form"`` or ``"ccp"``)."""
+    tele = obs.resolve(telemetry)
     match = matching_mod.swap_matching(sys, state.h, state.alpha,
-                                       evaluator=power_evaluator)
-    delta, d_cont = selection_mod.solve_selection(
-        sys, state.sigma, state.sigma_mask, method=selection_method,
-        steps=gp_steps)
+                                       evaluator=power_evaluator,
+                                       telemetry=tele)
+    with tele.stage("selection"):
+        delta, d_cont = selection_mod.solve_selection(
+            sys, state.sigma, state.sigma_mask, method=selection_method,
+            steps=gp_steps, telemetry=tele)
     return _finish(sys, match.rho, match.p, delta, state,
                    feasible=match.feasible, swaps=match.swaps,
-                   unmatched=match.unmatched, delta_cont=d_cont)
+                   unmatched=match.unmatched, delta_cont=d_cont,
+                   telemetry=tele)
 
 
 # --------------------------------------------------------------------------
@@ -124,21 +147,28 @@ def _random_half(mask: torch.Tensor,
 
 
 def baseline_scheme(sys: SystemParams, state: RoundState, index: int,
-                    generator: Optional[torch.Generator] = None
-                    ) -> RoundDecision:
+                    generator: Optional[torch.Generator] = None,
+                    telemetry=None) -> RoundDecision:
     """Baselines 1-4: (half|all data) x (min|max gain RB).  Baselines 1
     and 2 draw their half from ``generator``."""
     if index not in (1, 2, 3, 4):
         raise ValueError("baseline index must be 1..4")
+    tele = obs.resolve(telemetry)
     half = index in (1, 2)
     prefer_max = index in (2, 4)
-    if half:
-        if generator is None:
-            raise ValueError("baselines 1/2 need a generator")
-        delta = _random_half(state.sigma_mask, generator)
-    else:
-        delta = state.sigma_mask
-    rho = _greedy_rb(sys, state.h.cpu().numpy(), state.alpha.cpu().numpy(),
-                     prefer_max)
-    p, _, ok = power_mod.allocate_power(sys, rho, state.h, state.alpha)
-    return _finish(sys, rho, p, delta, state, feasible=ok)
+    with tele.stage("selection"):
+        if half:
+            if generator is None:
+                raise ValueError("baselines 1/2 need a generator")
+            delta = tele.block(_random_half(state.sigma_mask, generator))
+        else:
+            delta = state.sigma_mask
+    h = state.h.cpu().numpy()
+    alpha = state.alpha.cpu().numpy()
+    with tele.stage("matching"):
+        rho = _greedy_rb(sys, h, alpha, prefer_max)
+    with tele.stage("power"):
+        p, _, ok = power_mod.allocate_power(sys, rho, state.h, state.alpha,
+                                            telemetry=tele)
+        p = tele.block(p)
+    return _finish(sys, rho, p, delta, state, feasible=ok, telemetry=tele)

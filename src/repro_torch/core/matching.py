@@ -29,6 +29,13 @@ vectorized closed-form evaluation and applies the first improving one in
 the same enumeration order (same decisions, move for move); ``"auto"``
 picks batched at ``AUTO_BATCH_MIN`` available devices with the
 closed-form evaluator and stays scalar with the CCP one.
+
+Telemetry, as in the reference: a ``matching`` stage with a
+``matching.init`` span and one ``matching.sweep`` span per sweep, then a
+``power`` stage for the final powers; the ``matching`` solver event, a
+``partial_matching`` fault when an available device stays unmatched, and
+the ``feel_matching_*`` counters.  The per-candidate power solves of the
+CCP scorer pass the ``NULL`` sink, so they do not flood the trace.
 """
 from __future__ import annotations
 
@@ -38,6 +45,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
+from ..obs import metrics as metrics_mod
 from . import power as power_mod
 from .types import SystemParams
 
@@ -116,7 +125,8 @@ class _Scorer:
         rho = np.zeros(self.h.shape)
         rho[members, n] = 1.0
         _, cost, ok = power_mod.allocate_power(self.sys64, rho, self.h,
-                                               self.alpha, method="ccp")
+                                               self.alpha, method="ccp",
+                                               telemetry=obs.NULL)
         # CCP solves exactly when its closed-form start is feasible
         self.ccp_solves += ok
         return cost
@@ -167,7 +177,8 @@ class _BatchScorer:
 def _batched_sweeps(sys: SystemParams, scorer: _BatchScorer,
                     avail: np.ndarray, assign: np.ndarray, M: np.ndarray,
                     counts: np.ndarray, rb_costs: np.ndarray,
-                    allow_moves: bool, max_sweeps: int) -> tuple[int, int]:
+                    allow_moves: bool, max_sweeps: int,
+                    tele) -> tuple[int, int]:
     """The batched sweep loop; mutates ``assign``/``M``/``counts``/
     ``rb_costs`` in place and returns (swaps, sweeps).
 
@@ -189,6 +200,8 @@ def _batched_sweeps(sys: SystemParams, scorer: _BatchScorer,
     while improved and sweeps < max_sweeps:
         improved = False
         sweeps += 1
+        sweep_span = tele.span("matching.sweep", sweep=sweeps)
+        sweep_span.__enter__()
         for u in avail:
             if assign[u] < 0:
                 continue
@@ -257,12 +270,14 @@ def _batched_sweeps(sys: SystemParams, scorer: _BatchScorer,
                     cursor = P + n_to + 1
                 swaps += 1
                 improved = True
+        sweep_span.__exit__(None, None, None)
     return swaps, sweeps
 
 
 def _scalar_sweeps(sys: SystemParams, scorer: _Scorer, avail: np.ndarray,
                    assign: np.ndarray, members: list, rb_costs: np.ndarray,
-                   allow_moves: bool, max_sweeps: int) -> tuple[int, int]:
+                   allow_moves: bool, max_sweeps: int,
+                   tele) -> tuple[int, int]:
     """The scalar sweep loop (one candidate per cost call); mutates
     ``assign``/``members``/``rb_costs`` and returns (swaps, sweeps)."""
     N, Q = sys.N, sys.Q
@@ -287,6 +302,10 @@ def _scalar_sweeps(sys: SystemParams, scorer: _Scorer, avail: np.ndarray,
     while improved and sweeps < max_sweeps:
         improved = False
         sweeps += 1
+        # one child span per sweep: a regression in sweep count (or one
+        # pathologically slow sweep) is attributable from the trace
+        sweep_span = tele.span("matching.sweep", sweep=sweeps)
+        sweep_span.__enter__()
         for u in avail:
             if assign[u] < 0:
                 continue
@@ -313,16 +332,18 @@ def _scalar_sweeps(sys: SystemParams, scorer: _Scorer, avail: np.ndarray,
                         assign[u] = n
                         swaps += 1
                         improved = True
+        sweep_span.__exit__(None, None, None)
     return swaps, sweeps
 
 
 def swap_matching(sys: SystemParams, h, alpha, evaluator: str = "closed_form",
                   allow_moves: bool = True, max_sweeps: int = 50,
-                  mode: str = "auto") -> MatchingResult:
+                  mode: str = "auto", telemetry=None) -> MatchingResult:
     """Algorithm 2. ``h``: (K, N) gains; ``alpha``: (K,) availability,
     as tensors (any device) or arrays.  ``evaluator``: ``"closed_form"``
     or ``"ccp"`` (scalar sweep only); the final powers of the chosen
-    assignment are the closed form's with either, as in the reference."""
+    assignment are the closed form's with either, as in the reference.
+    ``telemetry``: an ``obs`` sink (``None``: the process default)."""
     if mode not in ("auto", "scalar", "batched"):
         raise ValueError(f"unknown matching mode: {mode!r}")
     if evaluator not in ("closed_form", "ccp"):
@@ -331,6 +352,7 @@ def swap_matching(sys: SystemParams, h, alpha, evaluator: str = "closed_form",
         raise ValueError("mode='batched' requires evaluator='closed_form' "
                          "(per-candidate CCP solves cannot be vectorized); "
                          "use mode='scalar' or mode='auto'")
+    tele = obs.resolve(telemetry)
     h64 = power_mod.host64(h)
     alpha64 = power_mod.host64(alpha)
     K, N, Q = sys.K, sys.N, sys.Q
@@ -338,56 +360,90 @@ def swap_matching(sys: SystemParams, h, alpha, evaluator: str = "closed_form",
     use_batched = (mode == "batched"
                    or (mode == "auto" and evaluator == "closed_form"
                        and avail.size >= AUTO_BATCH_MIN))
+    mode_used = "batched" if use_batched else "scalar"
 
+    stage = tele.stage("matching")
+    stage.__enter__()
     # ---- initial matching Psi_0: greedy best-gain with capacity ----
-    assign = np.full(K, -1, np.int64)
-    slots = np.full(N, Q, np.int64)
-    order = avail[np.argsort(-h64[avail].max(axis=1), kind="stable")]
-    for k in order:
-        open_rbs = np.flatnonzero(slots > 0)
-        if open_rbs.size == 0:
-            # more available devices than N*Q slots: the matching is
-            # partial and the rest are reported in ``unmatched``
-            break
-        n = open_rbs[np.argmax(h64[k, open_rbs])]
-        assign[k] = n
-        slots[n] -= 1
+    with tele.span("matching.init"):
+        assign = np.full(K, -1, np.int64)
+        slots = np.full(N, Q, np.int64)
+        order = avail[np.argsort(-h64[avail].max(axis=1), kind="stable")]
+        for k in order:
+            open_rbs = np.flatnonzero(slots > 0)
+            if open_rbs.size == 0:
+                # more available devices than N*Q slots: the matching is
+                # partial and the rest are reported in ``unmatched``
+                break
+            n = open_rbs[np.argmax(h64[k, open_rbs])]
+            assign[k] = n
+            slots[n] -= 1
+
+        if use_batched:
+            scorer = _BatchScorer(sys, h64)
+            M = np.full((N, max(Q, 1)), -1, np.int64)
+            counts = np.zeros(N, np.int64)
+            for n in range(N):
+                ids = np.flatnonzero(assign == n)
+                M[n, :ids.size] = ids
+                counts[n] = ids.size
+            rb_costs = scorer.rb_costs(M, np.arange(N))
+        else:
+            scorer = _Scorer(sys, h64, alpha64, evaluator)
+            members = [np.flatnonzero(assign == n) for n in range(N)]
+            rb_costs = np.array([scorer.rb_cost(n, members[n])
+                                 for n in range(N)])
 
     if use_batched:
-        scorer = _BatchScorer(sys, h64)
-        M = np.full((N, max(Q, 1)), -1, np.int64)
-        counts = np.zeros(N, np.int64)
-        for n in range(N):
-            ids = np.flatnonzero(assign == n)
-            M[n, :ids.size] = ids
-            counts[n] = ids.size
-        rb_costs = scorer.rb_costs(M, np.arange(N))
         swaps, sweeps = _batched_sweeps(sys, scorer, avail, assign, M,
                                         counts, rb_costs, allow_moves,
-                                        max_sweeps)
+                                        max_sweeps, tele)
     else:
-        scorer = _Scorer(sys, h64, alpha64, evaluator)
-        members = [np.flatnonzero(assign == n) for n in range(N)]
-        rb_costs = np.array([scorer.rb_cost(n, members[n])
-                             for n in range(N)])
         swaps, sweeps = _scalar_sweeps(sys, scorer, avail, assign, members,
-                                       rb_costs, allow_moves, max_sweeps)
+                                       rb_costs, allow_moves, max_sweeps,
+                                       tele)
 
     rho = np.zeros((K, N), np.float32)
     matched = assign >= 0
     rho[np.flatnonzero(matched), assign[matched]] = 1.0
+    stage.__exit__(None, None, None)
 
     # final powers of the chosen assignment, on the device
     dev = sys.device
-    p, cost, ok = power_mod.allocate_power(
-        sys, torch.as_tensor(rho, device=dev),
-        torch.as_tensor(h, dtype=torch.float32, device=dev),
-        torch.as_tensor(alpha, dtype=torch.float32, device=dev))
+    with tele.stage("power"):
+        p, cost, ok = power_mod.allocate_power(
+            sys, torch.as_tensor(rho, device=dev),
+            torch.as_tensor(h, dtype=torch.float32, device=dev),
+            torch.as_tensor(alpha, dtype=torch.float32, device=dev),
+            telemetry=tele)
+        p = tele.block(p)
     unmatched = avail[assign[avail] < 0]
     feasible = ok and unmatched.size == 0 and np.isfinite(cost)
+    tele.solver("matching", swaps=swaps, sweeps=sweeps,
+                rb_evals=scorer.evals, unmatched=int(unmatched.size),
+                feasible=bool(feasible), mode=mode_used)
+    if unmatched.size:
+        tele.fault("partial_matching", injected=False,
+                   unmatched=[int(k) for k in unmatched])
+    reg = metrics_mod.get_default()
+    if reg.enabled:
+        reg.counter("feel_matching_calls_total",
+                    "swap-matching (Alg. 2) invocations").inc()
+        reg.counter("feel_matching_swaps_total",
+                    "accepted swap/move operations").inc(swaps)
+        reg.counter("feel_matching_sweeps_total",
+                    "swap sweeps over available devices").inc(sweeps)
+        reg.counter("feel_matching_rb_evals_total",
+                    "candidate per-RB power evaluations").inc(scorer.evals)
+        reg.counter("feel_matching_unmatched_total",
+                    "available devices left without an RB").inc(
+                        int(unmatched.size))
+        if not feasible:
+            reg.counter("feel_solver_infeasible_total",
+                        "infeasible solver outcomes by solver").inc(
+                            1, solver="matching")
     return MatchingResult(assign=assign, rho=rho, p=p, cost=cost,
                           swaps=swaps, sweeps=sweeps, feasible=feasible,
-                          unmatched=unmatched,
-                          mode="batched" if use_batched else "scalar",
+                          unmatched=unmatched, mode=mode_used,
                           rb_evals=scorer.evals,
                           ccp_solves=0 if use_batched else scorer.ccp_solves)

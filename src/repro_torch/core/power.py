@@ -35,6 +35,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import obs
+from ..obs import metrics as metrics_mod
 from .channel import weaker_than
 from .types import SYSTEM_ARRAYS, SystemParams
 
@@ -229,8 +231,10 @@ def _inner_solve(sub: _Subproblem, newton_iters: int = 25) -> np.ndarray:
                     step = np.linalg.solve(hess + eye, grad)
                 except np.linalg.LinAlgError:  # singular: gradient step
                     step = grad
+                    _count_singular_newton()
                 if not np.all(np.isfinite(step)):
                     step = grad
+                    _count_singular_newton()
                 f0 = float(sub.phi(x, t))
                 a = 1.0
                 moved = False
@@ -264,7 +268,7 @@ def subproblem(sys64: SystemParams, rho: np.ndarray, h: np.ndarray,
 
 
 def ccp_power(sys: SystemParams, rho, h, alpha, p0=None, n_ccp: int = 8,
-              tol: float = 1e-4) -> CCPResult:
+              tol: float = 1e-4, telemetry=None) -> CCPResult:
     """Algorithm 3: iterate the convexified subproblem until the upload
     cost moves by at most ``tol`` (relative), at most ``n_ccp`` times.
 
@@ -273,7 +277,11 @@ def ccp_power(sys: SystemParams, rho, h, alpha, p0=None, n_ccp: int = 8,
     form is infeasible it returns that, with ``feasible=False`` and no
     solve.  ``rho``, ``h``, ``alpha`` and ``p0`` may be tensors on any
     device or arrays; ``sys`` may already be a ``system64`` copy.
+
+    ``telemetry``: an ``obs`` sink; each CCP iteration is recorded as a
+    ``power.ccp_iter`` span (a child of the enclosing power stage).
     """
+    tele = obs.resolve(telemetry)
     s64 = system64(sys)
     rho, h, alpha = host64(rho), host64(h), host64(alpha)
     dev = sys.device
@@ -296,9 +304,10 @@ def ccp_power(sys: SystemParams, rho, h, alpha, p0=None, n_ccp: int = 8,
     sub = subproblem(s64, rho, h, alpha)
     p = host64(p0) * rho
     traj = [cost(p)]
-    for _ in range(n_ccp):
-        p_new = _inner_solve(sub.linearize(p))
-        traj.append(cost(p_new))
+    for v in range(n_ccp):
+        with tele.span("power.ccp_iter", iter=v):
+            p_new = _inner_solve(sub.linearize(p))
+            traj.append(cost(p_new))
         p = p_new
         if abs(traj[-1] - traj[-2]) <= tol * max(abs(traj[-2]), 1e-12):
             break
@@ -308,7 +317,7 @@ def ccp_power(sys: SystemParams, rho, h, alpha, p0=None, n_ccp: int = 8,
 
 
 def allocate_power(sys: SystemParams, rho, h, alpha,
-                   method: str = "closed_form"
+                   method: str = "closed_form", telemetry=None
                    ) -> Tuple[torch.Tensor, float, bool]:
     """Powers for ``rho``: (p, total upload cost, feasible).
 
@@ -316,15 +325,54 @@ def allocate_power(sys: SystemParams, rho, h, alpha,
     ``alpha`` tensors there); ``"ccp"`` is Algorithm 3 on the host
     (``ccp_power``, which takes tensors or arrays), its cost taken from
     the float64 solution.  The cost is inf when infeasible.
+
+    ``telemetry``: an ``obs`` sink for the ``power`` solver event —
+    ``None`` uses the process default; the matching's CCP scorer passes
+    ``obs.NULL`` so its per-candidate solves do not flood the trace.
     """
+    tele = obs.resolve(telemetry)
     if method == "closed_form":
         rho_t = torch.as_tensor(rho, dtype=torch.float32, device=sys.device)
         p, feas = closed_form_power(sys, rho_t, h, alpha)
         ok = bool(torch.all(feas))
         cost = float(upload_cost(sys, p, rho_t)) if ok else float("inf")
+        tele.solver("power", method=method, feasible=ok)
+        _count_power(method, ok, 0)
         return p, cost, ok
     if method == "ccp":
-        res = ccp_power(sys, rho, h, alpha)
+        res = ccp_power(sys, rho, h, alpha, telemetry=tele)
         cost = res.trajectory[-1] if res.feasible else float("inf")
+        tele.solver("power", method=method, iterations=res.iterations,
+                    feasible=bool(res.feasible))
+        _count_power(method, bool(res.feasible), res.iterations)
         return res.p, float(cost), res.feasible
     raise ValueError(f"unknown power method: {method}")
+
+
+def _count_singular_newton() -> None:
+    """A singular Newton system inside the CCP inner solve degraded the
+    step to plain gradient descent; counted as the reference does."""
+    reg = metrics_mod.get_default()
+    if reg.enabled:
+        reg.counter("feel_solver_infeasible_total",
+                    "infeasible solver outcomes by solver").inc(
+                        1, solver="power_newton")
+
+
+def _count_power(method: str, feasible: bool, ccp_iterations: int) -> None:
+    """Metrics for one ``allocate_power`` call.  Counters aggregate, so
+    (unlike trace events) the matching scorer's per-candidate solves
+    are counted too — that is the point of the infeasible-call metric.
+    """
+    reg = metrics_mod.get_default()
+    if not reg.enabled:
+        return
+    reg.counter("feel_power_calls_total",
+                "power allocations by method").inc(1, method=method)
+    if ccp_iterations:
+        reg.counter("feel_power_ccp_iterations_total",
+                    "CCP (Alg. 3) outer iterations").inc(ccp_iterations)
+    if not feasible:
+        reg.counter("feel_solver_infeasible_total",
+                    "infeasible solver outcomes by solver").inc(
+                        1, solver="power")

@@ -24,6 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import obs
+from ..obs import metrics as metrics_mod
 from .delta import EPSDIV
 from .types import SystemParams
 
@@ -150,13 +152,43 @@ def exact_selection(sys: SystemParams, sigma: torch.Tensor,
 
 def solve_selection(sys: SystemParams, sigma: torch.Tensor,
                     mask: torch.Tensor, method: str = "faithful",
-                    steps: int = 400, step0: float = 0.3
+                    steps: int = 400, step0: float = 0.3, telemetry=None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(binary selection, continuous GP point or None for ``exact``)."""
+    """(binary selection, continuous GP point or None for ``exact``).
+
+    ``telemetry``: an ``obs`` sink; the Alg. 4/5 phases run in
+    ``selection.gp`` and ``selection.recover`` spans (``selection.exact``
+    for the oracle), then one ``selection`` solver event.  The selected
+    count is read back (one host sync) only when a sink or a metrics
+    registry is on.
+    """
+    tele = obs.resolve(telemetry)
+    reg = metrics_mod.get_default()
     if method == "faithful":
-        d_cont = gradient_projection(sys, sigma, mask, steps=steps,
-                                     step0=step0)
-        return binary_recovery(d_cont, mask), d_cont
-    if method == "exact":
-        return exact_selection(sys, sigma, mask), None
-    raise ValueError(f"unknown selection method: {method}")
+        with tele.span("selection.gp", steps=steps):
+            d_cont = tele.block(gradient_projection(sys, sigma, mask,
+                                                    steps=steps, step0=step0))
+        with tele.span("selection.recover"):
+            out = tele.block(binary_recovery(d_cont, mask))
+        gp_steps = steps
+    elif method == "exact":
+        with tele.span("selection.exact"):
+            out = tele.block(exact_selection(sys, sigma, mask))
+        d_cont, gp_steps = None, 0
+    else:
+        raise ValueError(f"unknown selection method: {method}")
+    if tele.enabled or reg.enabled:
+        # one host sync, shared by the trace event and the metrics
+        n_selected = int(torch.sum(out))
+        if tele.enabled:
+            tele.solver("selection", method=method, gp_steps=gp_steps,
+                        n_selected=n_selected)
+        if reg.enabled:
+            reg.counter("feel_selection_calls_total",
+                        "data-selection solves by method").inc(
+                            1, method=method)
+            reg.counter("feel_selection_gp_steps_total",
+                        "gradient-projection (Alg. 4) steps").inc(gp_steps)
+            reg.counter("feel_selection_selected_total",
+                        "samples selected across rounds").inc(n_selected)
+    return out, d_cont

@@ -31,11 +31,31 @@ NVCC_FLAGS = nvcc.BASE_FLAGS
 
 #: kernel launches per entry point; bumped only where a kernel launches.
 LAUNCHES = {"rownorm2": 0, "gradnorm_sigma": 0}
+#: FLOPs and bytes of every launch so far, by ``cost``; the kernels are
+#: called through ctypes, so no torch dispatch mode sees their work and
+#: ``obs.profile.cost_of`` reads it here.
+WORK = {"flops": 0.0, "bytes": 0.0}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def cost(n: int, f: int, c: int = 0) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch on n rows: ``rownorm2`` of (n, f)
+    for ``c == 0``, else ``gradnorm_sigma`` of h (n, f) and dlogits
+    (n, c).  FLOPs: a multiply and an add per element read, and for the
+    fused kernel the + 1 and the product per row; bytes: each float32
+    input read once and the (n,) output written once."""
+    flops = 2.0 * n * (f + c) + (2.0 * n if c else 0.0)
+    return flops, 4.0 * (n * (f + c) + n)
+
+
+def _count_work(n: int, f: int, c: int = 0) -> None:
+    flops, n_bytes = cost(n, f, c)
+    WORK["flops"] += flops
+    WORK["bytes"] += n_bytes
 
 
 # ---------------------------------------------------------------- plain
@@ -113,6 +133,7 @@ def rownorm2(x: torch.Tensor) -> torch.Tensor:
             nvcc.raise_on(lib.repro_rownorm2_f32(x.data_ptr(), out.data_ptr(),
                                              n, f, stream), "rownorm2")
         LAUNCHES["rownorm2"] += 1
+        _count_work(n, f)
     return out
 
 
@@ -138,4 +159,5 @@ def gradnorm_sigma(h: torch.Tensor, dlogits: torch.Tensor) -> torch.Tensor:
                 h.data_ptr(), dlogits.data_ptr(), out.data_ptr(), n, fh, fd,
                 stream), "gradnorm_sigma")
         LAUNCHES["gradnorm_sigma"] += 1
+        _count_work(n, fh, fd)
     return out

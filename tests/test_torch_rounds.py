@@ -32,6 +32,7 @@ from repro.fed import FEELTrainer as JFEELTrainer  # noqa: E402
 from repro.fed import server as jserver  # noqa: E402
 from repro.models import cnn as jcnn  # noqa: E402
 from repro_torch import __main__ as entry  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.core import default_system  # noqa: E402
 from repro_torch.data import SyntheticImages, non_iid_split  # noqa: E402
 from repro_torch.fed import FEELConfig, FEELTrainer  # noqa: E402
@@ -94,10 +95,12 @@ def test_three_rounds_match_reference(monkeypatch):
 
     model = cnn.CNN(cnn.CNNConfig(side=SIDE))
     model.load_state_dict(cnn.params_from_numpy(_np_tree(params0)))
+    tele = obs.Telemetry()  # in memory: the stage times of each round
     tr = FEELTrainer(default_system(K=K, N=N, Q=Q, D_hat=D_HAT, device="cpu"),
                      _data(SyntheticImages, non_iid_split), model,
                      FEELConfig(d_hat=D_HAT, lr=LR),
-                     channel_source=lambda i: (rec[i]["h"], rec[i]["alpha"]))
+                     channel_source=lambda i: (rec[i]["h"], rec[i]["alpha"]),
+                     telemetry=tele)
     gradnorm.reset_launch_counts()
     noise_entries = 0
     for i in range(ROUNDS):
@@ -112,8 +115,9 @@ def test_three_rounds_match_reference(monkeypatch):
         np.testing.assert_allclose(m.delta_obj, jm.delta_obj, rtol=1e-5)
         assert (m.n_selected, m.n_uploaded) == (jm.n_selected, jm.n_uploaded)
         assert m.frac_mislabeled_selected == jm.frac_mislabeled_selected
-        assert set(m.stage_s) >= {"data", "sigma", "decision",
-                                  "local_grads", "aggregate"}
+        stages = {e.stage for e in tele.events
+                  if isinstance(e, obs.StageEvent) and e.round == i}
+        assert stages >= {"data", *obs.REQUIRED_STAGES, "objective"}
 
         g_want = cnn.params_from_numpy(rec[i]["g_hat"])
         for name, g in tr.last_g_hat.items():
