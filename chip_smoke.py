@@ -76,10 +76,26 @@ exit) if anything in it fails; no failure is caught:
    wall beside an untraced trainer's same round (run in turns with it,
    checked to call ``torch.cuda.synchronize`` not once) and phase 4's.  Phase 4's untraced rounds call
    ``torch.cuda.synchronize`` not once (checked); phases 11-12 read
-   their stage times from an in-memory sink.
+   their stage times from an in-memory sink;
+14. resilience: phase 4's setup under ``CHAOS_SPEC`` with seed 2 (the
+   plan draws dropouts and NaN uploads in every round and fails the
+   matching in rounds 1 and 2 and the power in round 1; on the CPU only
+   round 1's NaN devices upload, and all three are quarantined) and ``ResilienceConfig(quarantine_threshold=1,
+   checkpoint_every=2)``, with cuDNN set to deterministic algorithms
+   (``torch.backends.cudnn.deterministic = True``, ``benchmark =
+   False``) for its trainers: (a) 4 fault rounds on the card, each
+   one's wall, drops, retries, quarantined devices and fallbacks, the
+   checkpoint writes' ms; finite params, ``matching->greedy`` taken, a
+   quarantine, ``gradnorm_sigma`` once a round; (b) a fresh trainer on
+   the card resumes the round-2 checkpoint and runs rounds 2-3, its
+   params, Adam moments and count bit-identical to (a)'s; (c) a CPU
+   trainer resumes the same checkpoint, which the card wrote, and runs
+   round 2, held against the card's round 2 under phase 5's replay rule
+   with the same drops, retries, quarantine, fallbacks and fault
+   records.
 
 Launch counts are zeroed just before each path (4, 7, 9, 11, 12b, 13,
-and the card's run in 8) and read just after.  It prints one
+14, and the card's run in 8) and read just after.  It prints one
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
 line.  Without a GPU, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero before
@@ -88,6 +104,7 @@ printing either.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -133,6 +150,7 @@ SCAN_TEST_SHAPES = [(1, 17, 8), (2, 300, 130), (3, 256, 256), (2, 512, 64)]
 SCAN_SLICE = (4, 2048, 8192 * 16)  # falcon-mamba-7b prefill: B, S, di*n
 SCAN_TOL = 1e-5
 MAMBA, MAMBA_LAYERS, MAMBA_PARAMS = "falcon-mamba-7b", 64, 7_272_665_088
+FAULT_ROUNDS, RESUME_AT = 4, 2  # phase 14: fault rounds, checkpoint round
 
 
 def die(msg: str) -> None:
@@ -408,10 +426,11 @@ def make_data(rt):
 
 
 def make_trainer(rt, torch, data, state_dict, device, telemetry=None,
-                 monitor=False, **options):
+                 monitor=False, faults=None, resilience=None, **options):
     """A trainer at the §VI-A setup; ``telemetry``: an ``obs`` sink;
     ``monitor``: attach a ``ConvergenceMonitor`` writing to that sink
-    and to the process-default metrics registry."""
+    and to the process-default metrics registry; ``faults`` and
+    ``resilience``: the trainer's fault plan and resilience policies."""
     cfg = rt.fed.FEELConfig(d_hat=D_HAT, gp_steps=GP_STEPS, lr=LR, **options)
     model = rt.models.cnn.CNN(rt.models.cnn.CNNConfig(side=SIDE))
     model.load_state_dict(state_dict)
@@ -420,7 +439,8 @@ def make_trainer(rt, torch, data, state_dict, device, telemetry=None,
                                      registry=rt.obs.metrics.get_default())
            if monitor else None)
     return rt.fed.FEELTrainer(sys_, data, model, cfg, telemetry=telemetry,
-                              monitor=mon)
+                              monitor=mon, faults=faults,
+                              resilience=resilience)
 
 
 def host(tensors):
@@ -876,6 +896,154 @@ def phase_traced(rt, torch, data, init_sd, kernels, gradnorm, gpu0,
     return launches
 
 
+def fault_records(obs, tele, i):
+    """(kind, device) of round ``i``'s fault records, in order."""
+    return [(e.kind, e.device) for e in tele.events
+            if isinstance(e, obs.FaultEvent) and e.round == i]
+
+
+def outside_stages_ms(obs, tele, i, wall_s):
+    """Round ``i``'s wall less its top-level stages, in ms: the host
+    work between them (the channel draw, the resilience bookkeeping,
+    the checkpoint write)."""
+    root = [e.span_id for e in tele.events if isinstance(e, obs.SpanEvent)
+            and e.name == "round" and e.round == i]
+    top = sum(e.dur_s for e in tele.events if isinstance(e, obs.StageEvent)
+              and e.round == i and e.parent_id in root)
+    return (wall_s - top) * 1e3
+
+
+RESILIENCE_FIELDS = ("n_uploaded", "n_dropped", "n_retries", "n_quarantined",
+                     "skipped_update", "fallbacks")
+
+
+def phase_resilience(rt, torch, data, init_sd, kernels, gradnorm):
+    """Phase 14: fault rounds, a checkpoint written on the card, resumed
+    on the card (bit-identical) and on the CPU (replay rule).  Returns
+    the launches of the card's 6 rounds."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    obs, fed = rt.obs, rt.fed
+    spec = dataclasses.replace(fed.CHAOS_SPEC, seed=2)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    print(f"resilience: {FAULT_ROUNDS} rounds under {spec}; "
+          "torch.backends.cudnn.deterministic=True benchmark=False for "
+          "this phase's trainers")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    res = fed.ResilienceConfig(quarantine_threshold=1, checkpoint_every=2,
+                               checkpoint_dir=str(Path(tmp.name) / "run"))
+    at2 = str(Path(tmp.name) / "at2")
+
+    # (a) fault rounds on the card, a checkpoint every two rounds
+    tele = obs.Telemetry()  # in memory: the fault records
+    tr = make_trainer(rt, torch, data, init_sd, "cuda", telemetry=tele,
+                      faults=spec, resilience=res)
+    save_ms, real_save = [], tr.save_checkpoint
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_save(*args, **kwargs)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tr.save_checkpoint = timed_save
+    for m in kernels:
+        m.reset_launch_counts()
+    ms = []
+    for i in range(FAULT_ROUNDS):
+        m = tr.run_round(i, eval_now=i == FAULT_ROUNDS - 1)
+        ms.append(m)
+        check(all(bool(torch.isfinite(p).all()) for p in tr.params.values()),
+              f"resilience round {i}: params not finite")
+        check(gradnorm.LAUNCHES["gradnorm_sigma"] == i + 1,
+              f"resilience: gradnorm_sigma launches {dict(gradnorm.LAUNCHES)}"
+              f" after round {i}")
+        print(f"resilience round {i}: wall {m.wall_s * 1e3:.3f} ms "
+              f"(outside its stages "
+              f"{outside_stages_ms(obs, tele, i, m.wall_s):.3f} ms) net_cost "
+              f"{m.net_cost:.6f} uploaded {m.n_uploaded} dropped "
+              f"{m.n_dropped} retries {m.n_retries} quarantined "
+              f"{m.n_quarantined} fallbacks {list(m.fallbacks)} skipped "
+              f"{m.skipped_update} faults {fault_records(obs, tele, i)} "
+              "stages " + " ".join(f"{k}={v:.3f}ms" for k, v in
+                                   stage_ms(obs, tele, i).items()))
+        if i == RESUME_AT - 1:
+            shutil.copytree(res.checkpoint_dir, at2)
+        if i == RESUME_AT:
+            card2 = round_record(tr)
+            card2["m"] = m
+            card2["faults"] = fault_records(obs, tele, i)
+    kinds = [e.kind for e in tele.events if isinstance(e, obs.FaultEvent)]
+    check(any("matching->greedy" in m.fallbacks for m in ms),
+          "resilience: the matching->greedy fallback was never taken")
+    check(kinds.count("quarantine") >= 1, "resilience: no quarantine")
+    check(len(save_ms) == FAULT_ROUNDS // 2,
+          f"resilience: {len(save_ms)} checkpoints written")
+    print(f"resilience: {kinds.count('quarantine')} quarantines, "
+          f"{kinds.count('nan_upload')} NaN uploads screened, "
+          f"{kinds.count('dropout')} dropouts, {kinds.count('retry')} "
+          f"retries; checkpoint writes {[round(x, 3) for x in save_ms]} ms "
+          f"({sum(os.path.getsize(Path(at2) / f) for f in os.listdir(at2))}"
+          " bytes)")
+
+    # (b) a fresh trainer on the card resumes the round-2 checkpoint
+    resumed = make_trainer(rt, torch, data, init_sd, "cuda", faults=spec,
+                           resilience=res)
+    check(resumed.resume(at2) == RESUME_AT, "resilience: resumed round")
+    ms_b = resumed.run(FAULT_ROUNDS)
+    launches = {k: v for mod in kernels for k, v in mod.LAUNCHES.items()}
+    check(launches == {"rownorm2": 0,
+                       "gradnorm_sigma": 2 * FAULT_ROUNDS - RESUME_AT,
+                       "flash_attention": 0, "lru_scan": 0},
+          f"launches on the resilience path {launches}")
+    for a, b in zip(ms[RESUME_AT:], ms_b):
+        check(all(getattr(a, f) == getattr(b, f) for f in RESILIENCE_FIELDS)
+              and a.net_cost == b.net_cost,
+              f"resilience: resumed round {b.round} differs: {b} vs {a}")
+    same = all(torch.equal(tr.params[n], resumed.params[n])
+               and torch.equal(tr.opt_state.mu[n], resumed.opt_state.mu[n])
+               and torch.equal(tr.opt_state.nu[n], resumed.opt_state.nu[n])
+               for n in tr.params)
+    check(same and tr.opt_state.count == resumed.opt_state.count,
+          "resilience: params or Adam state after the card's resume are not "
+          "bit-identical to the uninterrupted run's")
+    print(f"resilience resume on the card from round {RESUME_AT}: rounds "
+          f"{[m.round for m in ms_b]} walls "
+          f"{[round(m.wall_s * 1e3, 3) for m in ms_b]} ms; params, Adam "
+          f"moments and count (={resumed.opt_state.count}) bit-identical; "
+          f"launches {launches}")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+    # (c) the CPU resumes the checkpoint the card wrote
+    tele_c = obs.Telemetry()
+    cpu = make_trainer(rt, torch, data, init_sd, "cpu", telemetry=tele_c,
+                       faults=spec, resilience=fed.ResilienceConfig(
+                           quarantine_threshold=1))
+    check(cpu.resume(at2) == RESUME_AT, "resilience: CPU resumed round")
+    m_c = cpu.run_round(RESUME_AT)
+    differ, in_band = check_same_decision(torch, card2, cpu.last_decision,
+                                          "resilience replay")
+    m_g = card2["m"]
+    check(all(getattr(m_c, f) == getattr(m_g, f) for f in RESILIENCE_FIELDS),
+          f"resilience replay: {m_c} against the card's {m_g}")
+    check(fault_records(obs, tele_c, RESUME_AT) == card2["faults"],
+          "resilience replay: fault records differ")
+    print(f"resilience replay of round {RESUME_AT} on cpu from the card's "
+          f"checkpoint ({m_c.wall_s:.2f} s): rho equal, selection equal "
+          f"outside |delta-1/2|<{SELECTION_BAND} ({int(in_band.sum())} in "
+          f"the band, {int(differ.sum())} differ), net_cost gpu "
+          f"{m_g.net_cost:.6f} cpu {m_c.net_cost:.6f}, uploaded, drops, "
+          f"retries, quarantine, fallbacks {list(m_c.fallbacks)} and "
+          f"{len(card2['faults'])} fault records equal")
+    tmp.cleanup()
+    return launches
+
+
 def profile_round(torch, tr, i):
     """One round under torch.profiler: device operations and busy time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1243,6 +1411,11 @@ def main() -> None:
                                    gradnorm, gpu0, feel_walls)
     done("13 traced rounds")
 
+    # -- 14. resilience and checkpoints -----------------------------------
+    resilience_launches = phase_resilience(rt, torch, data, init_sd, kernels,
+                                           gradnorm)
+    done("14 resilience")
+
     # -- results --------------------------------------------------------
     def entry(name, source, replaces, launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -1257,13 +1430,14 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry("rownorm2", gn_src, "src/repro/kernels/gradnorm.py:62",
               feel_launches["rownorm2"] + serve_launches["rownorm2"]
-              + mamba_launches["rownorm2"] + traced_launches["rownorm2"],
-              norm_rec),
+              + mamba_launches["rownorm2"] + traced_launches["rownorm2"]
+              + resilience_launches["rownorm2"], norm_rec),
         entry("gradnorm_sigma", gn_src, "src/repro/kernels/gradnorm.py:62",
               feel_launches["gradnorm_sigma"]
               + schemes_launches["gradnorm_sigma"]
               + ccp_launches["gradnorm_sigma"]
-              + traced_launches["gradnorm_sigma"], sigma_rec),
+              + traced_launches["gradnorm_sigma"]
+              + resilience_launches["gradnorm_sigma"], sigma_rec),
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
               "src/repro/kernels/flash_attention.py:112",

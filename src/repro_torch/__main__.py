@@ -19,10 +19,29 @@ metrics registry:
 
     PYTHONPATH=src python -m repro_torch --rounds 4 --trace /tmp/t.jsonl --monitor --metrics /tmp/m.prom
     PYTHONPATH=src python -m repro_torch.obs summary /tmp/t.jsonl
+
+Resilience, as the reference example's flags: ``--faults`` injects the
+``chaos`` preset or a ``FaultSpec`` JSON object, ``--checkpoint-dir``
+and ``--checkpoint-every`` write periodic checkpoints, ``--resume``
+continues from the one in ``--checkpoint-dir``, and ``--check-resume``
+runs a self-test: the run to its end, then its second half again from a
+mid-run checkpoint in a fresh trainer, asserting bit-identical, finite
+params (and a quarantine when the plan injects NaN uploads); it exits
+with 1 on a mismatch.  On the GPU the self-test sets cuDNN to
+deterministic algorithms (``torch.backends.cudnn.deterministic = True``,
+``benchmark = False``) and, before CUDA starts, cuBLAS's workspace
+(``CUBLAS_WORKSPACE_CONFIG=:4096:8`` unless set), and says so:
+
+    PYTHONPATH=src python -m repro_torch --faults chaos --check-resume --rounds 4
+    PYTHONPATH=src python -m repro_torch --faults chaos --check-resume --rounds 4 --d-hat 12 --side 10 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import sys
+import tempfile
 from typing import List, Optional
 
 import torch
@@ -31,9 +50,19 @@ from . import obs
 from .core import default_system
 from .data import SyntheticImages, non_iid_split
 from .device import resolve_device
-from .fed import FEELConfig, FEELTrainer, RoundMetrics
+from .fed import (CHAOS_SPEC, FEELConfig, FEELTrainer, FaultSpec,
+                  ResilienceConfig, RoundMetrics)
 from .fed.rounds import SCHEMES
 from .models import cnn
+
+
+def parse_faults(arg: Optional[str]) -> Optional[FaultSpec]:
+    """--faults chaos | --faults '{"seed": 1, "dropout_prob": 0.2}'."""
+    if arg is None:
+        return None
+    if arg == "chaos":
+        return CHAOS_SPEC
+    return FaultSpec.from_dict(json.loads(arg))
 
 
 def main(argv: Optional[List[str]] = None) -> List[RoundMetrics]:
@@ -62,7 +91,27 @@ def main(argv: Optional[List[str]] = None) -> List[RoundMetrics]:
     ap.add_argument("--metrics", default=None, metavar="PATH",
                     help="install a process-wide metrics registry and "
                          "write its Prometheus exposition to PATH")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="inject faults: 'chaos' for the aggressive "
+                         "preset, or a FaultSpec JSON object")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="directory for periodic trainer checkpoints")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    metavar="N", help="checkpoint every N rounds")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the checkpoint in --checkpoint-dir "
+                         "before running")
+    ap.add_argument("--check-resume", action="store_true",
+                    help="self-test: run to completion, then replay the "
+                         "second half from a mid-run checkpoint with a "
+                         "fresh trainer and assert bit-identical params "
+                         "(exits non-zero on mismatch)")
     args = ap.parse_args(argv)
+    faults = parse_faults(args.faults)
+    if args.check_resume and torch.device(args.device or "cuda").type \
+            == "cuda":
+        # cuBLAS reads its workspace setting when CUDA starts
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     device = resolve_device(args.device)
 
     train = SyntheticImages.make(6000, side=args.side, seed=0)
@@ -72,8 +121,6 @@ def main(argv: Optional[List[str]] = None) -> List[RoundMetrics]:
     sys_ = default_system(K=10, N=5, Q=2, D_hat=args.d_hat, device=device)
     cfg = FEELConfig(scheme=args.scheme, d_hat=args.d_hat,
                      selection_method=args.selection)
-    model = cnn.CNN(cnn.CNNConfig(side=args.side),
-                    generator=torch.Generator().manual_seed(cfg.seed))
     tele = None
     if args.trace:
         tele = obs.Telemetry(path=args.trace,
@@ -88,15 +135,33 @@ def main(argv: Optional[List[str]] = None) -> List[RoundMetrics]:
     monitor = None
     if args.monitor:
         monitor = obs.ConvergenceMonitor(sys_, telemetry=tele, registry=reg)
+    resilience = None
+    if (faults is not None or args.checkpoint_every or args.checkpoint_dir
+            or args.check_resume):
+        resilience = ResilienceConfig(checkpoint_every=args.checkpoint_every,
+                                      checkpoint_dir=args.checkpoint_dir)
+
+    def make_trainer(res=resilience, quiet=False):
+        m = cnn.CNN(cnn.CNNConfig(side=args.side),
+                    generator=torch.Generator().manual_seed(cfg.seed))
+        return FEELTrainer(sys_, data, m, cfg,
+                           telemetry=None if quiet else tele,
+                           monitor=None if quiet else monitor,
+                           faults=faults, resilience=res)
+
     try:
-        metrics = FEELTrainer(sys_, data, model, cfg, telemetry=tele,
-                              monitor=monitor).run(args.rounds, verbose=True)
+        trainer = make_trainer()
+        if args.resume:
+            print(f"resumed from round {trainer.resume()}")
+        metrics = trainer.run(args.rounds, verbose=True)
     finally:
         if reg is not None:
             obs.metrics.set_default(None)
         if tele is not None:
             tele.close()
-    final = metrics[-1]
+    if args.check_resume:
+        check_resume(args, faults, make_trainer, device)
+    final = [m for m in metrics if m.test_acc is not None][-1]
     print(f"\nFINAL: acc={final.test_acc:.3f} "
           f"cum_net_cost={final.cum_net_cost:+.3f} device={device}")
     if tele is not None:
@@ -119,6 +184,48 @@ def main(argv: Optional[List[str]] = None) -> List[RoundMetrics]:
             f.write(reg.render())
         print(f"metrics exposition -> {args.metrics}")
     return metrics
+
+
+def check_resume(args, faults, make_trainer, device) -> None:
+    """Run ``args.rounds`` rounds, then the second half again from the
+    mid-run checkpoint in a fresh trainer; exit 1 unless the params are
+    bit-identical and finite (and, when the plan injects NaN uploads,
+    some device was quarantined)."""
+    if device.type == "cuda":
+        # cuDNN may pick a weight-gradient algorithm with atomics; the
+        # comparison needs the same bits from the same inputs
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        print("check-resume: torch.backends.cudnn.deterministic=True "
+              "benchmark=False CUBLAS_WORKSPACE_CONFIG="
+              f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}")
+    half = max(args.rounds // 2, 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        # threshold 1: any surviving NaN upload quarantines, so the
+        # chaos run exercises the quarantine path
+        res = ResilienceConfig(checkpoint_every=half, checkpoint_dir=tmp,
+                               quarantine_threshold=1)
+        full = make_trainer(res=res, quiet=True)
+        ms_full = full.run(args.rounds)
+        partial = make_trainer(res=res, quiet=True)
+        partial.run(half)  # writes the checkpoint at round `half`
+        resumed = make_trainer(res=res, quiet=True)
+        start = resumed.resume()
+        resumed.run(args.rounds)
+    same = all(torch.equal(full.params[n], resumed.params[n])
+               for n in full.params)
+    ok_finite = all(bool(torch.isfinite(p).all())
+                    for p in full.params.values())
+    n_quar = sum(m.n_quarantined for m in ms_full)
+    print(f"\ncheck-resume: resumed_at={start} bit_identical={same} "
+          f"finite={ok_finite} quarantined_device_rounds={n_quar}")
+    if not (same and ok_finite):
+        print("check-resume FAILED", file=sys.stderr)
+        raise SystemExit(1)
+    if faults is not None and faults.nan_prob > 0 and n_quar == 0:
+        print("check-resume FAILED: the plan injected NaN uploads but "
+              "quarantine never triggered", file=sys.stderr)
+        raise SystemExit(1)
 
 
 if __name__ == "__main__":

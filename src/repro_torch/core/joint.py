@@ -1,11 +1,19 @@
 """Algorithm 1: joint resource allocation + data selection, and the four
 baseline schemes of paper §VI-A.
 
-Counterpart of ``repro/core/joint.py``, no-fault path: solve Problem 3
-(RB assignment + power) with Algorithm 2 (closed-form or CCP evaluator),
-then Problem 4 (data selection) with Algorithms 4/5, and bill the
-decision (eqs. 18, 26).  The solver fallback chain is not ported yet: a
-failed solve raises.
+Counterpart of ``repro/core/joint.py``: solve Problem 3 (RB assignment
++ power) with Algorithm 2 (closed-form or CCP evaluator), then Problem 4
+(data selection) with Algorithms 4/5, and bill the decision (eqs. 18,
+26).
+
+The solver fallback chain, as in the reference: a CCP power failure
+degrades to the closed-form evaluator; a failed matching (an exception,
+or a fault plan's forced failure) to greedy max-gain RBs with
+closed-form powers (``_greedy_fallback``, which cannot raise); with
+``repair_infeasible`` a naturally infeasible matching also goes through
+the greedy repair when that restores feasibility.  Every degradation is
+a ``fault`` trace event, a ``feel_fallbacks_total`` count and a label in
+``RoundDecision.fallbacks``.
 
 Telemetry, as in the reference: the proposed scheme's stages run
 ``matching`` and ``power`` (inside ``swap_matching``), ``selection``
@@ -49,13 +57,16 @@ class RoundDecision:
     #: the continuous GP point delta† behind a faithful selection (Alg. 4
     #: output before Alg. 5's rounding); None for the exact selector.
     delta_cont: Optional[torch.Tensor] = None
+    #: solver degradations taken while producing this decision, e.g.
+    #: ("matching->greedy", "ccp->closed_form"); empty = clean solve.
+    fallbacks: tuple = ()
 
 
 def _finish(sys: SystemParams, rho: np.ndarray, p: torch.Tensor,
             delta: torch.Tensor, state: RoundState, feasible: bool,
             swaps: int = 0, unmatched=None,
             delta_cont: Optional[torch.Tensor] = None,
-            telemetry=None) -> RoundDecision:
+            fallbacks: tuple = (), telemetry=None) -> RoundDecision:
     tele = obs.resolve(telemetry)
     with tele.stage("objective"):
         rho_t = torch.as_tensor(rho, dtype=torch.float32, device=sys.device)
@@ -77,27 +88,149 @@ def _finish(sys: SystemParams, rho: np.ndarray, p: torch.Tensor,
                          delta_obj=dv, objective=obj, feasible=feasible,
                          swaps=swaps,
                          unmatched=np.asarray(unmatched, np.int64),
-                         delta_cont=delta_cont)
+                         delta_cont=delta_cont, fallbacks=tuple(fallbacks))
+
+
+def _count_injected(kind: str, n: int = 1) -> None:
+    reg = metrics_mod.get_default()
+    if reg.enabled and n:
+        reg.counter("feel_faults_injected_total",
+                    "faults injected by the FaultPlan, by kind").inc(
+                        n, kind=kind)
+
+
+def _count_fallback(solver: str, to: str) -> None:
+    reg = metrics_mod.get_default()
+    if reg.enabled:
+        reg.counter("feel_fallbacks_total",
+                    "solver degradations by solver and target").inc(
+                        1, solver=solver, to=to)
+
+
+def _greedy_fallback(sys: SystemParams, state: RoundState, tele,
+                     injected: bool, reason: str):
+    """Terminal link of the matching chain: greedy max-gain RB
+    assignment (the baseline-3/4 construction) + exact closed-form
+    powers.  Host numpy + one closed-form solve; cannot raise."""
+    alpha = state.alpha.cpu().numpy()
+    with tele.span("joint.greedy_fallback", reason=reason):
+        rho = _greedy_rb(sys, state.h.cpu().numpy(), alpha, prefer_max=True)
+        with tele.stage("power"):
+            p, _, ok = power_mod.allocate_power(sys, rho, state.h,
+                                                state.alpha, telemetry=tele)
+            p = tele.block(p)
+    tele.fault("fallback", injected=injected, solver="matching",
+               to="greedy", reason=reason)
+    _count_fallback("matching", "greedy")
+    avail = np.flatnonzero(alpha > 0)
+    unmatched = avail[rho[avail].sum(axis=1) <= 0]
+    return rho, p, ok and unmatched.size == 0, unmatched
 
 
 def proposed_scheme(sys: SystemParams, state: RoundState,
                     selection_method: str = "faithful",
                     power_evaluator: str = "closed_form",
-                    gp_steps: int = 400, telemetry=None) -> RoundDecision:
+                    gp_steps: int = 400, faults=None,
+                    repair_infeasible: bool = False,
+                    telemetry=None) -> RoundDecision:
     """Algorithm 1 (the paper's proposed scheme).  ``power_evaluator``
-    prices the matching's candidates (``"closed_form"`` or ``"ccp"``)."""
+    prices the matching's candidates (``"closed_form"`` or ``"ccp"``).
+
+    ``faults``: an optional ``fed.faults.RoundFaults`` whose
+    ``fail_power``/``fail_matching`` force the corresponding solve to
+    fail so the fallback chain runs.  The chain also catches natural
+    failures: a solver exception degrades instead of propagating.
+
+    ``repair_infeasible``: also route a naturally infeasible matching
+    through the greedy fallback when that repairs feasibility.  Off by
+    default, so a plain run keeps the matching's decision;
+    ``FEELTrainer`` turns it on with its resilience layer.
+    """
     tele = obs.resolve(telemetry)
-    match = matching_mod.swap_matching(sys, state.h, state.alpha,
-                                       evaluator=power_evaluator,
-                                       telemetry=tele)
+    fallbacks = []
+    evaluator = power_evaluator
+
+    # forced power failure: downgrade the evaluator up front; the closed
+    # form is the chain's terminal link, so there the failure is only
+    # recorded and the solve proceeds
+    if faults is not None and faults.fail_power:
+        tele.fault("solver_fail", injected=True, solver="power",
+                   method=evaluator)
+        _count_injected("solver_fail")
+        if evaluator != "closed_form":
+            tele.fault("fallback", injected=True, solver="power",
+                       to="closed_form", reason="injected")
+            _count_fallback("power", "closed_form")
+            fallbacks.append(f"{evaluator}->closed_form")
+            evaluator = "closed_form"
+
+    # matching, with the greedy terminal fallback
+    match = None
+    if faults is not None and faults.fail_matching:
+        tele.fault("solver_fail", injected=True, solver="matching")
+        _count_injected("solver_fail")
+        matching_reason = "injected"
+    else:
+        matching_reason = None
+        try:
+            match = matching_mod.swap_matching(sys, state.h, state.alpha,
+                                               evaluator=evaluator,
+                                               telemetry=tele)
+        except Exception as e:  # degrade, don't die
+            matching_reason = type(e).__name__
+            tele.fault("solver_fail", injected=False, solver="matching",
+                       reason=matching_reason)
+            if evaluator != "closed_form":
+                # the CCP scorer may be the culprit: retry the matching
+                # with the exact closed-form evaluator first
+                tele.fault("fallback", injected=False, solver="power",
+                           to="closed_form", reason=matching_reason)
+                _count_fallback("power", "closed_form")
+                fallbacks.append(f"{evaluator}->closed_form")
+                evaluator = "closed_form"
+                try:
+                    match = matching_mod.swap_matching(
+                        sys, state.h, state.alpha, evaluator=evaluator,
+                        telemetry=tele)
+                except Exception as e2:  # both evaluators failed
+                    matching_reason = type(e2).__name__
+
+    if match is not None and match.feasible:
+        rho, p = match.rho, match.p
+        feasible, swaps, unmatched = True, match.swaps, match.unmatched
+    elif match is not None:
+        # naturally infeasible (but non-crashing) matching: with
+        # repair_infeasible, the greedy fallback often repairs
+        # feasibility (max-gain assignments need less power); otherwise
+        # the infeasible decision stands
+        repaired = False
+        if repair_infeasible:
+            rho_g, p_g, ok_g, un_g = _greedy_fallback(
+                sys, state, tele, injected=False, reason="infeasible")
+            if ok_g:
+                rho, p, feasible, swaps = rho_g, p_g, True, 0
+                unmatched = un_g
+                fallbacks.append("matching->greedy")
+                repaired = True
+        if not repaired:
+            rho, p = match.rho, match.p
+            feasible, swaps = False, match.swaps
+            unmatched = match.unmatched
+    else:
+        rho, p, feasible, unmatched = _greedy_fallback(
+            sys, state, tele,
+            injected=bool(faults is not None and faults.fail_matching),
+            reason=matching_reason or "unknown")
+        swaps = 0
+        fallbacks.append("matching->greedy")
+
     with tele.stage("selection"):
         delta, d_cont = selection_mod.solve_selection(
             sys, state.sigma, state.sigma_mask, method=selection_method,
             steps=gp_steps, telemetry=tele)
-    return _finish(sys, match.rho, match.p, delta, state,
-                   feasible=match.feasible, swaps=match.swaps,
-                   unmatched=match.unmatched, delta_cont=d_cont,
-                   telemetry=tele)
+    return _finish(sys, rho, p, delta, state, feasible=feasible,
+                   swaps=swaps, unmatched=unmatched, delta_cont=d_cont,
+                   fallbacks=tuple(fallbacks), telemetry=tele)
 
 
 # --------------------------------------------------------------------------

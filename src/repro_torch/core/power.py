@@ -25,6 +25,9 @@ Counterpart of ``repro/core/power.py``.  Two solvers:
    the final powers go to the system's device.  The reference solves in
    float32 and pads the active set to bucketed sizes to stop jit
    retraces; eager code has no retraces, so there is no padding here.
+
+``allocate_power_safe`` wraps ``allocate_power`` in the resilience
+layer's fallback: a failed CCP solve degrades to the closed form.
 """
 from __future__ import annotations
 
@@ -347,6 +350,53 @@ def allocate_power(sys: SystemParams, rho, h, alpha,
         _count_power(method, bool(res.feasible), res.iterations)
         return res.p, float(cost), res.feasible
     raise ValueError(f"unknown power method: {method}")
+
+
+def allocate_power_safe(sys: SystemParams, rho, h, alpha,
+                        method: str = "closed_form", telemetry=None,
+                        force_fail: bool = False):
+    """``allocate_power`` with the fallback chain of the resilience layer.
+
+    A failed CCP solve (exception, non-finite powers, infeasible
+    outcome), or a fault plan's ``force_fail``, degrades to the exact
+    closed-form evaluator instead of propagating; the degradation is
+    recorded as a ``fault("fallback")`` trace event and counted in
+    ``feel_fallbacks_total``.  The closed form is the chain's terminal
+    link: its infeasibility is a property of the assignment, reported
+    in the ``feasible`` flag.
+
+    Returns ``(p, cost, feasible, fallback)``; ``fallback`` is None or
+    the degradation label (``"ccp->closed_form"``).
+    """
+    tele = obs.resolve(telemetry)
+    fallback = None
+    if method != "closed_form":
+        failure = None
+        if force_fail:
+            failure = "injected"
+        else:
+            try:
+                p, cost, ok = allocate_power(sys, rho, h, alpha,
+                                             method=method, telemetry=tele)
+                if not ok:
+                    failure = "infeasible"
+                elif not bool(torch.all(torch.isfinite(p))):
+                    failure = "non_finite"
+                else:
+                    return p, cost, ok, None
+            except Exception as e:  # solver blew up: degrade, don't die
+                failure = type(e).__name__
+        fallback = f"{method}->closed_form"
+        tele.fault("fallback", injected=force_fail, solver="power",
+                   to="closed_form", reason=failure)
+        reg = metrics_mod.get_default()
+        if reg.enabled:
+            reg.counter("feel_fallbacks_total",
+                        "solver degradations by solver and target").inc(
+                            1, solver="power", to="closed_form")
+    p, cost, ok = allocate_power(sys, rho, h, alpha, method="closed_form",
+                                 telemetry=tele)
+    return p, cost, ok, fallback
 
 
 def _count_singular_newton() -> None:

@@ -23,6 +23,20 @@ test uses to replay the reference's draws; baselines 1 and 2 then draw
 their random half from the same generator.  Every draw is made on the
 CPU, so a run on the GPU and a run on the CPU see the same inputs.
 
+Resilience, as in the reference: a ``FaultPlan`` (``faults=``) injects
+post-matching dropouts, straggler delays, NaN uploads and forced solver
+failures, and a ``ResilienceConfig`` (``resilience=``) sets the
+policies: an upload deadline with bounded retry and backoff, survivor
+re-weighting (or a closed-form re-solve) of the aggregation, NaN
+screening with per-device quarantine, the solver fallback chain
+(``core/joint.py``), and periodic checkpoints that ``resume`` continues
+from bit for bit.  Either argument turns the layer on; with neither a
+round is the plain path.  Checkpoints are the reference's npz + meta
+files: the params and Adam moments in its layout (``cnn.params_to_
+numpy``), the numpy data stream, the round, the cost and the
+quarantine state, plus the CPU generator's state under a key of the
+port's own (``GEN_STATE_KEY``).
+
 Observability, as in the reference: with a ``repro_torch.obs`` sink
 (``telemetry``) each round is a ``round`` span whose stages (``data``,
 ``sigma``, the decision's ``matching``/``power``/``selection``/
@@ -36,20 +50,21 @@ no per-stage synchronize and its outputs are bit-for-bit those of a
 traced one.
 
 Not ported yet: warmup rounds, ``local_steps > 1`` (FedAvg), the
-optimizers other than Adam, ``gp_step0``, the chunked GP, the "full"
-and "last_layer" sigma methods and the resilience layer (faults,
-retries, quarantine, checkpoints, the solver fallback chain, and their
-``fault`` trace events).
+optimizers other than Adam, ``gp_step0``, the chunked GP, and the
+"full" and "last_layer" sigma methods.
 """
 from __future__ import annotations
 
+import base64
 import dataclasses
+import os
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import checkpoint as ckpt_mod
 from .. import obs, optim
 from ..core import cost as cost_mod
 from ..core import joint as joint_mod
@@ -59,6 +74,7 @@ from ..device import full_fp32
 from ..models import cnn as cnn_mod
 from ..obs import metrics as metrics_mod
 from . import client as client_mod
+from . import faults as faults_mod
 from . import server as server_mod
 
 #: per-round (h, alpha) source: round index -> ((K, N) gains, (K,) 0/1).
@@ -67,6 +83,13 @@ ChannelSource = Callable[[int], Tuple[np.ndarray, np.ndarray]]
 
 #: the schemes of paper §VI-A: Algorithm 1 and baselines 1-4
 SCHEMES = ("proposed", "baseline1", "baseline2", "baseline3", "baseline4")
+
+#: checkpoint file prefix inside a checkpoint directory.
+CKPT_NAME = "feel_ckpt"
+#: the checkpoint ``meta`` key of the CPU generator's state (base64 of
+#: ``torch.Generator.get_state()``); the reference's checkpoints hold a
+#: JAX key instead, which no torch generator state can stand for.
+GEN_STATE_KEY = "torch_generator_state"
 
 
 @dataclasses.dataclass
@@ -90,6 +113,37 @@ class FEELConfig:
 
 
 @dataclasses.dataclass
+class ResilienceConfig:
+    """Knobs of the fault-tolerance layer (as the reference's).
+
+    Passing one to ``FEELTrainer`` (or passing a fault plan) turns the
+    resilience policies on; with the defaults and no materialized fault
+    every round stays bit-for-bit a plain run's while the matching is
+    feasible (the layer also repairs infeasible matchings).
+    """
+
+    #: upload deadline in seconds; None derives 1.5 x the slowest
+    #: clean completion max_k(tau_k) + T (eqs. 8 + 16 latency model).
+    deadline_s: Optional[float] = None
+    #: bounded retries for a straggling upload before it is dropped.
+    max_retries: int = 2
+    #: exponential backoff: retry t waits until deadline * base**t.
+    backoff_base: float = 2.0
+    #: mid-round dropout handling: "reweight" renormalizes the IPW
+    #: aggregation over survivors; "resolve" additionally re-solves the
+    #: RB assignment for the survivor set (cost accounting follows).
+    dropout_policy: str = "reweight"
+    #: consecutive non-finite uploads before a device is quarantined.
+    quarantine_threshold: int = 2
+    #: rounds a quarantined device sits out; each clean upload
+    #: afterwards decays one strike (skip-with-decay).
+    quarantine_rounds: int = 3
+    #: checkpoint every N rounds (0 = never) into checkpoint_dir.
+    checkpoint_every: int = 0
+    checkpoint_dir: Optional[str] = None
+
+
+@dataclasses.dataclass
 class RoundMetrics:
     round: int
     net_cost: float
@@ -101,7 +155,11 @@ class RoundMetrics:
     swaps: int
     wall_s: float
     test_acc: Optional[float] = None
+    n_dropped: int = 0          # scheduled uploads lost this round
+    n_quarantined: int = 0      # devices sitting out this round
+    n_retries: int = 0          # straggler retry attempts this round
     skipped_update: bool = False  # no usable upload -> no optimizer step
+    fallbacks: tuple = ()       # solver degradations (RoundDecision)
 
 
 class FEELTrainer:
@@ -111,7 +169,10 @@ class FEELTrainer:
                  model: cnn_mod.CNN, cfg: FEELConfig,
                  channel_source: Optional[ChannelSource] = None,
                  telemetry: Optional[obs.NullTelemetry] = None,
-                 monitor: Optional[obs.ConvergenceMonitor] = None):
+                 monitor: Optional[obs.ConvergenceMonitor] = None,
+                 faults: Optional[Union[faults_mod.FaultPlan,
+                                        faults_mod.FaultSpec]] = None,
+                 resilience: Optional[ResilienceConfig] = None):
         """``telemetry``: an ``obs`` sink for the round-level trace; the
         default (``None``) resolves to the process-wide sink, a no-op
         unless one was installed with ``obs.set_default``.
@@ -121,6 +182,11 @@ class FEELTrainer:
         decision's Delta term, wall and stage times).  ``None`` (the
         default) skips every monitor code path.  Metrics go to the
         process-default registry (``obs.metrics.set_default``).
+
+        ``faults``: a ``fed.faults.FaultPlan`` (or its spec) injecting
+        post-matching dropouts, straggler delays, NaN uploads and forced
+        solver failures, deterministic and replayable.  ``resilience``:
+        a ``ResilienceConfig``.  Either turns the resilience layer on.
         """
         self.sys = sys
         self.device = sys.device
@@ -132,6 +198,15 @@ class FEELTrainer:
         self.gen = torch.Generator().manual_seed(cfg.seed)
         self.obs = obs.resolve(telemetry)
         self.monitor = monitor
+        if isinstance(faults, faults_mod.FaultSpec):
+            faults = faults_mod.FaultPlan(faults)
+        self.faults = faults
+        self._resilient = faults is not None or resilience is not None
+        self._res = resilience if resilience is not None \
+            else ResilienceConfig()
+        self._strikes = np.zeros(sys.K, np.int64)
+        self._quarantined_until = np.zeros(sys.K, np.int64)
+        self._start_round = 0
         self._profiled: set = set()
         self.params = dict(self.model.named_parameters())
         self.opt = optim.adam(cfg.lr)
@@ -189,6 +264,8 @@ class FEELTrainer:
         # below records it as parent; closed just before the return
         span_round = tele.span("round")
         span_round.__enter__()
+        rf = (self.faults.for_round(i, sys.K)
+              if self.faults is not None else None)
 
         with tele.stage("data"):
             images, labels, true = self._gather_round_batches()
@@ -198,6 +275,16 @@ class FEELTrainer:
         with tele.stage("sigma"):
             sigma = tele.block(self._sigma_all(self.model, images, labels))
         h, alpha = self._channel(i)
+        n_quarantined = 0
+        if self._resilient:
+            # quarantined devices sit the round out before the solve, so
+            # no RB or power is allocated to them (skip-with-decay)
+            quarantined = self._quarantined_until > i
+            n_quarantined = int(np.sum(quarantined))
+            if n_quarantined:
+                alpha = alpha * torch.as_tensor(~quarantined,
+                                                dtype=torch.float32,
+                                                device=self.device)
         state = RoundState(h=h, alpha=alpha, sigma=sigma,
                            sigma_mask=torch.ones_like(sigma))
 
@@ -205,6 +292,7 @@ class FEELTrainer:
             dec = joint_mod.proposed_scheme(
                 sys, state, selection_method=cfg.selection_method,
                 power_evaluator=cfg.power_evaluator, gp_steps=cfg.gp_steps,
+                faults=rf, repair_infeasible=self._resilient,
                 telemetry=tele)
         else:
             dec = joint_mod.baseline_scheme(
@@ -233,12 +321,41 @@ class FEELTrainer:
             grads = tele.block(self._local_grads(self.model, images, labels,
                                                  delta))
 
+        # fault application and the resilience policies
+        planned = uploaded.cpu().numpy() > 0
+        surv = planned
+        n_dropped = n_retries = 0
+        if self._resilient:
+            surv, n_dropped, n_retries = self._upload_outcomes(
+                i, rf, planned, tele)
+            grads = self._inject_nan_uploads(rf, surv, grads)
+            surv, n_bad = self._screen_nonfinite(i, rf, surv, grads, tele)
+            n_dropped += n_bad
+
         g_norm_sq = None
         with tele.stage("aggregate"):
-            g_hat = server_mod.aggregate_gradients(sys, grads, uploaded)
+            if self._resilient and not np.array_equal(surv, planned):
+                surv_t = torch.as_tensor(surv, dtype=torch.float32,
+                                         device=self.device)
+                if self._res.dropout_policy == "resolve" and surv.any():
+                    dec = self._resolve_for_survivors(state, surv_t, dec,
+                                                      tele)
+                # zero the lost uploads before the weighted sum: their
+                # IPW weight is 0, but 0 * NaN would still poison it
+                surv_b = torch.as_tensor(surv, device=self.device)
+                grads = {name: torch.where(
+                    surv_b.reshape((sys.K,) + (1,) * (leaf.ndim - 1)),
+                    leaf, 0.0) for name, leaf in grads.items()}
+                # IPW-consistent reweighting over the survivor set
+                g_hat = server_mod.aggregate_gradients(sys, grads, surv_t,
+                                                       renormalize=True)
+                mass = server_mod.ipw_mass(sys, surv_t)
+            else:
+                g_hat = server_mod.aggregate_gradients(sys, grads, uploaded)
+                mass = server_mod.ipw_mass(sys, uploaded)
             # no upload to aggregate: an Adam step on a zero gradient
             # would still move the moments, so the update is skipped
-            skipped_update = server_mod.ipw_mass(sys, uploaded) <= 0.0
+            skipped_update = mass <= 0.0
             if skipped_update:
                 g_norm_sq = 0.0 if self.monitor is not None else None
                 tele.fault("skip_update", injected=False,
@@ -268,7 +385,7 @@ class FEELTrainer:
         self._cum += dec.net_cost
         self.last_state, self.last_decision = state, dec
         self.last_g_hat = g_hat
-        up = uploaded.cpu().numpy().astype(np.int64)
+        up = surv.astype(np.int64)
         n_selected, n_uploaded = int(np.sum(sel)), int(np.sum(up))
         reg = metrics_mod.get_default()
         wall_s = time.perf_counter() - t_round
@@ -291,13 +408,24 @@ class FEELTrainer:
                 i, gap=gap_proxy, g_norm_sq=g_norm_sq, eta=cfg.lr,
                 delta_obj=float(dec.delta_obj), wall_s=wall_s,
                 stage_s=stage_s)
+        if (self._res.checkpoint_every > 0 and self._res.checkpoint_dir
+                and (i + 1) % self._res.checkpoint_every == 0):
+            path = self.save_checkpoint(next_round=i + 1)
+            tele.fault("checkpoint", injected=False, path=path,
+                       next_round=i + 1)
+            if reg.enabled:
+                reg.counter("feel_checkpoints_total",
+                            "periodic trainer checkpoints written").inc()
         span_round.__exit__(None, None, None)
         return RoundMetrics(round=i, net_cost=dec.net_cost,
                             cum_net_cost=self._cum, delta_obj=dec.delta_obj,
                             n_selected=n_selected, n_uploaded=n_uploaded,
                             frac_mislabeled_selected=frac_bad,
                             swaps=dec.swaps, wall_s=wall_s, test_acc=acc,
-                            skipped_update=skipped_update)
+                            n_dropped=n_dropped, n_quarantined=n_quarantined,
+                            n_retries=n_retries,
+                            skipped_update=skipped_update,
+                            fallbacks=dec.fallbacks)
 
     def _profile_once(self, name: str, stage: str, fn, args, tele,
                       round_i: int) -> None:
@@ -374,9 +502,246 @@ class FEELTrainer:
                   "per-round upload latency budget T (eq. 16)").set(
                       float(self.sys.T))
 
+    # ------------------------------------------------------------------
+    # fault-tolerance layer
+    # ------------------------------------------------------------------
+    def _upload_outcomes(self, i: int, rf, planned: np.ndarray, tele):
+        """Apply post-matching dropout and the straggler deadline with
+        bounded retry + exponential backoff.  Returns the surviving
+        upload mask plus (dropped, retry) counts."""
+        res = self._res
+        surv = planned.copy()
+        n_dropped = n_retries = 0
+        if rf is not None and rf.dropout.any():
+            lost = planned & rf.dropout
+            for k in np.flatnonzero(lost):
+                tele.fault("dropout", injected=True, device=int(k))
+            joint_mod._count_injected("dropout", int(lost.sum()))
+            surv &= ~lost
+            n_dropped += int(lost.sum())
+        # upload completion per the eq. (8)+(16) latency model: compute
+        # time tau_k plus the T-second upload slot, plus injected delay;
+        # float64 on the host, as the reference
+        tau = cost_mod.compute_time(self.sys).cpu().numpy().astype(
+            np.float64)
+        T = float(self.sys.T)
+        deadline = (res.deadline_s if res.deadline_s is not None
+                    else 1.5 * float(tau.max() + T))
+        delays = rf.delay_s if rf is not None else np.zeros(self.sys.K)
+        for k in np.flatnonzero(surv):
+            # one span per attempted upload, on that device's track
+            with tele.span("device.upload", device=int(k),
+                           tau_s=float(tau[k])):
+                if tau[k] + T + float(delays[k]) <= deadline:
+                    continue
+                injected = bool(rf is not None and rf.straggler[k])
+                ok = False
+                for t in range(1, res.max_retries + 1):
+                    n_retries += 1
+                    window = deadline * res.backoff_base ** t
+                    d_t = (self.faults.retry_delay_s(i, int(k), t)
+                           if self.faults is not None else 0.0)
+                    tele.fault("retry", injected=injected, device=int(k),
+                               attempt=t, delay_s=d_t, window_s=window)
+                    if tau[k] + T + d_t <= window:
+                        ok = True
+                        break
+                tele.fault("straggler", injected=injected, device=int(k),
+                           delay_s=float(delays[k]), dropped=not ok,
+                           retries=n_retries)
+                if injected:
+                    joint_mod._count_injected("straggler")
+                if not ok:
+                    surv[k] = False
+                    n_dropped += 1
+        reg = metrics_mod.get_default()
+        if reg.enabled:
+            if n_retries:
+                reg.counter("feel_retries_total",
+                            "straggler upload retry attempts").inc(
+                                n_retries)
+            if n_dropped:
+                reg.counter("feel_dropouts_total",
+                            "scheduled uploads lost mid-round").inc(
+                                n_dropped)
+        return surv, n_dropped, n_retries
+
+    def _inject_nan_uploads(self, rf, surv: np.ndarray,
+                            grads: Dict[str, torch.Tensor]
+                            ) -> Dict[str, torch.Tensor]:
+        """Corrupt the gradient upload of the plan's NaN devices (the
+        screen then has to catch real NaNs)."""
+        if rf is None or not bool((rf.nan_upload & surv).any()):
+            return grads
+        bad = rf.nan_upload & surv
+        joint_mod._count_injected("nan_upload", int(bad.sum()))
+        bad_t = torch.as_tensor(bad, device=self.device)
+        return {name: torch.where(
+            bad_t.reshape((self.sys.K,) + (1,) * (leaf.ndim - 1)),
+            torch.nan, leaf) for name, leaf in grads.items()}
+
+    def _screen_nonfinite(self, i: int, rf, surv: np.ndarray,
+                          grads: Dict[str, torch.Tensor], tele):
+        """Exclude non-finite uploads from aggregation and run the
+        per-device quarantine (skip-with-decay) bookkeeping.  Every
+        leaf's per-device finiteness comes to the host in one copy."""
+        K = self.sys.K
+        finite = torch.stack([torch.isfinite(leaf).reshape(K, -1).all(dim=1)
+                              for leaf in grads.values()]).all(dim=0)
+        finite = finite.cpu().numpy()
+        bad = surv & ~finite
+        clean = surv & finite
+        res = self._res
+        reg = metrics_mod.get_default()
+        if bad.any() and reg.enabled:
+            reg.counter("feel_nan_uploads_total",
+                        "uploads excluded for non-finite values").inc(
+                            int(bad.sum()))
+        for k in np.flatnonzero(bad):
+            self._strikes[k] += 1
+            injected = bool(rf is not None and rf.nan_upload[k])
+            tele.fault("nan_upload", injected=injected, device=int(k),
+                       strikes=int(self._strikes[k]))
+            if self._strikes[k] >= res.quarantine_threshold:
+                until = i + 1 + res.quarantine_rounds
+                self._quarantined_until[k] = until
+                self._strikes[k] = 0
+                tele.fault("quarantine", injected=False, device=int(k),
+                           until_round=int(until))
+                if reg.enabled:
+                    reg.counter("feel_quarantines_total",
+                                "devices quarantined for repeated "
+                                "non-finite uploads").inc()
+        # each clean upload decays one strike
+        self._strikes[clean] = np.maximum(self._strikes[clean] - 1, 0)
+        return surv & finite, int(bad.sum())
+
+    def _resolve_for_survivors(self, state: RoundState, surv: torch.Tensor,
+                               dec, tele):
+        """Dropout policy "resolve": re-solve the RB assignment for the
+        surviving devices with the closed-form evaluator, so energy and
+        cost accounting match who uploaded.  Keeps the original decision
+        (reweight only) if the re-solve itself fails."""
+        sys = self.sys
+        try:
+            match2 = joint_mod.matching_mod.swap_matching(
+                sys, state.h, surv, evaluator="closed_form", telemetry=tele)
+        except Exception as e:  # keep the round alive
+            tele.fault("solver_fail", injected=False, solver="matching",
+                       reason=type(e).__name__, context="resolve")
+            return dec
+        tele.fault("fallback", injected=False, solver="matching",
+                   to="resolve_survivors")
+        joint_mod._count_fallback("matching", "resolve_survivors")
+        return joint_mod._finish(
+            sys, match2.rho, match2.p, dec.delta, state,
+            feasible=match2.feasible, swaps=dec.swaps,
+            unmatched=match2.unmatched, delta_cont=dec.delta_cont,
+            fallbacks=dec.fallbacks + ("resolve_survivors",),
+            telemetry=tele)
+
+    # ------------------------------------------------------------------
+    # crash-safe checkpoint / resume, in the reference's format
+    # ------------------------------------------------------------------
+    def _checkpoint_tree(self) -> dict:
+        """Params and Adam state in the reference's pytree layout."""
+        st = self.opt_state
+        return {"params": cnn_mod.params_to_numpy(self.params),
+                "opt_state": {".count": np.asarray(st.count, np.int32),
+                              ".mu": cnn_mod.params_to_numpy(st.mu),
+                              ".nu": cnn_mod.params_to_numpy(st.nu)}}
+
+    def _checkpoint_dir(self) -> str:
+        if not self._res.checkpoint_dir:
+            raise ValueError("no checkpoint path: pass one or set "
+                             "ResilienceConfig.checkpoint_dir")
+        return self._res.checkpoint_dir
+
+    def save_checkpoint(self, path: Optional[str] = None,
+                        next_round: int = 0) -> str:
+        """Atomically persist everything ``resume`` needs to reproduce
+        the uninterrupted trajectory bit for bit: params, Adam state,
+        both random streams, the round index, cumulative cost and the
+        quarantine bookkeeping.  The reference's ``meta`` keys mean what
+        they mean there; ``jax_key`` is null (the port draws h and alpha
+        from its generator, stored under ``GEN_STATE_KEY``)."""
+        if path is None:
+            path = os.path.join(self._checkpoint_dir(), CKPT_NAME)
+        gen_state = self.gen.get_state().numpy().tobytes()
+        meta = {
+            "next_round": int(next_round),
+            "cum_net_cost": float(self._cum),
+            "rng_state": self.rng.bit_generator.state,
+            "jax_key": None,
+            "strikes": [int(v) for v in self._strikes],
+            "quarantined_until": [int(v) for v in self._quarantined_until],
+            "seed": int(self.cfg.seed),
+            "fault_spec": (self.faults.to_dict()
+                           if self.faults is not None else None),
+            GEN_STATE_KEY: base64.b64encode(gen_state).decode("ascii"),
+        }
+        ckpt_mod.save_pytree(path, self._checkpoint_tree(), metadata=meta)
+        return path
+
+    def resume(self, path: Optional[str] = None) -> int:
+        """Restore a checkpoint and return the round to continue from
+        (``run`` picks it up).  Reads the port's checkpoints and the
+        reference's: params, Adam state, the numpy data stream, cost,
+        quarantine state and round.  A reference checkpoint carries a
+        JAX key, not this trainer's generator state, so it resumes only
+        where the generator draws nothing: with a ``channel_source`` and
+        a scheme other than baselines 1 and 2; otherwise this raises."""
+        if path is None:
+            path = self._checkpoint_dir()
+        if os.path.isdir(path):
+            path = os.path.join(path, CKPT_NAME)
+        meta = ckpt_mod.load_metadata(path)
+        if meta is None:
+            raise FileNotFoundError(f"{path}.meta.json missing: cannot "
+                                    "resume without trainer metadata")
+        gen_state = meta.get(GEN_STATE_KEY)
+        if gen_state is None and (self.channel_source is None or
+                                  self.cfg.scheme in ("baseline1",
+                                                      "baseline2")):
+            raise ValueError(
+                f"{path} holds no torch generator state (a JAX checkpoint "
+                "holds a JAX key, which cannot become one): resume it with "
+                "a channel_source and a scheme that draws nothing else")
+        tree = ckpt_mod.load_pytree(path, self._checkpoint_tree())
+
+        def named(layers) -> Dict[str, torch.Tensor]:
+            arrays = {layer: {k: v.numpy() for k, v in leaves.items()}
+                      for layer, leaves in layers.items()}
+            return {n: t.to(self.device)
+                    for n, t in cnn_mod.params_from_numpy(arrays).items()}
+
+        with torch.no_grad():
+            for name, value in named(tree["params"]).items():
+                self.params[name].copy_(value)
+        opt = tree["opt_state"]
+        self.opt_state = optim.AdamState(count=int(opt[".count"]),
+                                         mu=named(opt[".mu"]),
+                                         nu=named(opt[".nu"]))
+        self._cum = float(meta["cum_net_cost"])
+        rng = np.random.default_rng()
+        rng.bit_generator.state = meta["rng_state"]
+        self.rng = rng
+        if gen_state is not None:
+            self.gen.set_state(torch.from_numpy(np.frombuffer(
+                base64.b64decode(gen_state), np.uint8).copy()))
+        self._strikes = np.asarray(meta["strikes"], np.int64)
+        self._quarantined_until = np.asarray(meta["quarantined_until"],
+                                             np.int64)
+        self._start_round = int(meta["next_round"])
+        self.obs.fault("resume", injected=False, path=path,
+                       next_round=self._start_round)
+        return self._start_round
+
     def run(self, rounds: int, verbose: bool = False) -> List[RoundMetrics]:
+        """Run rounds ``[start, rounds)``; ``start`` is 0 for a fresh
+        trainer or the restored round after ``resume()``."""
         out = []
-        for i in range(rounds):
+        for i in range(self._start_round, rounds):
             eval_now = (i % self.cfg.eval_every == 0) or i == rounds - 1
             m = self.run_round(i, eval_now=eval_now)
             out.append(m)

@@ -6,7 +6,8 @@ Counterpart of ``repro/models/cnn.py`` as an ``nn.Module``.  The
 reference is NHWC with HWIO kernels and flattens the pooled map in
 (h, w, c) order before ``fc1``; this module is NCHW and flattens in
 (c, h, w) order, so ``params_from_numpy`` permutes the rows of the
-reference's ``fc1`` weight to carry weights across.  "SAME" padding of
+reference's ``fc1`` weight to carry weights across, and
+``params_to_numpy`` (checkpoints in the reference's layout) back.  "SAME" padding of
 a 5x5 kernel is ``padding=2``.
 """
 from __future__ import annotations
@@ -126,3 +127,33 @@ def params_from_numpy(params_np: Dict[str, Dict[str, np.ndarray]]
         sd[f"{name}.weight"] = t(np.asarray(params_np[name]["w"]).T)
         sd[f"{name}.bias"] = t(params_np[name]["b"])
     return sd
+
+
+def params_to_numpy(params: Dict[str, torch.Tensor]
+                    ) -> Dict[str, Dict[str, np.ndarray]]:
+    """This module's named tensors (its parameters, or Adam moments keyed
+    like them) -> the reference's params pytree as float32 numpy arrays:
+    the inverse of ``params_from_numpy``.
+
+    Conv kernels go OIHW -> HWIO, dense kernels (out, in) -> (in, out),
+    and the rows of ``fc1``'s kernel from (c, h, w) back to the
+    reference's (h, w, c) order.  Every map is a permutation, so the
+    values are exact.
+    """
+    def a(name):
+        return params[name].detach().cpu().numpy()
+
+    out = {}
+    for name in ("conv1", "conv2"):
+        out[name] = {"w": np.ascontiguousarray(
+            np.transpose(a(f"{name}.weight"), (2, 3, 1, 0))),
+            "b": a(f"{name}.bias").copy()}
+    w1 = a("fc1.weight").T
+    c = params["conv2.weight"].shape[0]
+    s = math.isqrt(w1.shape[0] // c)
+    w1 = w1.reshape(c, s, s, -1).transpose(1, 2, 0, 3).reshape(w1.shape)
+    out["fc1"] = {"w": np.ascontiguousarray(w1), "b": a("fc1.bias").copy()}
+    for name in ("fc2", "out"):
+        out[name] = {"w": np.ascontiguousarray(a(f"{name}.weight").T),
+                     "b": a(f"{name}.bias").copy()}
+    return out
