@@ -21,7 +21,8 @@ exit) if anything in it fails; no failure is caught:
    it), and the least time the card could take (bytes or operations);
    bf16 flash also on views offset by one element (d = 20 and the GQA
    serving shape), which TMA cannot read in place and the wrapper pads
-   into an aligned copy;
+   into an aligned copy; bf16 flash at gemma3-12b's global shape (d =
+   256) and the scan at recurrentgemma-9b's (4, 2048, 4096);
 4. FEEL path: 3 untraced rounds of the paper's §VI-A setup (K=10, N=5,
    Q=2, D̂=200, 28x28 images, faithful selection with 400 GP steps)
    through ``FEELTrainer.run_round``, which scores sigma through the
@@ -92,12 +93,35 @@ exit) if anything in it fails; no failure is caught:
    trainer resumes the same checkpoint, which the card wrote, and runs
    round 2, held against the card's round 2 under phase 5's replay rule
    with the same drops, retries, quarantine, fallbacks and fault
-   records.
+   records; (b') the same card resume once more with cuDNN's default
+   (non-deterministic) algorithms, reporting whether it stays
+   bit-identical;
+15. recurrentgemma-9b serving path: ``serve`` at full width and depth
+   (26 rglru and 12 sliding-window layers, 10,444,771,328 parameters),
+   phase 7's request; each rglru layer's prefill recurrence goes through
+   the scan kernel at (4, 2048, 4096), 26 launches per prefill and none
+   in decode; local attention is plain torch, and decode from position
+   2048 on wraps the 2048-slot rolling buffers; then one prefill and one
+   decode step under ``torch.profiler``;
+16. gemma3-12b serving path: ``serve`` at full width and depth (40
+   local and 8 global layers, qk-norm, 12,772,052,736 parameters),
+   phase 7's request; each global layer's prefill attention goes through
+   the bf16 flash kernel at d = 256, 8 launches per prefill and none in
+   decode; the 2048-token prompt crosses the 1024 window; then one
+   prefill and one decode step under ``torch.profiler``;
+17. hybrid replays: recurrentgemma-9b cut to one pattern (3 layers) and
+   gemma3-12b cut to one pattern (6 layers), each at full width with the
+   window cut to 128 so that the 256-token prompt crosses it and decode
+   wraps the rolling buffers, fp32 with TF32 off, the same weights on
+   the card and on the CPU: prefill logits, each rglru layer's state and
+   8 greedy steps.
 
 Launch counts are zeroed just before each path (4, 7, 9, 11, 12b, 13,
-14, and the card's run in 8) and read just after.  It prints one
-``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
-line.  Without a GPU, or without the
+14, 15, 16, and the card's runs in 8, 10 and 17) and read just after.
+It prints one ``{"kernels": [...]}`` line, with one entry per kernel and
+serving shape (the bf16 flash kernel at llama's and gemma3's, the scan
+at mamba's and recurrentgemma's), and, last, the ``{"ok": true,
+"device": ...}`` line.  Without a GPU, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero before
 printing either.
 """
@@ -139,6 +163,7 @@ FLASH_EDGE_SHAPES = [(1, 130, 24), (2, 77, 20), (3, 1, 64), (1, 129, 256)]
 FLASH_SLICE = (96, 2048, 1, 1, 128)
 FLASH_GQA = (4, 2048, 24, 8, 128)
 FLASH_F32_REPLAY = (1, 256, 24, 8, 128)
+FLASH_GEMMA = (4, 2048, 16, 8, 256)  # gemma3-12b's global layers
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ARCH, SERVE_BATCH, PROMPT, NEW_TOKENS = "llama3.2-3b", 4, 2048, 32
 REPLAY_LAYERS, REPLAY_PROMPT, REPLAY_STEPS = 2, 256, 8
@@ -148,9 +173,14 @@ LOGITS_RTOL = 1e-4       # card vs CPU prefill logits, fp32 with TF32 off
 # tolerance (tests/test_kernels.py), and the mamba serving path's shape
 SCAN_TEST_SHAPES = [(1, 17, 8), (2, 300, 130), (3, 256, 256), (2, 512, 64)]
 SCAN_SLICE = (4, 2048, 8192 * 16)  # falcon-mamba-7b prefill: B, S, di*n
+SCAN_RG = (4, 2048, 4096)          # recurrentgemma-9b prefill: B, S, w
 SCAN_TOL = 1e-5
 MAMBA, MAMBA_LAYERS, MAMBA_PARAMS = "falcon-mamba-7b", 64, 7_272_665_088
 FAULT_ROUNDS, RESUME_AT = 4, 2  # phase 14: fault rounds, checkpoint round
+RGEMMA, RGEMMA_PARAMS, RGEMMA_RGLRU = "recurrentgemma-9b", 10_444_771_328, 26
+GEMMA, GEMMA_PARAMS, GEMMA_GLOBAL = "gemma3-12b", 12_772_052_736, 8
+# phase 17: one pattern of each hybrid, the window cut below the prompt
+HYBRID_WINDOW = 128
 
 
 def die(msg: str) -> None:
@@ -294,9 +324,10 @@ def flash_bound(b: int, s: int, h: int, hk: int, d: int, causal: bool,
 def phase_flash(torch, fa, ops):
     """The flash kernels against their plain versions at the test shapes,
     the edge shapes and the main paths' shapes; returns the records of
-    the llama serving shape (bf16, GQA read in place) and of the fp32
-    replay's shape.  Each case: (B, S, H, Hk, d), dtype, causal, and
-    whether it goes through the (BH, S, d) entry (H = Hk, folded) or the
+    the llama serving shape (bf16, GQA read in place), of gemma3's
+    global shape (bf16, d = 256) and of the fp32 replay's shape.  Each
+    case: (B, S, H, Hk, d), dtype, causal, and whether it goes through
+    the (BH, S, d) entry (H = Hk, folded) or the
     strided (B, S, H, d) one, there also as views one element past an
     aligned base ("bshd+1": q, k and v copied into aligned buffers)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -312,6 +343,7 @@ def phase_flash(torch, fa, ops):
               ((1, 77, 6, 2, 20), "bfloat16", True, "bshd+1"),
               (FLASH_GQA, "bfloat16", True, "bshd"),
               (FLASH_GQA, "bfloat16", True, "bshd+1"),
+              (FLASH_GEMMA, "bfloat16", True, "bshd"),
               (FLASH_F32_REPLAY, "float32", True, "bshd")]
     recs = {}
     for shape, dt, causal, layout in cases:
@@ -367,20 +399,23 @@ def phase_flash(torch, fa, ops):
         del q, k, v, q4, k4, v4, qs, ks, vs
     torch.cuda.empty_cache()
     return (recs[(FLASH_GQA, "bfloat16", "bshd")],
+            recs[(FLASH_GEMMA, "bfloat16", "bshd")],
             recs[(FLASH_F32_REPLAY, "float32", "bshd")])
 
 
 def phase_scan(torch, lru, ops):
     """The scan kernel against its plain version at the test shapes in
-    fp32 and bf16, the a == 0 identity, and the mamba serving shape with
-    a in (0, 1) as exp(dt A) gives; returns the serving shape's record.
+    fp32 and bf16, the a == 0 identity, and the mamba and recurrentgemma
+    serving shapes with a in (0, 1) as exp(dt A) and the RG-LRU gate
+    give; returns the two serving shapes' records, by shape.
     Bound: a and b read once and h written once (bytes); 2 flops per
     element on the fp32 CUDA cores.  No one PyTorch call computes the
     recurrence, so there is no library time."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [(shape, dt) for shape in SCAN_TEST_SHAPES
-             for dt in ("float32", "bfloat16")] + [(SCAN_SLICE, "float32")]
-    slice_rec = None
+             for dt in ("float32", "bfloat16")] + [(SCAN_SLICE, "float32"),
+                                                   (SCAN_RG, "float32")]
+    recs = {}
     for shape, dt in cases:
         dtype = getattr(torch, dt)
         a = torch.rand(shape, generator=gen, device="cuda").to(dtype)
@@ -397,7 +432,7 @@ def phase_scan(torch, lru, ops):
         check(bool(torch.equal(ident, b.float())),
               f"lru_scan {shape} {dt}: a == 0 is not the identity on b")
         del ident
-        big = shape == SCAN_SLICE
+        big = shape in (SCAN_SLICE, SCAN_RG)
         n = a.numel()
         b_ms, b_by = bound(n * (2 * a.element_size() + 4), 2.0 * n)
         rec = {"max_abs_err": err,
@@ -412,10 +447,10 @@ def phase_scan(torch, lru, ops):
               f"{b_ms:.6f} ({b_by}) | kernel/bound {rec['ms'] / b_ms:.2f}x, "
               f"{n * (2 * a.element_size() + 4) / rec['ms'] / 1e6:.1f} GB/s")
         if big:
-            slice_rec = rec
+            recs[shape] = rec
         del a, b
     torch.cuda.empty_cache()
-    return slice_rec
+    return recs
 
 
 def make_data(rt):
@@ -919,8 +954,9 @@ RESILIENCE_FIELDS = ("n_uploaded", "n_dropped", "n_retries", "n_quarantined",
 
 def phase_resilience(rt, torch, data, init_sd, kernels, gradnorm):
     """Phase 14: fault rounds, a checkpoint written on the card, resumed
-    on the card (bit-identical) and on the CPU (replay rule).  Returns
-    the launches of the card's 6 rounds."""
+    on the card (bit-identical), again under cuDNN's default algorithms
+    (reported), and on the CPU (replay rule).  Returns the launches of
+    the card's 8 rounds."""
     import dataclasses
     import shutil
     import tempfile
@@ -1018,6 +1054,31 @@ def phase_resilience(rt, torch, data, init_sd, kernels, gradnorm):
           f"moments and count (={resumed.opt_state.count}) bit-identical; "
           f"launches {launches}")
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+    # (b') the same resume under cuDNN's default algorithms: reported
+    free = make_trainer(rt, torch, data, init_sd, "cuda", faults=spec,
+                        resilience=res)
+    check(free.resume(at2) == RESUME_AT, "resilience: resumed round")
+    ms_f = free.run(FAULT_ROUNDS)
+    launches = {k: v for mod in kernels for k, v in mod.LAUNCHES.items()}
+    check(launches == {"rownorm2": 0,
+                       "gradnorm_sigma": 3 * FAULT_ROUNDS - 2 * RESUME_AT,
+                       "flash_attention": 0, "lru_scan": 0},
+          f"launches on the resilience path {launches}")
+    worst = max(float((tr.params[n] - free.params[n]).detach().abs().max())
+                for n in tr.params)
+    same_free = all(torch.equal(tr.params[n], free.params[n])
+                    and torch.equal(tr.opt_state.mu[n], free.opt_state.mu[n])
+                    and torch.equal(tr.opt_state.nu[n], free.opt_state.nu[n])
+                    for n in tr.params)
+    same_cost = all(a.net_cost == b.net_cost
+                    for a, b in zip(ms[RESUME_AT:], ms_f))
+    print(f"resilience resume on the card without cudnn.deterministic "
+          f"(deterministic={torch.backends.cudnn.deterministic} benchmark="
+          f"{torch.backends.cudnn.benchmark}): rounds "
+          f"{[m.round for m in ms_f]} net_cost equal {same_cost}; params, "
+          f"Adam moments bit-identical to the uninterrupted run's: "
+          f"{same_free} (params max abs diff {worst:.3g})")
 
     # (c) the CPU resumes the checkpoint the card wrote
     tele_c = obs.Telemetry()
@@ -1154,13 +1215,15 @@ def phase_serve_profile(torch, tm, get_config, arch):
 
 
 def phase_llm_replay(torch, tm, get_config, full_fp32, arch, kernels,
-                     states=False):
-    """``arch`` at full width, depth cut to 2 layers, fp32 with TF32 off:
-    the same weights and prompt on the CPU and on the card.  With
-    ``states``, each layer's SSM state after the prefill is held too.
-    Returns the kernel launches of the card's run (counts zeroed just
-    before it): the fp32 kernels' own path."""
-    cfg = get_config(arch).scaled(n_layers=REPLAY_LAYERS, dtype="float32")
+                     states=(), **cut):
+    """``arch`` at full width, cut by ``cut`` (default: depth cut to 2
+    layers), fp32 with TF32 off: the same weights and prompt on the CPU
+    and on the card.  ``states``: the pattern positions whose recurrent
+    state after the prefill is held too, each repeat of each.  Returns
+    the kernel launches of the card's run (counts zeroed just before
+    it): the fp32 kernels' own path."""
+    cut = cut or {"n_layers": REPLAY_LAYERS}
+    cfg = get_config(arch).scaled(dtype="float32", **cut)
     model = tm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     prompt = torch.randint(0, cfg.vocab, (1, REPLAY_PROMPT),
                            generator=torch.Generator().manual_seed(1))
@@ -1174,8 +1237,8 @@ def phase_llm_replay(torch, tm, get_config, full_fp32, arch, kernels,
             logits, cache = prefill(model, {"tokens": prompt.to(device)},
                                     cache)
             first = logits.cpu()
-            h = (cache["body"]["pos0"]["h"].cpu().clone() if states
-                 else None)
+            h = [layer.cpu().clone() for pos in states
+                 for layer in cache["body"][pos]["h"]]
             tok = torch.argmax(logits[:, -1], -1)
             toks, steps = [int(tok)], []
             for i in range(REPLAY_STEPS):
@@ -1202,17 +1265,17 @@ def phase_llm_replay(torch, tm, get_config, full_fp32, arch, kernels,
     check(gpu[1] == cpu[1], f"{arch} replay: greedy tokens differ: card "
           f"{gpu[1]} cpu {cpu[1]}")
     state_msg = ""
-    if states:
-        for layer, (g, c) in enumerate(zip(gpu[4], cpu[4])):
-            h_atol = LOGITS_RTOL * float(c.abs().max())
-            h_err = float((g - c).abs().max())
-            check(bool(torch.allclose(g, c, rtol=LOGITS_RTOL, atol=h_atol)),
-                  f"{arch} replay: layer {layer} SSM state differs by "
-                  f"{h_err:.3g} (rtol {LOGITS_RTOL}, atol {h_atol:.3g})")
-            state_msg += (f", layer {layer} state max abs err {h_err:.3g} "
-                          f"(max |h| {float(c.abs().max()):.3g})")
+    for layer, (g, c) in enumerate(zip(gpu[4], cpu[4])):
+        h_atol = LOGITS_RTOL * float(c.abs().max())
+        h_err = float((g - c).abs().max())
+        check(bool(torch.allclose(g, c, rtol=LOGITS_RTOL, atol=h_atol)),
+              f"{arch} replay: recurrent state {layer} differs by "
+              f"{h_err:.3g} (rtol {LOGITS_RTOL}, atol {h_atol:.3g})")
+        state_msg += (f", state {layer} max abs err {h_err:.3g} "
+                      f"(max |h| {float(c.abs().max()):.3g})")
     step_err = max(float((g - c).abs().max()) for g, c in zip(gpu[2], cpu[2]))
-    print(f"{arch} replay (full width, {REPLAY_LAYERS} layers, fp32, TF32 "
+    print(f"{arch} replay (full width, {cfg.n_layers} layers "
+          f"{list(cfg.layer_pattern)}, window {cfg.window}, fp32, TF32 "
           f"off, prompt {REPLAY_PROMPT}, {REPLAY_STEPS} greedy steps): "
           f"prefill logits max abs err {err:.3g} (max |logit| "
           f"{float(ref.abs().max()):.3g}){state_msg}, decode logits max abs "
@@ -1278,8 +1341,10 @@ def main() -> None:
 
     # -- 3. kernels against their plain versions ------------------------
     norm_rec, sigma_rec = phase_kernels(torch, gradnorm)
-    flash_rec, flash_f32_rec = phase_flash(torch, flash_attention, ops)
-    scan_rec = phase_scan(torch, lru_scan, ops)
+    flash_rec, flash_gemma_rec, flash_f32_rec = phase_flash(
+        torch, flash_attention, ops)
+    scan_recs = phase_scan(torch, lru_scan, ops)
+    scan_rec = scan_recs[SCAN_SLICE]
     done("3 kernels")
 
     # -- 4. the FEEL path -----------------------------------------------
@@ -1384,7 +1449,7 @@ def main() -> None:
     # -- 10. mamba replay on the CPU ------------------------------------
     torch.cuda.empty_cache()
     phase_llm_replay(torch, tm, get_config, full_fp32, MAMBA, kernels,
-                     states=True)
+                     states=("pos0",))
     done("10 mamba replay")
 
     # -- 11. the baseline schemes ---------------------------------------
@@ -1414,7 +1479,54 @@ def main() -> None:
     # -- 14. resilience and checkpoints -----------------------------------
     resilience_launches = phase_resilience(rt, torch, data, init_sd, kernels,
                                            gradnorm)
+    del data
     done("14 resilience")
+
+    # -- 15. the recurrentgemma-9b serving path -------------------------
+    torch.cuda.empty_cache()
+    rg_launches, n_params = phase_serve(
+        torch, serve_mod, kernels, RGEMMA,
+        {"prefill": {"flash_attention": 0, "lru_scan": RGEMMA_RGLRU},
+         "decode": {"flash_attention": 0, "lru_scan": 0}}, 256000)
+    check(n_params == RGEMMA_PARAMS,
+          f"{RGEMMA}: {n_params:,} parameters, expected {RGEMMA_PARAMS:,}")
+    rg_rec = scan_recs[SCAN_RG]
+    print(f"lru_scan device time of one prefill's {RGEMMA_RGLRU} launches: "
+          f"{RGEMMA_RGLRU * rg_rec['ms']:.3f} ms ({RGEMMA_RGLRU} x the "
+          f"{SCAN_RG} time)")
+    torch.cuda.empty_cache()
+    phase_serve_profile(torch, tm, get_config, RGEMMA)
+    done("15 recurrentgemma serve")
+
+    # -- 16. the gemma3-12b serving path --------------------------------
+    torch.cuda.empty_cache()
+    gemma_launches, n_params = phase_serve(
+        torch, serve_mod, kernels, GEMMA,
+        {"prefill": {"flash_attention": GEMMA_GLOBAL, "lru_scan": 0},
+         "decode": {"flash_attention": 0, "lru_scan": 0}}, 262144)
+    check(n_params == GEMMA_PARAMS,
+          f"{GEMMA}: {n_params:,} parameters, expected {GEMMA_PARAMS:,}")
+    print(f"flash_attention device time of one prefill's {GEMMA_GLOBAL} "
+          f"launches: {GEMMA_GLOBAL * flash_gemma_rec['ms']:.3f} ms "
+          f"({GEMMA_GLOBAL} x the {FLASH_GEMMA} time)")
+    torch.cuda.empty_cache()
+    phase_serve_profile(torch, tm, get_config, GEMMA)
+    done("16 gemma3 serve")
+
+    # -- 17. hybrid replays on the CPU -----------------------------------
+    torch.cuda.empty_cache()
+    for arch, want in ((RGEMMA, {"flash_attention": 0, "lru_scan": 2}),
+                       (GEMMA, {"flash_attention": 1, "lru_scan": 0})):
+        pattern = get_config(arch).layer_pattern
+        got = phase_llm_replay(
+            torch, tm, get_config, full_fp32, arch, kernels,
+            states=tuple(f"pos{i}" for i, kind in enumerate(pattern)
+                         if kind == "rglru"),
+            n_layers=len(pattern), window=HYBRID_WINDOW)
+        check({k: got[k] for k in want} == want,
+              f"{arch} replay: launches {got}, expected {want}")
+        torch.cuda.empty_cache()
+    done("17 hybrid replays")
 
     # -- results --------------------------------------------------------
     def entry(name, source, replaces, launches, rec):
@@ -1448,7 +1560,14 @@ def main() -> None:
               replay_launches["flash_attention"], flash_f32_rec),
         entry("lru_scan", "src/repro_torch/kernels/csrc/lru_scan.cu",
               "src/repro/kernels/lru_scan.py:70",
-              mamba_launches["lru_scan"], scan_rec)]}))
+              mamba_launches["lru_scan"], scan_rec),
+        entry(f"flash_attention@{GEMMA}",
+              "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+              "src/repro/kernels/flash_attention.py:112",
+              gemma_launches["flash_attention"], flash_gemma_rec),
+        entry(f"lru_scan@{RGEMMA}", "src/repro_torch/kernels/csrc/lru_scan.cu",
+              "src/repro/kernels/lru_scan.py:70",
+              rg_launches["lru_scan"], rg_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,7 @@
 Counterpart of ``repro/configs``.  ``ARCHS`` lists only the
 architectures the port runs so far; the others of the reference are
 queued in ROADMAP.md.  ``smoke_config(name)`` returns the reduced
-same-family variant (2 layers, narrow widths) the CPU tests use.
+same-family variant (a few layers, narrow widths) the CPU tests use.
 """
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ from ..models.config import ArchConfig
 ARCHS: List[str] = [
     "llama3_2-3b",
     "falcon-mamba-7b",
+    "recurrentgemma-9b",
+    "gemma3-12b",
 ]
 
 ALIASES = {"llama3.2-3b": "llama3_2-3b"}

@@ -30,12 +30,15 @@ policies: an upload deadline with bounded retry and backoff, survivor
 re-weighting (or a closed-form re-solve) of the aggregation, NaN
 screening with per-device quarantine, the solver fallback chain
 (``core/joint.py``), and periodic checkpoints that ``resume`` continues
-from bit for bit.  Either argument turns the layer on; with neither a
-round is the plain path.  Checkpoints are the reference's npz + meta
-files: the params and Adam moments in its layout (``cnn.params_to_
-numpy``), the numpy data stream, the round, the cost and the
-quarantine state, plus the CPU generator's state under a key of the
-port's own (``GEN_STATE_KEY``).
+from bit for bit: on the GPU only under cuDNN's deterministic algorithms
+(``torch.backends.cudnn.deterministic = True``, which ``--check-resume``
+sets); under its default algorithms the weight gradients of a resumed
+run may differ at float32 noise.  Either argument turns the layer on;
+with neither a round is the plain path.  Checkpoints are the
+reference's npz + meta files: the params and Adam moments in its layout
+(``cnn.params_to_numpy``), the numpy data stream, the round, the cost
+and the quarantine state, plus the CPU generator's state under a key of
+the port's own (``GEN_STATE_KEY``).
 
 Observability, as in the reference: with a ``repro_torch.obs`` sink
 (``telemetry``) each round is a ``round`` span whose stages (``data``,
@@ -660,7 +663,8 @@ class FEELTrainer:
     def save_checkpoint(self, path: Optional[str] = None,
                         next_round: int = 0) -> str:
         """Atomically persist everything ``resume`` needs to reproduce
-        the uninterrupted trajectory bit for bit: params, Adam state,
+        the uninterrupted trajectory bit for bit (on the GPU under
+        ``torch.backends.cudnn.deterministic``): params, Adam state,
         both random streams, the round index, cumulative cost and the
         quarantine bookkeeping.  The reference's ``meta`` keys mean what
         they mean there; ``jax_key`` is null (the port draws h and alpha

@@ -1,16 +1,22 @@
 """Batched serving driver: prefill a batch of prompts, then greedy
-decode with the cache (KV for attention, conv and SSM state for mamba).
+decode with the cache (KV for attention, a rolling window-sized KV
+buffer for sliding-window attention, conv and recurrent state for mamba
+and RG-LRU).
 
 Counterpart of ``repro/launch/serve.py`` for text decoders
-(``llama3.2-3b``, ``falcon-mamba-7b``).  Runs on the GPU unless
-``--device cpu`` is given; without a GPU and without it, it raises.
+(``llama3.2-3b``, ``falcon-mamba-7b``, ``recurrentgemma-9b``,
+``gemma3-12b``).  Runs on the GPU unless ``--device cpu`` is given;
+without a GPU and without it, it raises.
 
     python -m repro_torch.launch.serve --full --batch 4 \\
         --prompt-len 2048 --new-tokens 32                      # GPU
-    python -m repro_torch.launch.serve --arch falcon-mamba-7b --full \\
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --full \\
         --batch 4 --prompt-len 2048 --new-tokens 32            # GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --batch 2 --prompt-len 16 --new-tokens 4               # smoke
+
+``--arch`` takes ``falcon-mamba-7b``, ``recurrentgemma-9b`` and
+``gemma3-12b`` as well.
 """
 from __future__ import annotations
 
@@ -53,7 +59,9 @@ def serve(arch: str = "llama3.2-3b", batch: int = 4, prompt_len: int = 32,
     ``new_tokens`` greedy steps.  Weights and prompts are drawn from a
     ``torch.Generator`` seeded with ``seed`` on the device.  The cache
     holds ``prompt_len + new_tokens`` slots; prefill fills [0, prompt_len)
-    and step i writes slot prompt_len + i."""
+    and step i writes slot prompt_len + i (a sliding-window layer's
+    rolling buffer holds ``window`` slots and writes position p at slot
+    p % window)."""
     dev = resolve_device(device)
     cfg = smoke_config(arch) if smoke else get_config(arch)
     gen = torch.Generator(device=dev).manual_seed(seed)

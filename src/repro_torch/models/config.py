@@ -15,10 +15,11 @@ L % len(pattern) remainder layers follow from the pattern prefix.
 
 Counterpart of ``repro/models/config.py``: the same fields and
 properties, so a config of either package describes the same model.
-``act_dtype`` is a ``torch.dtype``.  The port's decoder runs only
-``"attn"`` blocks with a dense FFN and ``"mamba"`` blocks so far
-(``transformer.py`` raises on the others); the fields of the other kinds are kept so that configs
-carry over unchanged.  The lowering fields (``unroll_layers``,
+``act_dtype`` is a ``torch.dtype``.  The port's decoder runs
+``"attn"``, ``"attn_local"`` and ``"rglru"`` blocks with a dense FFN
+and ``"mamba"`` blocks so far (``transformer.py`` raises on the
+others); the fields of the other kinds are kept so that configs carry
+over unchanged.  The lowering fields (``unroll_layers``,
 ``scan_unroll``) steer the reference's XLA scan and have no effect here.
 """
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Shared neural-net layers: RMSNorm, 1-D RoPE, gated MLP, and GQA
-attention with the global causal (prefill) and cached-decode paths.
+attention with the global causal (prefill), sliding-window (prefill) and
+cached-decode (full or rolling) paths.
 
 Counterpart of ``repro/models/layers.py`` for what the port's serving
 path runs.  Parameters live in ``nn.Module`` containers whose attribute
@@ -8,11 +9,12 @@ names are the reference's dict keys; dense weights keep the reference's
 are plain tensor functions that take those modules, as the reference's
 take dict pytrees.
 
-Prefill attention goes through the hand-written flash-attention kernel
-(``kernels.ops.flash_attention_bhsd``), the route the reference keeps
-for hot paths on its chip; decode attention stays plain torch, as the
-reference computes it with einsums outside any kernel.  Sliding-window
-and rolling-cache attention, logit softcapping and M-RoPE are not
+Global prefill attention goes through the hand-written flash-attention
+kernel (``kernels.ops.flash_attention_bhsd``), the route the reference
+keeps for hot paths on its chip.  Sliding-window prefill
+(``local_attend_chunked``) and decode attention stay plain torch, as the
+reference computes them with einsums outside any kernel (its Pallas
+flash kernel takes no window).  Logit softcapping and M-RoPE are not
 ported yet (ROADMAP.md queue 1, item 10) and raise.
 """
 from __future__ import annotations
@@ -124,25 +126,32 @@ def mlp(p: MLP, x: Tensor, act: str = "silu") -> Tensor:
 
 class Attention(nn.Module):
     """GQA projection weights: wq (d, H*Dh), wk and wv (d, Hk*Dh),
-    wo (H*Dh, d)."""
+    wo (H*Dh, d); with ``cfg.qk_norm`` also the RMSNorm scales q_norm
+    and k_norm (Dh,)."""
 
-    def __init__(self, wq: Tensor, wk: Tensor, wv: Tensor, wo: Tensor):
+    def __init__(self, wq: Tensor, wk: Tensor, wv: Tensor, wo: Tensor,
+                 q_norm: Optional[Tensor] = None,
+                 k_norm: Optional[Tensor] = None):
         super().__init__()
         self.wq = frozen(wq)
         self.wk = frozen(wk)
         self.wv = frozen(wv)
         self.wo = frozen(wo)
+        if q_norm is not None:
+            self.q_norm = frozen(q_norm)
+            self.k_norm = frozen(k_norm)
 
 
 def init_attention(generator: torch.Generator, cfg: ArchConfig,
                    dtype: torch.dtype, device=None) -> Attention:
-    if cfg.qk_norm:
-        raise NotImplementedError(f"qk_norm is {_TODO}")
     d, H, Hk, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    norms = ([torch.ones(Dh, dtype=dtype, device=device) for _ in range(2)]
+             if cfg.qk_norm else [])
     return Attention(init_dense(generator, d, H * Dh, dtype, device),
                      init_dense(generator, d, Hk * Dh, dtype, device),
                      init_dense(generator, d, Hk * Dh, dtype, device),
-                     init_dense(generator, H * Dh, d, dtype, device))
+                     init_dense(generator, H * Dh, d, dtype, device),
+                     *norms)
 
 
 def _gqa_split(q: Tensor, n_kv: int) -> Tensor:
@@ -174,10 +183,13 @@ def causal_attend(q: Tensor, k: Tensor, v: Tensor, q_offset: int = 0,
     kernel.  q: (B,S,H,Dh); k/v: (B,S,Hk,Dh); positions 0..S-1.
 
     The kernel reads the kv heads in place: q head h reads kv head
-    h // (H / Hk), as ``_gqa_split`` groups them."""
-    if window or softcap:
-        raise NotImplementedError(f"windowed and softcapped attention is "
-                                  f"{_TODO}")
+    h // (H / Hk), as ``_gqa_split`` groups them.  It takes no window:
+    sliding-window layers go through ``local_attend_chunked``."""
+    if window:
+        raise NotImplementedError("the flash kernel takes no window: "
+                                  "use local_attend_chunked")
+    if softcap:
+        raise NotImplementedError(f"softcapped attention is {_TODO}")
     if q_offset or k.shape[1] != q.shape[1]:
         raise NotImplementedError("causal_attend runs a prefill from "
                                   "position 0 (queries and keys alike)")
@@ -185,20 +197,82 @@ def causal_attend(q: Tensor, k: Tensor, v: Tensor, q_offset: int = 0,
     return ops.flash_attention_bhsd(q, k, v, causal=True, scale=scale)
 
 
+def local_attend_chunked(q: Tensor, k: Tensor, v: Tensor, window: int,
+                         scale: Optional[float] = None,
+                         softcap: float = 0.0) -> Tensor:
+    """Sliding-window causal GQA attention in O(S * window) memory.
+    q: (B,S,H,Dh); k/v: (B,S,Hk,·); positions 0..S-1; query t sees keys
+    (t - window, t].
+
+    The sequence is cut into window-sized chunks (zero-padded at the
+    end); chunk i attends to chunks (i-1, i) under the banded (W, 2W)
+    mask, and chunk 0 also masks its (zero) previous chunk.  Logits and
+    softmax in fp32, the probabilities cast to v's dtype before the
+    product with v, as the reference does."""
+    if softcap:
+        raise NotImplementedError(f"softcapped attention is {_TODO}")
+    B, S, H, Dh = q.shape
+    Hk, Dv = k.shape[2], v.shape[-1]
+    scale = Dh ** -0.5 if scale is None else scale
+    W = window
+    n = -(-S // W)
+    pad = n * W - S
+
+    def padded(x):
+        return F.pad(x, (0, 0, 0, 0, 0, pad))
+
+    qc = padded(q).reshape(B, n, W, Hk, H // Hk, Dh)
+    kc = padded(k).reshape(B, n, W, Hk, Dh)
+    vc = padded(v).reshape(B, n, W, Hk, Dv)
+    # keys for chunk i: chunks (i-1, i)
+    k2 = torch.cat([F.pad(kc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :n], kc], dim=2)
+    v2 = torch.cat([F.pad(vc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :n], vc], dim=2)
+    del kc, vc
+
+    qpos = torch.arange(W, device=q.device)[:, None]
+    # key positions relative to the chunk's start
+    kpos = torch.arange(2 * W, device=q.device)[None, :] - W
+    band = (kpos <= qpos) & (kpos > qpos - W)                 # (W, 2W)
+    masks = band.expand(n, W, 2 * W).clone()
+    masks[0] &= kpos >= 0     # chunk 0 must not see the (zero) chunk -1
+
+    # scaled and masked in place: one (B, n, Hk, G, W, 2W) fp32 plane
+    logits = torch.einsum("bnqhgd,bnkhd->bnhgqk", qc.float(),
+                          k2.float()).mul_(scale)
+    del qc, k2
+    logits.masked_fill_(~masks[None, :, None, None], _NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    del logits
+    out = torch.einsum("bnhgqk,bnkhd->bnqhgd", probs, v2)
+    return out.reshape(B, n * W, H, Dv)[:, :S]
+
+
 def decode_attend(q: Tensor, k_cache: Tensor, v_cache: Tensor,
                   cache_index: Union[int, Tensor], window: int = 0,
                   rolling: bool = False, scale: Optional[float] = None,
                   softcap: float = 0.0) -> Tensor:
-    """Single-token GQA decode attention over a (non-rolling) cache.
+    """Single-token GQA decode attention over a (possibly rolling) cache.
 
     q: (B, 1, H, Dh); caches: (B, C, Hk, ·) (not head-repeated).
-    ``cache_index``: the new token's position; slots after it are
-    masked."""
-    if rolling or window or softcap:
-        raise NotImplementedError(f"rolling, windowed and softcapped decode "
-                                  f"attention is {_TODO}")
+    ``cache_index``: the new token's position i.  A plain cache holds
+    position t at slot t: slots after i are masked.  A rolling cache
+    (local attention) holds position i - ((i - t) mod C) at slot t after
+    token i was written at slot i % C: slots of negative positions are
+    masked.  ``window > 0`` also masks positions at or before
+    i - window."""
+    if softcap:
+        raise NotImplementedError(f"softcapped decode attention is {_TODO}")
     Hk, C = k_cache.shape[2], k_cache.shape[1]
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    valid = torch.arange(C, device=q.device) <= cache_index
+    slots = torch.arange(C, device=q.device)
+    if rolling:
+        pos = cache_index - torch.remainder(cache_index - slots, C)
+        valid = pos >= 0
+        if window > 0:
+            valid &= pos > cache_index - window
+    else:
+        valid = slots <= cache_index
+        if window > 0:
+            valid &= slots > cache_index - window
     return _softmax_attend(_gqa_split(q, Hk), k_cache, v_cache,
                            valid[None, None, None, None, :], scale)

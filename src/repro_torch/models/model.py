@@ -2,11 +2,12 @@
 prefill / decode step functions the serving driver calls.
 
 Counterpart of ``repro/models/model.py`` for the text modality and the
-serving path (attention and mamba decoders).  The model is an
-``nn.Module`` (``Model``) holding the decoder, the embedding table and
-the LM head, with no gradients tracked; the steps run under
-``torch.no_grad``.  Training, the FEEL integration and the vlm/audio
-modalities are not ported yet (ROADMAP.md queue 1, item 10).
+serving path (attention, sliding-window attention, mamba and RG-LRU
+decoders).  The model is an ``nn.Module`` (``Model``) holding the
+decoder, the embedding table and the LM head, with no gradients
+tracked; the steps run under ``torch.no_grad``.  Training, the FEEL
+integration and the vlm/audio modalities are not ported yet
+(ROADMAP.md queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -17,11 +18,11 @@ import torch
 from torch import nn
 
 from .config import ArchConfig
+from . import rglru, ssm
 from .layers import MLP, Attention, _TODO, frozen, init_dense
-from .ssm import FP32_LEAVES, Mamba
-from .transformer import (Block, Cache, Decoder, MambaBlock, _layer_plan,
-                          apply_decoder, check_supported, init_cache,
-                          init_decoder)
+from .transformer import (Block, Cache, Decoder, MambaBlock, RGLRUBlock,
+                          _layer_plan, apply_decoder, check_supported,
+                          init_cache, init_decoder)
 
 Tensor = torch.Tensor
 
@@ -76,8 +77,9 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping,
     of ``tree["decoder"]["body"]["pos{p}"]`` is unstacked into one
     ``Block`` per layer, repeat r and pattern position p at
     ``decoder.body[r * P + p]``.  Values are carried exactly, in
-    ``cfg.act_dtype``, except the mamba mixer's float32 leaves
-    (``ssm.FP32_LEAVES``), which stay float32 as in the reference.
+    ``cfg.act_dtype``, except the mixers' float32 leaves
+    (``ssm.FP32_LEAVES``, ``rglru.FP32_LEAVES``), which stay float32 as
+    in the reference.
     """
     check_supported(cfg)
     dtype = cfg.act_dtype
@@ -85,18 +87,27 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping,
     def t(a, dt=dtype):
         return _tensor(a, dt, device)
 
+    def mixer(cls, fp32, m):
+        return cls(**{n: t(m[n], torch.float32 if n in fp32 else dtype)
+                      for n in cls.LEAVES})
+
     def block(kind, p):
         if kind == "mamba":
-            m = p["mixer"]
-            return MambaBlock(t(p["ln1"]), Mamba(**{
-                n: t(m[n], torch.float32 if n in FP32_LEAVES else dtype)
-                for n in Mamba.LEAVES}))
-        a, f = p["attn"], p["ffn"]
+            return MambaBlock(t(p["ln1"]), mixer(ssm.Mamba, ssm.FP32_LEAVES,
+                                                 p["mixer"]))
+        f = p["ffn"]
+        ffn = MLP(t(f["w_gate"]), t(f["w_up"]), t(f["w_down"]))
+        if kind == "rglru":
+            return RGLRUBlock(t(p["ln1"]), mixer(rglru.RGLRU,
+                                                 rglru.FP32_LEAVES,
+                                                 p["mixer"]),
+                              t(p["ln2"]), ffn)
+        a = p["attn"]
+        norms = [t(a["q_norm"]), t(a["k_norm"])] if cfg.qk_norm else []
         return Block(t(p["ln1"]),
                      Attention(t(a["wq"]), t(a["wk"]), t(a["wv"]),
-                               t(a["wo"])),
-                     t(p["ln2"]),
-                     MLP(t(f["w_gate"]), t(f["w_up"]), t(f["w_down"])))
+                               t(a["wo"]), *norms),
+                     t(p["ln2"]), ffn)
 
     dec = tree["decoder"]
     head, n_body, pattern, tail = _layer_plan(cfg)

@@ -88,9 +88,11 @@ def _ssm_params(cfg: ArchConfig, p: Mamba, s: Tensor
     return dt, Bmat.float(), Cmat.float()
 
 
-def _causal_conv(p: Mamba, x: Tensor, k: int) -> Tensor:
-    """Depthwise causal conv along seq: x (B, S, di), summed tap by tap
-    in the input dtype as the reference sums."""
+def causal_conv(p: nn.Module, x: Tensor, k: int) -> Tensor:
+    """Depthwise causal conv along seq: x (B, S, C) with the weights
+    ``p.conv_w`` (k, C) and ``p.conv_b`` (C,) of a mixer (Mamba or
+    RG-LRU), summed tap by tap (j = 0..k-1) in the input dtype as the
+    reference sums."""
     S = x.shape[1]
     pad = F.pad(x, (0, 0, k - 1, 0))
     out = 0
@@ -112,7 +114,7 @@ def mamba_mixer(cfg: ArchConfig, p: Mamba, x: Tensor, mode: str,
     xs, z = (x @ p.in_proj).chunk(2, dim=-1)
 
     if mode == "prefill":
-        s = F.silu(_causal_conv(p, xs, k))
+        s = F.silu(causal_conv(p, xs, k))
         dt, Bmat, Cmat = _ssm_params(cfg, p, s)
         sf = s.float()
         # (B, S, di, n) fp32 planes, in the reference's order of products;

@@ -8,20 +8,25 @@ runs one ``lax.scan`` over them, the port keeps one ``Block`` per layer
 in an ``nn.ModuleList`` and runs a Python loop.
 
 Block kinds and their caches (the reference's layout):
-    attn   {"k", "v"}: (B, C, Hk, Dh)
-    mamba  {"conv": (B, k-1, d_inner), "h": (B, d_inner, n) fp32}
+    attn        {"k", "v"}: (B, C, Hk, Dh)
+    attn_local  {"k", "v"}: (B, window, Hk, Dh), a rolling buffer
+    mamba       {"conv": (B, k-1, d_inner), "h": (B, d_inner, n) fp32}
+    rglru       {"conv": (B, k-1, w), "h": (B, w) fp32}
 stacked over the repeats in ``{"head": [...], "body": {"pos{p}": ...},
 "tail": [...]}``.  The port updates the cache in place: prefill writes
-slots [0, S) of an attention cache and the final state of a mamba
-cache, decode writes slot ``cache_index`` or advances the state, and
-both return the same dict.  That keeps one cache of ``prompt_len +
-new_tokens`` slots for a whole request, where the reference builds new
-arrays each step.
+slots [0, S) of an attention cache, the last min(S, window) positions p
+of a rolling cache at slots p % window, and the final state of a
+recurrent cache; decode writes slot ``cache_index`` (``cache_index %
+window`` when rolling) or advances the state, and both return the same
+dict.  That keeps one cache of ``prompt_len + new_tokens`` slots for a
+whole request, where the reference builds new arrays each step.
 
-Only ``"attn"`` blocks with a dense FFN and ``"mamba"`` blocks (no FFN),
-text inputs and the ``prefill`` and ``decode`` modes are ported.
-``attn_local``, ``mla``, ``rglru``, MoE and the ``train`` mode raise
-``NotImplementedError`` (ROADMAP.md queue 1, item 10).
+``"attn"`` and ``"attn_local"`` blocks (with qk-norm and a local RoPE
+theta where the config sets them) and ``"rglru"`` blocks, each with a
+dense FFN, and ``"mamba"`` blocks (no FFN), text inputs and the
+``prefill`` and ``decode`` modes are ported.  ``mla``, MoE, softcapping,
+M-RoPE and the ``train`` mode raise ``NotImplementedError`` (ROADMAP.md
+queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -32,14 +37,15 @@ from torch import nn
 
 from .config import ArchConfig
 from .layers import (MLP, Attention, _TODO, apply_rope, causal_attend,
-                     decode_attend, frozen, init_attention, init_mlp, mlp,
-                     rmsnorm)
+                     decode_attend, frozen, init_attention, init_mlp,
+                     local_attend_chunked, mlp, rmsnorm)
+from .rglru import RGLRU, init_rglru, rglru_mixer
 from .ssm import Mamba, init_mamba, mamba_mixer
 
 Tensor = torch.Tensor
 Cache = dict
 
-KINDS = ("attn", "mamba")
+KINDS = ("attn", "attn_local", "mamba", "rglru")
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -53,20 +59,33 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.modality != "text":
         raise NotImplementedError(f"{cfg.name}: the {cfg.modality!r} "
                                   f"modality is {_TODO}")
-    if cfg.attn_logit_softcap or cfg.qk_norm or cfg.mrope_sections:
-        raise NotImplementedError(f"{cfg.name}: softcap, qk_norm and M-RoPE "
-                                  f"are {_TODO}")
+    if cfg.attn_logit_softcap or cfg.mrope_sections:
+        raise NotImplementedError(f"{cfg.name}: softcap and M-RoPE are "
+                                  f"{_TODO}")
 
 
 # ------------------------------------------------------------------ blocks
 
 class Block(nn.Module):
-    """Pre-norm residual block: ln1, attn, ln2, ffn."""
+    """Pre-norm residual block: ln1, attn, ln2, ffn (``attn`` and
+    ``attn_local``)."""
 
     def __init__(self, ln1: Tensor, attn: Attention, ln2: Tensor, ffn: MLP):
         super().__init__()
         self.ln1 = frozen(ln1)
         self.attn = attn
+        self.ln2 = frozen(ln2)
+        self.ffn = ffn
+
+
+class RGLRUBlock(nn.Module):
+    """Pre-norm residual recurrent block: ln1, mixer, ln2, ffn (unlike
+    a mamba block it has an FFN)."""
+
+    def __init__(self, ln1: Tensor, mixer: RGLRU, ln2: Tensor, ffn: MLP):
+        super().__init__()
+        self.ln1 = frozen(ln1)
+        self.mixer = mixer
         self.ln2 = frozen(ln2)
         self.ffn = ffn
 
@@ -82,46 +101,71 @@ class MambaBlock(nn.Module):
 
 def init_block(generator: torch.Generator, cfg: ArchConfig, kind: str,
                use_moe: bool, dense_ff: Optional[int] = None,
-               device=None) -> Union[Block, MambaBlock]:
+               device=None) -> Union[Block, MambaBlock, RGLRUBlock]:
     if kind not in KINDS or use_moe:
         raise NotImplementedError(f"{kind!r} blocks and MoE are {_TODO}")
     dtype, d = cfg.act_dtype, cfg.d_model
     ones = torch.ones(d, dtype=dtype, device=device)
     if kind == "mamba":
         return MambaBlock(ones, init_mamba(generator, cfg, dtype, device))
-    return Block(ones, init_attention(generator, cfg, dtype, device),
-                 ones.clone(),
-                 init_mlp(generator, d, dense_ff or cfg.d_ff, dtype, device))
+    rglru = kind == "rglru"
+    mixer = (init_rglru if rglru else init_attention)(generator, cfg, dtype,
+                                                      device)
+    return (RGLRUBlock if rglru else Block)(
+        ones, mixer, ones.clone(),
+        init_mlp(generator, d, dense_ff or cfg.d_ff, dtype, device))
 
 
 def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
                 positions: Tensor, mode: str, cache: Cache,
                 cache_index: Union[int, Tensor]) -> Tensor:
-    """Attention sublayer; writes this layer's k and v into ``cache``."""
+    """Attention sublayer; writes this layer's k and v into ``cache``
+    (a rolling window-sized buffer for ``attn_local``)."""
     B, S, _ = x.shape
     H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     ap = p.attn
+    local = kind == "attn_local"
+    theta = (cfg.rope_theta_local
+             if local and cfg.rope_theta_local else cfg.rope_theta)
     q = (x @ ap.wq).reshape(B, S, H, Dh)
     k = (x @ ap.wk).reshape(B, S, Hk, Dh)
     v = (x @ ap.wv).reshape(B, S, Hk, Dh)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
-    if mode == "prefill":
+    if cfg.qk_norm:
+        q = rmsnorm(q, ap.q_norm)
+        k = rmsnorm(k, ap.k_norm)
+    q = apply_rope(q, positions, theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, theta, cfg.rope_fraction)
+    if mode == "prefill" and local:
+        W = cfg.window
+        out = local_attend_chunked(q, k, v, W)
+        # the rolling cache holds the last W positions p at slot p % W;
+        # with S < W the other slots are zero, as in the reference
+        take = min(S, W)
+        slots = torch.arange(S - take, S, device=x.device) % W
+        for name, t in (("k", k), ("v", v)):
+            if take < W:
+                cache[name].zero_()
+            cache[name].index_copy_(1, slots,
+                                    t[:, S - take:].to(cache[name].dtype))
+    elif mode == "prefill":
         out = causal_attend(q, k, v)
         cache["k"][:, :S] = k
         cache["v"][:, :S] = v
     elif mode == "decode":
-        cache["k"][:, cache_index:cache_index + S] = k
-        cache["v"][:, cache_index:cache_index + S] = v
-        out = decode_attend(q, cache["k"], cache["v"], cache_index)
+        slot = cache_index % cfg.window if local else cache_index
+        cache["k"][:, slot:slot + S] = k
+        cache["v"][:, slot:slot + S] = v
+        out = decode_attend(q, cache["k"], cache["v"], cache_index,
+                            window=cfg.window if local else 0,
+                            rolling=local)
     else:
         raise NotImplementedError(f"mode {mode!r} is {_TODO}")
     return out.reshape(B, S, H * Dh) @ ap.wo
 
 
 def apply_block(cfg: ArchConfig, kind: str, use_moe: bool,
-                p: Union[Block, MambaBlock], x: Tensor, positions: Tensor,
-                mode: str, cache: Cache,
+                p: Union[Block, MambaBlock, RGLRUBlock], x: Tensor,
+                positions: Tensor, mode: str, cache: Cache,
                 cache_index: Union[int, Tensor]) -> Tensor:
     """Pre-norm residual block. Returns the new x (the reference's aux
     loss belongs to MoE, which is not ported)."""
@@ -130,7 +174,11 @@ def apply_block(cfg: ArchConfig, kind: str, use_moe: bool,
     h = rmsnorm(x, p.ln1)
     if kind == "mamba":
         return x + mamba_mixer(cfg, p.mixer, h, mode, cache)
-    x = x + _attn_apply(cfg, kind, p, h, positions, mode, cache, cache_index)
+    if kind == "rglru":
+        x = x + rglru_mixer(cfg, p.mixer, h, mode, cache)
+    else:
+        x = x + _attn_apply(cfg, kind, p, h, positions, mode, cache,
+                            cache_index)
     return x + mlp(p.ffn, rmsnorm(x, p.ln2), cfg.act)
 
 
@@ -182,13 +230,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     head, n_body, pattern, tail = _layer_plan(cfg)
 
     def zeros(kind, *lead):
-        if kind == "mamba":
-            di = cfg.ssm_d_inner
-            return {"conv": torch.zeros(lead + (batch, cfg.ssm_conv - 1, di),
+        if kind in ("mamba", "rglru"):
+            k, w, state = ((cfg.ssm_conv, cfg.ssm_d_inner, (cfg.ssm_state,))
+                           if kind == "mamba" else
+                           (cfg.ssm_conv or 4, cfg.lru_width_, ()))
+            return {"conv": torch.zeros(lead + (batch, k - 1, w),
                                         dtype=dtype, device=device),
-                    "h": torch.zeros(lead + (batch, di, cfg.ssm_state),
+                    "h": torch.zeros(lead + (batch, w) + state,
                                      dtype=torch.float32, device=device)}
-        shape = lead + (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+        # a rolling buffer is window-sized whatever max_len is (prefill
+        # fills slot p % window even when max_len < window)
+        slots = cfg.window if kind == "attn_local" else max_len
+        shape = lead + (batch, slots, cfg.n_kv_heads, cfg.head_dim_)
         return {n: torch.zeros(shape, dtype=dtype, device=device)
                 for n in ("k", "v")}
 

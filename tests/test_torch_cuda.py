@@ -11,7 +11,8 @@ another order); flash attention at atol/rtol 2e-5 in fp32 and 2e-2 in
 bf16, the reference's kernel tolerances (tests/test_kernels.py); the
 linear-recurrence scan at atol/rtol 1e-5 (the kernel's fused
 multiply-add against the plain version's multiply, then add), the
-reference's scan tolerance.
+reference's scan tolerance, and so the RG-LRU mixer through it against
+the same mixer on the CPU.
 """
 import ctypes
 
@@ -150,6 +151,23 @@ def test_cuda_flash_gqa_at_the_serving_shape(cuda, offset):
 
 
 @pytest.mark.cuda
+def test_cuda_flash_gqa_at_the_gemma3_global_shape(cuda):
+    """gemma3-12b's global layers at the serving request: q (4, 2048, 16,
+    256) and k, v (4, 2048, 8, 256) read in place, d = 256 at a serving
+    shape."""
+    q = _normal(5, (4, 2048, 16, 256), cuda).bfloat16()
+    k, v = (_normal(i, (4, 2048, 8, 256), cuda).bfloat16() for i in (6, 7))
+    flash_attention.reset_launch_counts()
+    got = ops.flash_attention_bhsd(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash_attention": 1}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = flash_attention.flash_attention_bhsd_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,hk,d", [(1, 6, 2, 64), (2, 4, 1, 128),
                                       (1, 3, 3, 20)])
@@ -256,6 +274,49 @@ def test_cuda_lru_scan_matches_plain(cuda, b, s, c, dtype):
                                atol=1e-5, rtol=1e-5)
     zero = lru_scan.lru_scan(torch.zeros_like(a), bb)  # the identity on b
     torch.testing.assert_close(zero, bb.float(), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_lru_scan_at_the_recurrentgemma_shape(cuda):
+    """recurrentgemma-9b's prefill recurrence: (4, 2048, 4096) fp32, a
+    width that fills 64 blocks of the grid."""
+    a, bb = _ab(9, (4, 2048, 4096), cuda)
+    lru_scan.reset_launch_counts()
+    got = ops.lru_scan(a, bb)
+    want = lru_scan.lru_scan_plain(a, bb)
+    torch.cuda.synchronize()
+    assert lru_scan.LAUNCHES == {"lru_scan": 1}
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_rglru_mixer_prefill_matches_the_cpu(cuda):
+    """The RG-LRU mixer's prefill on the card, through the scan kernel,
+    against the same mixer on the CPU (plain scan), fp32 with TF32 off,
+    at 1e-5; and its decode step."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.device import full_fp32
+    from repro_torch.models import rglru
+    cfg = smoke_config("recurrentgemma-9b").scaled(dtype="float32")
+    p = rglru.init_rglru(torch.Generator().manual_seed(0), cfg,
+                         torch.float32)
+    x = _normal(11, (2, 300, cfg.d_model), "cpu")
+    w, k = cfg.lru_width_, cfg.ssm_conv
+    out = {}
+    for dev in ("cpu", cuda):
+        p.to(dev)
+        cache = {"conv": torch.zeros(2, k - 1, w, device=dev),
+                 "h": torch.zeros(2, w, device=dev)}
+        lru_scan.reset_launch_counts()
+        with full_fp32():
+            y = rglru.rglru_mixer(cfg, p, x.to(dev), "prefill", cache)
+            y1 = rglru.rglru_mixer(cfg, p, x[:, :1].to(dev), "decode", cache)
+        out[str(dev)] = (y.cpu(), y1.cpu(), cache["h"].cpu(),
+                         dict(lru_scan.LAUNCHES))
+    assert out["cpu"][3] == {"lru_scan": 0}
+    assert out["cuda"][3] == {"lru_scan": 1}
+    for got, want in zip(out["cuda"][:3], out["cpu"][:3]):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda

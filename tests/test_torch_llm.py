@@ -105,21 +105,30 @@ def test_decode_attend_matches_reference(index):
 
 
 def test_unported_attention_paths_raise():
+    """Softcapping, ``mla`` blocks and MoE FFNs are not ported; the
+    flash path takes no window (local layers have their own path)."""
     q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="local_attend_chunked"):
         tl.causal_attend(q, q, q, window=2)
-    with pytest.raises(NotImplementedError):
-        tl.decode_attend(q[:, :1], q, q, 2, rolling=True)
-    with pytest.raises(NotImplementedError):
-        tt.init_decoder(smoke_config(ARCH).scaled(layer_pattern=("rglru",)),
-                        torch.Generator().manual_seed(0))
+    for call in (lambda: tl.causal_attend(q, q, q, softcap=30.0),
+                 lambda: tl.local_attend_chunked(q, q, q, 2, softcap=30.0),
+                 lambda: tl.decode_attend(q[:, :1], q, q, 2, rolling=True,
+                                          softcap=30.0)):
+        with pytest.raises(NotImplementedError, match="softcap"):
+            call()
+    cfg = smoke_config(ARCH)
+    for bad in (cfg.scaled(layer_pattern=("mla",), kv_lora=16),
+                cfg.scaled(n_experts=4, topk=2, moe_d_ff=32),
+                cfg.scaled(attn_logit_softcap=50.0)):
+        with pytest.raises(NotImplementedError):
+            tt.init_decoder(bad, torch.Generator().manual_seed(0))
 
 
 # ------------------------------------------------------------ configs
 
 def test_configs_carry_the_reference_dims():
     from repro.configs import get_config as j_get_config
-    for name in ("llama3.2-3b", ARCH):
+    for name in ("llama3.2-3b", ARCH, "recurrentgemma-9b", "gemma3-12b"):
         want = j_get_config(name)
         got = get_config(name)
         assert got.__dict__ == want.__dict__

@@ -58,4 +58,4 @@ def test_main_raises_without_a_gpu_unless_cpu_is_asked(monkeypatch):
         serve_mod.main(["--batch", "1", "--prompt-len", "4",
                         "--new-tokens", "1"])
     with pytest.raises(ValueError, match="not yet ported"):
-        serve_mod.serve("recurrentgemma-9b", device="cpu")
+        serve_mod.serve("qwen2-vl-2b", device="cpu")
