@@ -22,7 +22,12 @@ exit) if anything in it fails; no failure is caught:
    bf16 flash also on views offset by one element (d = 20 and the GQA
    serving shape), which TMA cannot read in place and the wrapper pads
    into an aligned copy; bf16 flash at gemma3-12b's global shape (d =
-   256) and the scan at recurrentgemma-9b's (4, 2048, 4096);
+   256); the scan, fp32 and bf16, also at the seams of its chunk of L
+   steps (S of 1, L - 1, L, L + 1; C of 1 and 130; a view 4 bytes past
+   a 16-byte boundary; a batch of 70000; gates in (0.999, 1) at S =
+   2048), every case called twice and bit-identical, and timed at
+   mamba's (4, 2048, 131072), recurrentgemma-9b's (4, 2048, 4096) and
+   the same at batch 1, with % of bound and GB/s;
 4. FEEL path: 3 untraced rounds of the paper's §VI-A setup (K=10, N=5,
    Q=2, D̂=200, 28x28 images, faithful selection with 400 GP steps)
    through ``FEELTrainer.run_round``, which scores sigma through the
@@ -101,8 +106,9 @@ exit) if anything in it fails; no failure is caught:
    phase 7's request; each rglru layer's prefill recurrence goes through
    the scan kernel at (4, 2048, 4096), 26 launches per prefill and none
    in decode; local attention is plain torch, and decode from position
-   2048 on wraps the 2048-slot rolling buffers; then one prefill and one
-   decode step under ``torch.profiler``;
+   2048 on wraps the 2048-slot rolling buffers; the same request at
+   batch 1, 26 scan launches per prefill at (1, 2048, 4096); then one
+   prefill and one decode step under ``torch.profiler``;
 16. gemma3-12b serving path: ``serve`` at full width and depth (40
    local and 8 global layers, qk-norm, 12,772,052,736 parameters),
    phase 7's request; each global layer's prefill attention goes through
@@ -117,17 +123,18 @@ exit) if anything in it fails; no failure is caught:
    8 greedy steps.
 
 Launch counts are zeroed just before each path (4, 7, 9, 11, 12b, 13,
-14, 15, 16, and the card's runs in 8, 10 and 17) and read just after.
-It prints one ``{"kernels": [...]}`` line, with one entry per kernel and
-serving shape (the bf16 flash kernel at llama's and gemma3's, the scan
-at mamba's and recurrentgemma's), and, last, the ``{"ok": true,
-"device": ...}`` line.  Without a GPU, or without the
-repository's ``src/repro_torch`` beside it, it exits non-zero before
-printing either.
+14, both requests of 15, 16, and the card's runs in 8, 10 and 17) and
+read just after.  It prints one ``{"kernels": [...]}`` line, with one
+entry per kernel and serving shape (the bf16 flash kernel at llama's
+and gemma3's, the scan at mamba's and at recurrentgemma's at batch 4
+and 1), and, last, the ``{"ok": true, "device": ...}`` line.  Without
+a GPU, or without the repository's ``src/repro_torch`` beside it, it
+exits non-zero before printing either.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -174,6 +181,10 @@ LOGITS_RTOL = 1e-4       # card vs CPU prefill logits, fp32 with TF32 off
 SCAN_TEST_SHAPES = [(1, 17, 8), (2, 300, 130), (3, 256, 256), (2, 512, 64)]
 SCAN_SLICE = (4, 2048, 8192 * 16)  # falcon-mamba-7b prefill: B, S, di*n
 SCAN_RG = (4, 2048, 4096)          # recurrentgemma-9b prefill: B, S, w
+SCAN_RG1 = (1, 2048, 4096)         # the same at batch 1
+SCAN_TIMED = (SCAN_SLICE, SCAN_RG, SCAN_RG1)
+SCAN_NEAR1 = (2, 2048, 256)        # gates in (0.999, 1)
+SCAN_BIG_BATCH = (70000, 3, 5)     # a batch past 65535
 SCAN_TOL = 1e-5
 MAMBA, MAMBA_LAYERS, MAMBA_PARAMS = "falcon-mamba-7b", 64, 7_272_665_088
 FAULT_ROUNDS, RESUME_AT = 4, 2  # phase 14: fault rounds, checkpoint round
@@ -403,51 +414,99 @@ def phase_flash(torch, fa, ops):
             recs[(FLASH_F32_REPLAY, "float32", "bshd")])
 
 
+def scan_cases(lru):
+    """Phase 3's scan checks as (shape, dtype, gates, offset): the
+    reference's test shapes, S at the chunk's seams (1, L - 1, L, L + 1
+    for the schedule's L = W * P) at a narrow C, C of 1 and 130, a
+    contiguous view ``offset`` elements (4 bytes) past a 16-byte
+    boundary, a batch past the old grid's 65535, gates in (0.999, 1) at
+    S = 2048, in fp32 and bf16; then the three serving shapes in fp32."""
+    chunk = lru.WARPS * lru.STEPS
+    shapes = SCAN_TEST_SHAPES + [(2, s, 8) for s in (1, chunk - 1, chunk,
+                                                     chunk + 1)] + [
+        (3, chunk + 1, 1), SCAN_BIG_BATCH]
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        cases += [(shape, dt, "uniform", 0) for shape in shapes]
+        cases += [((2, 300, 130), dt, "uniform", 1 if dt == "float32" else 2),
+                  (SCAN_NEAR1, dt, "near1", 0)]
+    return cases + [(shape, "float32", "uniform", 0) for shape in SCAN_TIMED]
+
+
+def scan_inputs(torch, gen, shape, dt, gates, offset):
+    """a in (0, 1) (``gates="near1"``: in (0.999, 1)) and b normal, as
+    contiguous views ``offset`` elements into their buffers."""
+    n = math.prod(shape)
+    lo = 0.999 if gates == "near1" else 0.0
+    a = lo + (1.0 - lo) * torch.rand(n + offset, generator=gen,
+                                     device="cuda")
+    b = torch.randn(n + offset, generator=gen, device="cuda")
+    dtype = getattr(torch, dt)
+    return (a.to(dtype)[offset:].view(shape),
+            b.to(dtype)[offset:].view(shape))
+
+
+def scan_bound(shape, itemsize):
+    """a and b read once and h (fp32) written once (bytes); 2 flops per
+    element on the fp32 CUDA cores.  Returns (ms, bound_by, bytes)."""
+    n = math.prod(shape)
+    n_bytes = n * (2 * itemsize + 4)
+    return (*bound(n_bytes, 2.0 * n), n_bytes)
+
+
 def phase_scan(torch, lru, ops):
-    """The scan kernel against its plain version at the test shapes in
-    fp32 and bf16, the a == 0 identity, and the mamba and recurrentgemma
-    serving shapes with a in (0, 1) as exp(dt A) and the RG-LRU gate
-    give; returns the two serving shapes' records, by shape.
-    Bound: a and b read once and h written once (bytes); 2 flops per
-    element on the fp32 CUDA cores.  No one PyTorch call computes the
-    recurrence, so there is no library time."""
+    """The scan kernel against its plain version (``scan_cases``): each
+    within SCAN_TOL, the a == 0 identity exact, two calls bit-identical;
+    and the three serving shapes timed.  Gates in (0.999, 1) over 2048
+    steps are held at rtol SCAN_TOL with an atol of SCAN_TOL times the
+    largest |h|: there two sequential fp32 loops (the reference's jnp
+    scan and the plain version) already differ above 1e-5 where h
+    crosses 0, within 1e-5 of max |h| (tests/test_torch_scan_split.py).
+    Returns the serving shapes' records, by shape.  No one PyTorch call
+    computes the recurrence, so there is no library time."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases = [(shape, dt) for shape in SCAN_TEST_SHAPES
-             for dt in ("float32", "bfloat16")] + [(SCAN_SLICE, "float32"),
-                                                   (SCAN_RG, "float32")]
     recs = {}
-    for shape, dt in cases:
-        dtype = getattr(torch, dt)
-        a = torch.rand(shape, generator=gen, device="cuda").to(dtype)
-        b = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    for shape, dt, gates, offset in scan_cases(lru):
+        a, b = scan_inputs(torch, gen, shape, dt, gates, offset)
         got = ops.lru_scan(a, b)
+        again = ops.lru_scan(a, b)
         want = lru.lru_scan_plain(a, b)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        check(bool(torch.allclose(got, want, atol=SCAN_TOL, rtol=SCAN_TOL)),
-              f"lru_scan {shape} {dt}: max abs err {err:.3g} above "
-              f"{SCAN_TOL}")
-        del got, want
+        atol = SCAN_TOL * (float(want.abs().max()) if gates == "near1"
+                           else 1.0)
+        label = (f"lru_scan {shape} {dt}"
+                 + (" a in (0.999, 1)" if gates == "near1" else "")
+                 + (f" view {offset * a.element_size()} bytes off 16"
+                    if offset else ""))
+        check(bool(torch.allclose(got, want, atol=atol, rtol=SCAN_TOL)),
+              f"{label}: max abs err {err:.3g} above atol {atol:.3g}, "
+              f"rtol {SCAN_TOL}")
+        check(bool(torch.equal(got, again)),
+              f"{label}: two calls are not bit-identical")
+        del got, again, want
         ident = lru.lru_scan(torch.zeros_like(a), b)
         check(bool(torch.equal(ident, b.float())),
-              f"lru_scan {shape} {dt}: a == 0 is not the identity on b")
+              f"{label}: a == 0 is not the identity on b")
         del ident
-        big = shape in (SCAN_SLICE, SCAN_RG)
-        n = a.numel()
-        b_ms, b_by = bound(n * (2 * a.element_size() + 4), 2.0 * n)
-        rec = {"max_abs_err": err,
-               "ms": device_ms(torch, lambda: lru.lru_scan(a, b),
-                               *((5, 3) if big else (50, 5))),
-               "plain_ms": device_ms(torch, lambda: lru.lru_scan_plain(a, b),
-                                     *((1, 2) if big else (5, 3))),
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        print(f"lru_scan {shape} {dt}: max_abs_err {err:.3g} (tol "
-              f"{SCAN_TOL}), a == 0 identity exact | device ms: kernel "
-              f"{rec['ms']:.6f} plain {rec['plain_ms']:.6f} bound "
-              f"{b_ms:.6f} ({b_by}) | kernel/bound {rec['ms'] / b_ms:.2f}x, "
-              f"{n * (2 * a.element_size() + 4) / rec['ms'] / 1e6:.1f} GB/s")
-        if big:
+        msg = (f"{label}: max_abs_err {err:.3g} (atol {atol:.3g}, rtol "
+               f"{SCAN_TOL}), bit-identical, a == 0 identity exact")
+        if shape in SCAN_TIMED:
+            b_ms, b_by, n_bytes = scan_bound(shape, a.element_size())
+            big = shape == SCAN_SLICE
+            rec = {"max_abs_err": err,
+                   "ms": device_ms(torch, lambda: lru.lru_scan(a, b),
+                                   *((5, 3) if big else (50, 5))),
+                   "plain_ms": device_ms(
+                       torch, lambda: lru.lru_scan_plain(a, b),
+                       *((1, 2) if big else (5, 3))),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            msg += (f" | device ms: kernel {rec['ms']:.6f} plain "
+                    f"{rec['plain_ms']:.6f} bound {b_ms:.6f} ({b_by}) | "
+                    f"{100 * b_ms / rec['ms']:.1f} % of bound, "
+                    f"{n_bytes / rec['ms'] / 1e6:.1f} GB/s")
             recs[shape] = rec
+        print(msg)
         del a, b
     torch.cuda.empty_cache()
     return recs
@@ -1124,12 +1183,13 @@ def profile_round(torch, tr, i):
           f"{m.wall_s * 1e3:.3f} ms; gradnorm kernels seen: {kernels}")
 
 
-def phase_serve(torch, serve_mod, kernels, arch, expected, vocab):
+def phase_serve(torch, serve_mod, kernels, arch, expected, vocab,
+                batch=SERVE_BATCH):
     """A serving path at full width: one warm-up request (cuBLAS and
     kernel-module loading happen at first use), then the measured one
     with every launch count zeroed just before and read just after.
     ``expected``: the launches per phase and kernel the path must make."""
-    warm = serve_mod.serve(arch, batch=SERVE_BATCH, prompt_len=PROMPT,
+    warm = serve_mod.serve(arch, batch=batch, prompt_len=PROMPT,
                            new_tokens=2, smoke=False, seed=0, device="cuda")
     print(f"serve {arch} warm-up: prefill {warm.prefill_s:.6f} s, decode "
           f"steps {[round(t * 1e3, 3) for t in warm.decode_s]} ms")
@@ -1139,7 +1199,7 @@ def phase_serve(torch, serve_mod, kernels, arch, expected, vocab):
     before = torch.cuda.memory_allocated()
     for m in kernels:
         m.reset_launch_counts()
-    res = serve_mod.serve(arch, batch=SERVE_BATCH, prompt_len=PROMPT,
+    res = serve_mod.serve(arch, batch=batch, prompt_len=PROMPT,
                           new_tokens=NEW_TOKENS, smoke=False, seed=0,
                           device="cuda")
     launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
@@ -1152,15 +1212,15 @@ def phase_serve(torch, serve_mod, kernels, arch, expected, vocab):
             total[k] += v
     check(launches == total, f"launches on the {arch} path {launches}, "
           f"expected {total}")
-    check(tuple(res.tokens.shape) == (SERVE_BATCH, NEW_TOKENS + 1),
+    check(tuple(res.tokens.shape) == (batch, NEW_TOKENS + 1),
           f"tokens shape {tuple(res.tokens.shape)}")
     check(bool(((res.tokens >= 0) & (res.tokens < vocab)).all()),
           "tokens out of the vocabulary")
     steps = sorted(res.decode_s)
     print(f"serve {arch} full width: params {res.n_params:,}, batch "
-          f"{SERVE_BATCH}, prompt {PROMPT}, {NEW_TOKENS} new tokens | "
+          f"{batch}, prompt {PROMPT}, {NEW_TOKENS} new tokens | "
           f"prefill {res.prefill_s:.6f} s "
-          f"({SERVE_BATCH * PROMPT / res.prefill_s:.1f} tok/s) | decode "
+          f"({batch * PROMPT / res.prefill_s:.1f} tok/s) | decode "
           f"ms/step mean {1e3 * sum(steps) / len(steps):.3f} median "
           f"{1e3 * steps[len(steps) // 2]:.3f} min {1e3 * steps[0]:.3f} "
           f"max {1e3 * steps[-1]:.3f} first {1e3 * res.decode_s[0]:.3f} | "
@@ -1175,7 +1235,8 @@ def phase_serve_profile(torch, tm, get_config, arch):
     """Where the serving time goes: one prefill and one decode step of
     a serving configuration under ``torch.profiler`` (after a warm-up
     of each): device operations, device busy time against wall time,
-    and the kernels that take the most device time."""
+    the kernels that take the most device time, and the scan kernel's
+    device time where the step runs it."""
     from torch.profiler import ProfilerActivity, profile
     cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1202,11 +1263,15 @@ def phase_serve_profile(torch, tm, get_config, arch):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        scans = [e.time_range.elapsed_us() / 1e3 for e in dev
+                 if "lru_scan_kernel" in e.name]
         print(f"{arch} {name} under the profiler: {len(dev)} device "
               f"operations, device busy {busy:.3f} ms of wall {wall:.3f} "
               f"ms, device idle share {1 - busy / wall:.4f}; top device "
               "time: "
-              + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in top))
+              + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in top)
+              + (f"; the scan kernel {sum(scans):.3f} ms in {len(scans)} "
+                 "launches" if scans else ""))
 
     step("prefill", lambda: prefill(model, {"tokens": prompts}, cache))
     tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.long, device="cuda")
@@ -1490,10 +1555,18 @@ def main() -> None:
          "decode": {"flash_attention": 0, "lru_scan": 0}}, 256000)
     check(n_params == RGEMMA_PARAMS,
           f"{RGEMMA}: {n_params:,} parameters, expected {RGEMMA_PARAMS:,}")
-    rg_rec = scan_recs[SCAN_RG]
+    rg_rec, rg1_rec = scan_recs[SCAN_RG], scan_recs[SCAN_RG1]
     print(f"lru_scan device time of one prefill's {RGEMMA_RGLRU} launches: "
           f"{RGEMMA_RGLRU * rg_rec['ms']:.3f} ms ({RGEMMA_RGLRU} x the "
           f"{SCAN_RG} time)")
+    torch.cuda.empty_cache()
+    rg1_launches, _ = phase_serve(
+        torch, serve_mod, kernels, RGEMMA,
+        {"prefill": {"flash_attention": 0, "lru_scan": RGEMMA_RGLRU},
+         "decode": {"flash_attention": 0, "lru_scan": 0}}, 256000, batch=1)
+    print(f"lru_scan device time of one batch-1 prefill's {RGEMMA_RGLRU} "
+          f"launches: {RGEMMA_RGLRU * rg1_rec['ms']:.3f} ms "
+          f"({RGEMMA_RGLRU} x the {SCAN_RG1} time)")
     torch.cuda.empty_cache()
     phase_serve_profile(torch, tm, get_config, RGEMMA)
     done("15 recurrentgemma serve")
@@ -1567,7 +1640,11 @@ def main() -> None:
               gemma_launches["flash_attention"], flash_gemma_rec),
         entry(f"lru_scan@{RGEMMA}", "src/repro_torch/kernels/csrc/lru_scan.cu",
               "src/repro/kernels/lru_scan.py:70",
-              rg_launches["lru_scan"], rg_rec)]}))
+              rg_launches["lru_scan"], rg_rec),
+        entry(f"lru_scan@{RGEMMA}-batch1",
+              "src/repro_torch/kernels/csrc/lru_scan.cu",
+              "src/repro/kernels/lru_scan.py:70",
+              rg1_launches["lru_scan"], rg1_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,30 +3,75 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/lru_scan.py::lru_scan
 // (_scan_kernel): over (B, S, C) tensors, from h_{-1} = 0, with an fp32
 // carry per (batch, channel) and fp32 output.  The Mamba-1 mixer calls it
-// with the (d_inner, n_state) plane flattened into C channels.
+// with the (d_inner, n_state) plane flattened into C channels; the RG-LRU
+// mixer with its lru_width channels.
 //
-// Design.  The TPU kernel blocks the sequence and carries h in VMEM
-// scratch across a sequential grid axis.  Hopper has no sequential grid
-// axis and needs none here: the recurrence is independent per channel, so
-// one thread owns one (batch, channel) and walks t = 0..S-1 itself,
-// keeping h in a register (h = fmaf(a, h, b), one store a step).
-//   - Threads of a warp take consecutive channels, so every load and
-//     store of a time step is one coalesced 128-byte line per warp.
-//   - The loads of a and b do not depend on h: kUnroll steps of both are
-//     loaded into registers before the chain of FMAs over them runs, so
-//     each thread keeps 2 * kUnroll loads in flight.
-//   - Grid: ceil(C / 256) x B blocks of 256 threads.
+// Bound.  Two flops per element against 3 elements moved (a and b read
+// once, h written once): bound by bytes, 12 B an element in fp32 and
+// 8 B read + 4 B written with bf16 inputs.  At (4, 2048, 131072) fp32 that
+// is 12.9 GB, 3.85 ms at 3.35 TB/s; at (4, 2048, 4096) 0.120 ms; at
+// (1, 2048, 4096) 0.030 ms.
+//
+// Design: the sequence is split inside each block, in one pass.
+//   - A block owns a tile of 32 channels of one batch row, one lane a
+//     channel, so each load and store of a step is one coalesced line of
+//     the warp (128 bytes in fp32, 64 in bf16).  Grid: B * ceil(C / 32)
+//     blocks in x, (batch, tile) folded together, so any batch launches.
+//     At recurrentgemma's (4, 2048, 4096) that is 512 blocks, at batch 1
+//     128; each walks the whole sequence and waits on no other block.
+//   - The block walks S in chunks of L = W * P steps.  Warp w takes the
+//     P consecutive steps [kL + wP, kL + wP + P) of chunk k into
+//     registers, scans them from 0 and keeps the segment's product of a
+//     beside the segment's h: the aggregate (prod a, h_end).
+//   - The W aggregates go through shared memory (double-buffered by the
+//     chunk's parity, so one __syncthreads a chunk).  Every warp folds
+//     them in order, j = 0..W-1, from the carry of the previous chunk:
+//     carry = prod_j * carry + h_end_j.  Before its own j it has the carry
+//     into its segment; after all W, the carry out of the chunk.  All
+//     warps fold the same values in the same order, so they agree on the
+//     carry bit for bit and no second barrier is needed.
+//   - The fix-up: each warp runs its P steps once more from the carry
+//     into its segment, h = fma(a, h, b) on the a and b still in its
+//     registers, and stores each h.  Within a segment h is the sequential
+//     recurrence; only the carries between segments are reassociated
+//     (prod * carry + h_end), which keeps the result within 1e-5 of the
+//     sequential loop (tests/test_torch_scan_split.py shows the same
+//     decomposition on the CPU).  a == 0 gives h = b exactly.
+//   - Bytes in flight: the loads of chunk k+1 are issued before chunk k
+//     is scanned, into a second set of registers, so each thread keeps
+//     2P loads in flight through the scan, the barrier, the fold and the
+//     stores.  The a and b are read once and h is written once: 12 B an
+//     element, no second pass and no padded copy.
+//   - Every layout in one path: loads are per element (4 or 2 bytes), so
+//     a view whose pointer is not 16-byte aligned, any C (the ragged
+//     tile's lanes idle) and any S (steps past the end load the identity
+//     a = 1, b = 0 and store nothing) need no other code.  TMA would need
+//     16-byte aligned addresses and strides, and so a second load path.
+//   - Deterministic: the order of operations depends on the shape only;
+//     nothing goes through atomics.
 //   - Offsets are 64-bit: B * S * C passes 2^31 bytes at the Mamba
-//     serving shape (4, 2048, 131072).
+//     serving shape.
+// The schedule: tile 32, W = 16, P = 16 (L = 256), 512 threads a block.
+//   - 32 channels is the narrowest tile whose step is a whole 128-byte
+//     line, and it gives the most blocks: 128 at batch 1 and width 4096,
+//     one on each of 128 of the 132 SMs.
+//   - A block at batch 1 is alone on its SM, so its own loads in flight
+//     must cover the memory's latency: 512 threads x 2P = 16,384 loads
+//     (64 KB in fp32) with P = 16.  100 registers a thread (ptxas), so
+//     one block an SM; P = 8 fits two blocks in 64 registers but keeps
+//     fewer loads in flight.
+//   - Measured on an H100 80GB HBM3 at 700 W (`python3 chip_smoke.py
+//     --scan-schedules 8x8,8x16,16x8,16x16,32x8`): (16, 16) was the
+//     fastest or within 1 % of it in fp32 at (4, 2048, 4096),
+//     (1, 2048, 4096) and (4, 2048, 131072); (32, 8) spills at 64
+//     registers.
 // Inputs are fp32 or bf16 (read as bf16, computed in fp32); output fp32.
 //
-// Bound.  Two flops per element against 3 elements moved (a and b read,
-// h written): bound by bytes.  At (4, 2048, 131072) fp32 that is 12.9 GB,
-// 3.85 ms at 3.35 TB/s.
-//
 // Interface.  Plain C entry points for ctypes: device pointers and the
-// CUDA stream arrive as void*, sizes as int64.  Each returns the result of
-// cudaGetLastError() after its launch (0 = success).
+// CUDA stream arrive as void*, sizes as int64.  Each returns the result
+// of cudaGetLastError() after its launch (0 = success), or
+// cudaErrorInvalidConfiguration for a grid past 2^31 - 1 blocks; it
+// allocates nothing and does not synchronize.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -34,56 +79,115 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kUnroll = 8;
+constexpr int kTile = 32;   // channels of a block: one lane each
+constexpr int kWarps = 16;  // W: warps of a block, segments of a chunk
+constexpr int kSteps = 16;  // P: steps of a segment; a chunk is 256 steps
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// One warp's segment of P steps from t0 into registers; past the end of
+// the sequence, or for a lane past the last channel, the identity
+// (a, b) = (1, 0).
+template <typename T, int P>
+__device__ __forceinline__ void load_segment(const T* __restrict__ a,
+                                             const T* __restrict__ b,
+                                             int64_t t0, int64_t seq,
+                                             int64_t channels, bool live,
+                                             float (&av)[P], float (&bv)[P]) {
+  a += t0 * channels;
+  b += t0 * channels;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const bool ok = live && t0 + p < seq;
+    av[p] = ok ? to_float(*a) : 1.0f;
+    bv[p] = ok ? to_float(*b) : 0.0f;
+    a += channels;
+    b += channels;
+  }
+}
+
+// Chunk k: prefetch chunk k+1 into (an, bn), scan (av, bv) from 0, fold
+// the W aggregates from `carry` (updated to the carry out of chunk k),
+// and store h from the carry into this warp's segment.
+template <typename T, int W, int P>
+__device__ __forceinline__ void scan_chunk(
+    const T* __restrict__ a, const T* __restrict__ b, float* __restrict__ h,
+    int64_t k, int64_t chunks, int64_t seq, int64_t channels, bool live,
+    int warp, int lane, float& carry, float (&av)[P], float (&bv)[P],
+    float (&an)[P], float (&bn)[P], float2 (*agg)[kTile]) {
+  constexpr int L = W * P;
+  const int64_t t0 = k * L + static_cast<int64_t>(warp) * P;
+  if (k + 1 < chunks)
+    load_segment<T, P>(a, b, t0 + L, seq, channels, live, an, bn);
+  float prod = 1.0f, hend = 0.0f;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    hend = fmaf(av[p], hend, bv[p]);
+    prod *= av[p];
+  }
+  agg[warp][lane] = make_float2(prod, hend);
+  __syncthreads();
+  float x = carry;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    if (j == warp) x = carry;
+    const float2 g = agg[j][lane];
+    carry = fmaf(g.x, carry, g.y);
+  }
+  float* out = h + t0 * channels;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    x = fmaf(av[p], x, bv[p]);
+    if (live && t0 + p < seq) *out = x;
+    out += channels;
+  }
+}
+
+template <typename T, int W, int P>
+__global__ void __launch_bounds__(W * kTile)
     lru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                    float* __restrict__ h, int64_t seq, int64_t channels) {
-  const int64_t c =
-      static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (c >= channels) return;
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * seq * channels + c;
+                    float* __restrict__ h, int64_t seq, int64_t channels,
+                    int64_t tiles) {
+  constexpr int L = W * P;
+  __shared__ float2 agg[2][W][kTile];
+  const int lane = threadIdx.x % kTile;
+  const int warp = threadIdx.x / kTile;
+  const int64_t row = blockIdx.x / tiles;
+  const int64_t c = (blockIdx.x % tiles) * kTile + lane;
+  const bool live = c < channels;
+  const int64_t base = row * seq * channels + (live ? c : 0);
   a += base;
   b += base;
   h += base;
+  const int64_t chunks = (seq + L - 1) / L;
+  float a0[P], b0[P], a1[P], b1[P];
+  load_segment<T, P>(a, b, static_cast<int64_t>(warp) * P, seq, channels,
+                     live, a0, b0);
   float carry = 0.0f;
-  int64_t t = 0;
-  for (; t + kUnroll <= seq; t += kUnroll) {
-    float av[kUnroll], bv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t off = (t + u) * channels;
-      av[u] = to_float(a[off]);
-      bv[u] = to_float(b[off]);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      carry = fmaf(av[u], carry, bv[u]);
-      h[(t + u) * channels] = carry;
-    }
-  }
-  for (; t < seq; ++t) {
-    const int64_t off = t * channels;
-    carry = fmaf(to_float(a[off]), carry, to_float(b[off]));
-    h[off] = carry;
+  for (int64_t k = 0; k < chunks; k += 2) {
+    scan_chunk<T, W, P>(a, b, h, k, chunks, seq, channels, live, warp, lane,
+                        carry, a0, b0, a1, b1, agg[0]);
+    if (k + 1 < chunks)
+      scan_chunk<T, W, P>(a, b, h, k + 1, chunks, seq, channels, live, warp,
+                          lane, carry, a1, b1, a0, b0, agg[1]);
   }
 }
 
 template <typename T>
-int launch(const void* a, const void* b, void* h, int64_t batch,
-           int64_t seq, int64_t channels, void* stream) {
-  const dim3 grid(static_cast<unsigned>((channels + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(batch));
-  lru_scan_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<float*>(h), seq, channels);
+int launch(const void* a, const void* b, void* h, int64_t batch, int64_t seq,
+           int64_t channels, void* stream) {
+  const int64_t tiles = (channels + kTile - 1) / kTile;
+  const int64_t blocks = batch * tiles;
+  if (blocks > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  lru_scan_kernel<T, kWarps, kSteps>
+      <<<static_cast<unsigned>(blocks), kWarps * kTile, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(a), static_cast<const T*>(b),
+          static_cast<float*>(h), seq, channels, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,12 +4,18 @@ Counterpart of ``repro/kernels/lru_scan.py``: h_t = a_t * h_{t-1} + b_t
 over (B, S, C) tensors from h_{-1} = 0, with an fp32 carry and fp32
 output.  The Mamba-1 mixer (``models/ssm.py``) runs its prefill
 recurrence through it, with the (d_inner, n_state) plane flattened into
+channels, and the RG-LRU mixer (``models/rglru.py``) with its lru_width
 channels.  ``lru_scan`` launches the CUDA C++ kernel of
 ``csrc/lru_scan.cu`` (built for sm_90a with nvcc at first use and loaded
 with ctypes) on CUDA tensors, and uses ``lru_scan_plain`` only for CPU
-tensors.  Any other device, a dtype other than float32 or bfloat16, a
-rank other than 3, a non-contiguous tensor, or mismatched shapes, dtypes
-or devices raise: there is no silent fallback.
+tensors.  The kernel splits the sequence inside each block of ``TILE``
+channels of one batch row (chunks of ``WARPS * STEPS`` steps, ``STEPS``
+a warp), reads a and b once and writes h once; its grid folds batch and
+channel tiles into one dimension, so it takes any batch, any S and C,
+and a contiguous view at any offset.  Any other device, a dtype other
+than float32 or bfloat16, a rank other than 3, a non-contiguous tensor,
+or mismatched shapes, dtypes or devices raise: there is no silent
+fallback.
 """
 from __future__ import annotations
 
@@ -26,7 +32,12 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "lru_scan.cu"
 #: where the shared library is built (listed in .gitignore).
 BUILD_DIR = nvcc.BUILD_DIR
 NVCC_FLAGS = nvcc.BASE_FLAGS
-_MAX_GRID_Y = 65535  # the batch is the grid's y dimension
+#: the kernel's schedule (``kTile``, ``kWarps``, ``kSteps`` in
+#: ``csrc/lru_scan.cu``): a block owns TILE channels of one batch row and
+#: walks S in chunks of WARPS * STEPS steps, STEPS consecutive ones a warp.
+#: The tests and ``chip_smoke.py`` take the chunk's seams from here, and
+#: ``tests/test_torch_scan_split.py`` holds these to the source.
+TILE, WARPS, STEPS = 32, 16, 16
 
 #: kernel launches; bumped only where the kernel launches.
 LAUNCHES = {"lru_scan": 0}
@@ -105,9 +116,6 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
                         f"{b.dtype}")
     if a.device != b.device:
         raise ValueError("a and b must be on one device")
-    if a.shape[0] > _MAX_GRID_Y:
-        raise ValueError(f"the scan kernel takes a batch of at most "
-                         f"{_MAX_GRID_Y}, got {a.shape[0]}")
 
 
 def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -331,6 +331,74 @@ def test_cuda_lru_scan_past_2_31_bytes(cuda):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+_L = lru_scan.WARPS * lru_scan.STEPS  # the kernel's chunk of steps
+# (shape, offset): S at the chunk's seams, C of 1 and 130, a view 4 bytes
+# past a 16-byte boundary, a batch past 65535 (the old grid's y limit)
+SCAN_SEAMS = [((2, s, 8), 0) for s in (1, _L - 1, _L, _L + 1)] + [
+    ((3, _L + 1, 1), 0), ((2, 300, 130), 0), ((2, 300, 130), 4),
+    ((70000, 3, 5), 0)]
+
+
+def _ab_view(seed, shape, offset_bytes, device, dtype, gates=(0.3, 0.999)):
+    """a in ``gates`` and b normal, as contiguous views ``offset_bytes``
+    into their buffers."""
+    off = offset_bytes // (4 if dtype == torch.float32 else 2)
+    n = int(np.prod(shape)) + off
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(*gates, n).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(device, dtype)[off:].view(shape)
+                 for x in (a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", SCAN_SEAMS)
+def test_cuda_lru_scan_at_the_seams(cuda, shape, offset, dtype):
+    """Every layout the kernel takes, with no padded copy: S around the
+    chunk, ragged C, an unaligned view and a batch past 65535."""
+    a, bb = _ab_view(sum(shape) + offset, shape, offset, cuda, dtype)
+    if offset:
+        assert a.is_contiguous() and a.data_ptr() % 16 == offset
+    lru_scan.reset_launch_counts()
+    got = lru_scan.lru_scan(a, bb)
+    torch.cuda.synchronize()
+    assert lru_scan.LAUNCHES == {"lru_scan": 1}
+    torch.testing.assert_close(got, lru_scan.lru_scan_plain(a, bb),
+                               atol=1e-5, rtol=1e-5)
+    zero = lru_scan.lru_scan(torch.zeros_like(a), bb)
+    torch.testing.assert_close(zero, bb.float(), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 300, 130), (4, 2048, 4096),
+                                   (1, 2048, 4096)])
+def test_cuda_lru_scan_is_deterministic(cuda, shape):
+    """The order of operations depends on the shape alone: two calls
+    give the same bits."""
+    a, bb = _ab(sum(shape), shape, cuda)
+    first = lru_scan.lru_scan(a, bb)
+    second = lru_scan.lru_scan(a, bb)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_lru_scan_with_gates_near_1(cuda, dtype):
+    """a in (0.999, 1) over S = 2048, as mamba's exp(dt A) at small dt and
+    the RG-LRU's a give: held at rtol 1e-5 with an atol of 1e-5 times
+    the largest |h|, since two sequential fp32 loops (the reference's
+    and the plain version) already differ above 1e-5 there
+    (tests/test_torch_scan_split.py)."""
+    a, bb = _ab_view(5, (2, 2048, 256), 0, cuda, dtype, (0.999, 1.0))
+    got = lru_scan.lru_scan(a, bb)
+    want = lru_scan.lru_scan_plain(a, bb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
 @pytest.mark.cuda
 def test_cuda_lru_scan_rejects_what_the_kernel_does_not_take(cuda):
     a, bb = _ab(8, (2, 64, 32), cuda)
