@@ -22,7 +22,14 @@ exit) if anything in it fails; no failure is caught:
    bf16 flash also on views offset by one element (d = 20 and the GQA
    serving shape), which TMA cannot read in place and the wrapper pads
    into an aligned copy; bf16 flash at gemma3-12b's global shape (d =
-   256); the scan, fp32 and bf16, also at the seams of its chunk of L
+   256); bf16 flash at the zoo's newer prefill shapes, stablelm-12b's
+   (d = 160, 32:8 GQA), command-r-35b's (d = 128, 64:8 GQA) and
+   deepseek's latent attention (128 heads, q and k at d = 192, v at dv
+   = 128, which the wrapper zero-pads to d; the padding copy timed
+   alone, and the same heads at d = dv = 128 beside them), and fp32
+   flash at the zoo replays' shapes (d = 160; d = 192 with dv = 128),
+   every flash case with % of bound; the scan, fp32 and bf16, also at the seams of its
+   chunk of L
    steps (S of 1, L - 1, L, L + 1; C of 1 and 130; a view 4 bytes past
    a 16-byte boundary; a batch of 70000; gates in (0.999, 1) at S =
    2048), every case called twice and bit-identical, and timed at
@@ -120,16 +127,50 @@ exit) if anything in it fails; no failure is caught:
    window cut to 128 so that the 256-token prompt crosses it and decode
    wraps the rolling buffers, fp32 with TF32 off, the same weights on
    the card and on the CPU: prefill logits, each rglru layer's state and
-   8 greedy steps.
+   8 greedy steps;
+18. stablelm-12b serving path: ``serve`` at full width and depth (40
+   layers, 12,142,924,800 parameters), phase 7's request; each layer's
+   prefill attention goes through the bf16 flash kernel at d = 160, 40
+   launches per prefill and none in decode; then one prefill and one
+   decode step under ``torch.profiler``;
+19. command-r-35b serving path: the same at full width and depth (40
+   layers, 32,380,690,432 parameters, ~60 GiB of bf16 weights), 40 flash
+   launches per prefill at 64:8 GQA, with its peak memory; profiled;
+20. deepseek-v2-236b serving path at full width cut to 8 layers (its
+   dense layer and 7 MoE layers of 160 experts, 29,556,294,656
+   parameters), phase 7's request: each layer's prefill latent attention
+   goes through the bf16 flash kernel (q, k at d = 192, v at 128), 8
+   launches per prefill and none in decode; the MoE dispatch's C and the
+   dropped (token, expert) pairs per layer; decode once naive and once
+   absorbed (``mla_absorbed``), from the same prefill (same seed, the
+   same first token checked), both token rows and ms per step;
+   profiled;
+21. deepseek-v3-671b serving path at full width cut to 4 layers (its 3
+   dense layers and 1 MoE layer of 256 experts, 15,111,101,440
+   parameters), 4 flash launches per prefill; profiled;
+22. zoo replays: stablelm-12b and deepseek-v2-236b at full width cut to
+   2 layers (deepseek: the dense layer and one MoE layer, ~22 GB of fp32
+   weights), fp32 with TF32 off: prefill logits through the fp32 flash kernel (d = 160; d = 192
+   with dv = 128), deepseek's latent caches (``ckv``, ``kr``) of both
+   layers, the MoE layer's routing equal (each token's top-k experts,
+   each expert's tokens where the gate is > 0, with the smallest gap
+   between the k-th and (k+1)-th router probability printed), and 8
+   greedy steps, deepseek's on the naive and the absorbed path.
 
-Launch counts are zeroed just before each path (4, 7, 9, 11, 12b, 13,
-14, both requests of 15, 16, and the card's runs in 8, 10 and 17) and
-read just after.  It prints one ``{"kernels": [...]}`` line, with one
-entry per kernel and serving shape (the bf16 flash kernel at llama's
-and gemma3's, the scan at mamba's and at recurrentgemma's at batch 4
-and 1), and, last, the ``{"ok": true, "device": ...}`` line.  Without
-a GPU, or without the repository's ``src/repro_torch`` beside it, it
-exits non-zero before printing either.
+Every replay (8, 10, 17, 22) draws its weights on the card from a
+seed, runs there, moves them to the host and runs again.  Launch counts
+are zeroed just before each path (4, 7, 9, 11, 12b, 13,
+14, both requests of 15, 16, 18, 19, both requests of 20, 21, and the
+card's runs in 8, 10, 17 and 22) and read just after.  It prints one
+``{"kernels": [...]}`` line, with one entry per kernel and serving shape
+(the bf16 flash kernel at llama's, gemma3's, stablelm's, command-r's,
+deepseek-v2's and deepseek-v3's, the last two at the one latent
+attention shape, each with the launches of its own path: phase 20's
+naive request and phase 21's; the scan at mamba's and at
+recurrentgemma's at batch 4 and 1), and, last, the ``{"ok": true,
+"device": ...}`` line.  Without a GPU, or without the repository's
+``src/repro_torch`` beside it, it exits non-zero before printing
+either.
 """
 from __future__ import annotations
 
@@ -171,6 +212,17 @@ FLASH_SLICE = (96, 2048, 1, 1, 128)
 FLASH_GQA = (4, 2048, 24, 8, 128)
 FLASH_F32_REPLAY = (1, 256, 24, 8, 128)
 FLASH_GEMMA = (4, 2048, 16, 8, 256)  # gemma3-12b's global layers
+# the zoo's dense and latent-attention decoders (phases 18-22), as (B,
+# S, H, Hk, d[, dv]): stablelm-12b (d = 160), command-r-35b (64:8 GQA),
+# deepseek's multi-head latent attention (q, k at nope + rope = 192, v
+# at 128, 128 heads) and their fp32 replays' shapes
+FLASH_STABLELM = (4, 2048, 32, 8, 160)
+FLASH_COMMAND_R = (4, 2048, 64, 8, 128)
+FLASH_MLA = (4, 2048, 128, 128, 192, 128)
+# the same heads at d = dv = 128: the columns a kernel with a value
+# width of its own would still read for q k^T at MLA's shape, less 64
+FLASH_MLA_D128 = (4, 2048, 128, 128, 128)
+FLASH_F32_ZOO = [(1, 256, 32, 8, 160), (1, 256, 128, 128, 192, 128)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ARCH, SERVE_BATCH, PROMPT, NEW_TOKENS = "llama3.2-3b", 4, 2048, 32
 REPLAY_LAYERS, REPLAY_PROMPT, REPLAY_STEPS = 2, 256, 8
@@ -192,6 +244,15 @@ RGEMMA, RGEMMA_PARAMS, RGEMMA_RGLRU = "recurrentgemma-9b", 10_444_771_328, 26
 GEMMA, GEMMA_PARAMS, GEMMA_GLOBAL = "gemma3-12b", 12_772_052_736, 8
 # phase 17: one pattern of each hybrid, the window cut below the prompt
 HYBRID_WINDOW = 128
+# phases 18-22: the dense configs at full depth; the DeepSeek configs at
+# full width cut in depth (v2: its dense layer and 7 MoE layers; v3: its
+# 3 dense layers and 1 MoE layer of 256 experts)
+STABLELM, STABLELM_PARAMS, STABLELM_LAYERS = ("stablelm-12b", 12_142_924_800,
+                                              40)
+COMMAND_R, COMMAND_R_PARAMS, COMMAND_R_LAYERS = ("command-r-35b",
+                                                 32_380_690_432, 40)
+DSV2, DSV2_LAYERS, DSV2_PARAMS = "deepseek-v2-236b", 8, 29_556_294_656
+DSV3, DSV3_LAYERS, DSV3_PARAMS = "deepseek-v3-671b", 4, 15_111_101_440
 
 
 def die(msg: str) -> None:
@@ -320,27 +381,30 @@ def phase_kernels(torch, gradnorm):
 
 
 def flash_bound(b: int, s: int, h: int, hk: int, d: int, causal: bool,
-                itemsize: int) -> tuple[float, str]:
-    """Operations: 2 flops per multiply-add of q k^T and of p v over the
-    (query, key) pairs the mask keeps; bytes: q and k, v (Hk heads) read
-    and o written once.  The peak is that of the input type: the dense
-    bf16 tensor cores for bf16, the CUDA cores' float32 rate for
-    float32."""
+                itemsize: int, dv: int | None = None) -> tuple[float, str]:
+    """Operations: 2 flops per multiply-add of q k^T (width d) and of p v
+    (width dv, d by default) over the (query, key) pairs the mask keeps;
+    bytes: q and k (width d), v (width dv; k and v with Hk heads) read
+    and o (width dv) written once.  The peak is that of the input type:
+    the dense bf16 tensor cores for bf16, the CUDA cores' float32 rate
+    for float32."""
+    dv = d if dv is None else dv
     pairs = s * (s + 1) / 2 if causal else s * s
-    flops = 4.0 * b * h * d * pairs
+    flops = 2.0 * b * h * (d + dv) * pairs
     peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
-    return bound(2.0 * b * s * (h + hk) * d * itemsize, flops, peak)
+    n_bytes = b * s * (h * d + hk * d + hk * dv + h * dv) * itemsize
+    return bound(n_bytes, flops, peak)
 
 
 def phase_flash(torch, fa, ops):
     """The flash kernels against their plain versions at the test shapes,
-    the edge shapes and the main paths' shapes; returns the records of
-    the llama serving shape (bf16, GQA read in place), of gemma3's
-    global shape (bf16, d = 256) and of the fp32 replay's shape.  Each
-    case: (B, S, H, Hk, d), dtype, causal, and whether it goes through
-    the (BH, S, d) entry (H = Hk, folded) or the
-    strided (B, S, H, d) one, there also as views one element past an
-    aligned base ("bshd+1": q, k and v copied into aligned buffers)."""
+    the edge shapes and the main paths' shapes; returns the records by
+    (shape, dtype, layout).  Each case: (B, S, H, Hk, d[, dv]), dtype,
+    causal, and whether it goes through the (BH, S, d) entry (H = Hk,
+    folded) or the strided (B, S, H, d) one, there also as views one
+    element past an aligned base ("bshd+1": q, k and v copied into
+    aligned buffers).  A dv < d (latent attention) is a v of its own
+    width, which the wrapper zero-pads to d."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     F = torch.nn.functional
     cases = [((bh, s, 1, 1, d), dt, True, "bhsd") for bh, s, d in
@@ -355,19 +419,25 @@ def phase_flash(torch, fa, ops):
               (FLASH_GQA, "bfloat16", True, "bshd"),
               (FLASH_GQA, "bfloat16", True, "bshd+1"),
               (FLASH_GEMMA, "bfloat16", True, "bshd"),
-              (FLASH_F32_REPLAY, "float32", True, "bshd")]
+              (FLASH_F32_REPLAY, "float32", True, "bshd"),
+              (FLASH_STABLELM, "bfloat16", True, "bshd"),
+              (FLASH_COMMAND_R, "bfloat16", True, "bshd"),
+              (FLASH_MLA, "bfloat16", True, "bshd"),
+              (FLASH_MLA_D128, "bfloat16", True, "bshd")]
+    cases += [(shape, "float32", True, "bshd") for shape in FLASH_F32_ZOO]
     recs = {}
     for shape, dt, causal, layout in cases:
         dtype = getattr(torch, dt)
-        b, s, h, hk, d = shape
+        b, s, h, hk, d = shape[:5]
+        dv = shape[5] if len(shape) > 5 else d
 
-        def randn(heads):
+        def randn(heads, width=d):
             off = int(layout == "bshd+1")
-            x = torch.randn(b * s * heads * d + off, generator=gen,
+            x = torch.randn(b * s * heads * width + off, generator=gen,
                             device="cuda").to(dtype)
-            return x[off:].view(b, s, heads, d)
+            return x[off:].view(b, s, heads, width)
 
-        q4, k4, v4 = randn(h), randn(hk), randn(hk)
+        q4, k4, v4 = randn(h), randn(hk), randn(hk, dv)
         if layout == "bhsd":          # (B*H, S, d): b is B*H, h == 1
             q, k, v = (x[:, :, 0] for x in (q4, k4, v4))
             run = partial(fa.flash_attention, q, k, v, causal=causal)
@@ -390,7 +460,8 @@ def phase_flash(torch, fa, ops):
         del got, want
         big = s >= 1024
         calls, replays = (5, 3) if big else (50, 5)
-        b_ms, b_by = flash_bound(b, s, h, hk, d, causal, q.element_size())
+        b_ms, b_by = flash_bound(b, s, h, hk, d, causal, q.element_size(),
+                                 dv)
         rec = {"max_abs_err": err,
                "ms": device_ms(torch, run, calls, replays),
                "plain_ms": device_ms(torch, plain, *((2, 2) if big else
@@ -404,14 +475,17 @@ def phase_flash(torch, fa, ops):
               f"max_abs_err {err:.3g} (tol {tol}) | device ms: kernel "
               f"{rec['ms']:.6f} plain {rec['plain_ms']:.6f} sdpa "
               f"{rec['library_ms']:.6f} bound {b_ms:.6f} ({b_by}) | "
-              f"kernel/bound {rec['ms'] / b_ms:.2f}x kernel/sdpa "
-              f"{rec['ms'] / rec['library_ms']:.2f}x")
+              f"kernel/bound {rec['ms'] / b_ms:.2f}x ({100 * b_ms / rec['ms']:.1f} "
+              f"% of bound) kernel/sdpa {rec['ms'] / rec['library_ms']:.2f}x")
+        if dv < d:
+            pad_ms = device_ms(torch, lambda: fa._value_operand(v, d),
+                               calls, replays)
+            print(f"  of which v zero-padded from {dv} to {d} columns "
+                  f"before the launch: {pad_ms:.6f} ms")
         recs[(shape, dt, layout)] = rec
         del q, k, v, q4, k4, v4, qs, ks, vs
-    torch.cuda.empty_cache()
-    return (recs[(FLASH_GQA, "bfloat16", "bshd")],
-            recs[(FLASH_GEMMA, "bfloat16", "bshd")],
-            recs[(FLASH_F32_REPLAY, "float32", "bshd")])
+        torch.cuda.empty_cache()
+    return recs
 
 
 def scan_cases(lru):
@@ -1184,14 +1258,19 @@ def profile_round(torch, tr, i):
 
 
 def phase_serve(torch, serve_mod, kernels, arch, expected, vocab,
-                batch=SERVE_BATCH):
+                batch=SERVE_BATCH, **options):
     """A serving path at full width: one warm-up request (cuBLAS and
     kernel-module loading happen at first use), then the measured one
     with every launch count zeroed just before and read just after.
-    ``expected``: the launches per phase and kernel the path must make."""
+    ``arch``: a name (its full config) or an ``ArchConfig`` (a config
+    cut in depth); ``expected``: the launches per phase and kernel the
+    path must make; ``options``: more of ``serve``'s arguments.  Returns
+    the measured run's launches and its ``ServeResult``."""
+    name = arch if isinstance(arch, str) else arch.name
     warm = serve_mod.serve(arch, batch=batch, prompt_len=PROMPT,
-                           new_tokens=2, smoke=False, seed=0, device="cuda")
-    print(f"serve {arch} warm-up: prefill {warm.prefill_s:.6f} s, decode "
+                           new_tokens=2, smoke=False, seed=0, device="cuda",
+                           **options)
+    print(f"serve {name} warm-up: prefill {warm.prefill_s:.6f} s, decode "
           f"steps {[round(t * 1e3, 3) for t in warm.decode_s]} ms")
     del warm
     torch.cuda.empty_cache()
@@ -1201,23 +1280,25 @@ def phase_serve(torch, serve_mod, kernels, arch, expected, vocab,
         m.reset_launch_counts()
     res = serve_mod.serve(arch, batch=batch, prompt_len=PROMPT,
                           new_tokens=NEW_TOKENS, smoke=False, seed=0,
-                          device="cuda")
+                          device="cuda", **options)
     launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
     check(res.launches == expected,
-          f"{arch}: launches per phase {res.launches}, expected {expected}")
+          f"{name}: launches per phase {res.launches}, expected {expected}")
     total = {k: 0 for k in launches}
     for phase in expected.values():
         for k, v in phase.items():
             total[k] += v
-    check(launches == total, f"launches on the {arch} path {launches}, "
+    check(launches == total, f"launches on the {name} path {launches}, "
           f"expected {total}")
     check(tuple(res.tokens.shape) == (batch, NEW_TOKENS + 1),
           f"tokens shape {tuple(res.tokens.shape)}")
     check(bool(((res.tokens >= 0) & (res.tokens < vocab)).all()),
           "tokens out of the vocabulary")
     steps = sorted(res.decode_s)
-    print(f"serve {arch} full width: params {res.n_params:,}, batch "
+    print(f"serve {name} full width"
+          f"{''.join(f', {k}={v}' for k, v in options.items())}: params "
+          f"{res.n_params:,}, batch "
           f"{batch}, prompt {PROMPT}, {NEW_TOKENS} new tokens | "
           f"prefill {res.prefill_s:.6f} s "
           f"({batch * PROMPT / res.prefill_s:.1f} tok/s) | decode "
@@ -1226,19 +1307,23 @@ def phase_serve(torch, serve_mod, kernels, arch, expected, vocab,
           f"max {1e3 * steps[-1]:.3f} first {1e3 * res.decode_s[0]:.3f} | "
           f"peak memory {peak / 2**30:.3f} GiB ({before / 2**30:.3f} "
           f"allocated before the request) | launches {launches} "
-          f"per phase {res.launches}")
-    print(f"serve {arch} tokens of sequence 0: {res.tokens[0].tolist()}")
-    return launches, res.n_params
+          f"per phase {res.launches}"
+          + (f" | MoE prefill dispatch (C, dropped) per layer "
+             f"{res.moe_dispatch}" if res.moe_dispatch else ""))
+    print(f"serve {name} tokens of sequence 0: {res.tokens[0].tolist()}")
+    return launches, res
 
 
 def phase_serve_profile(torch, tm, get_config, arch):
     """Where the serving time goes: one prefill and one decode step of
-    a serving configuration under ``torch.profiler`` (after a warm-up
-    of each): device operations, device busy time against wall time,
-    the kernels that take the most device time, and the scan kernel's
-    device time where the step runs it."""
+    a serving configuration (a name or an ``ArchConfig``) under
+    ``torch.profiler`` (after a warm-up of each): device operations,
+    device busy time against wall time, the kernels that take the most
+    device time, and the scan and flash kernels' device time where the
+    step runs them."""
     from torch.profiler import ProfilerActivity, profile
-    cfg = get_config(arch)
+    cfg = get_config(arch) if isinstance(arch, str) else arch
+    arch = cfg.name
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = tm.init_model(cfg, gen, "cuda")
     prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, PROMPT),
@@ -1265,88 +1350,164 @@ def phase_serve_profile(torch, tm, get_config, arch):
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         scans = [e.time_range.elapsed_us() / 1e3 for e in dev
                  if "lru_scan_kernel" in e.name]
+        flash = [e.time_range.elapsed_us() / 1e3 for e in dev
+                 if "flash" in e.name]
         print(f"{arch} {name} under the profiler: {len(dev)} device "
               f"operations, device busy {busy:.3f} ms of wall {wall:.3f} "
               f"ms, device idle share {1 - busy / wall:.4f}; top device "
               "time: "
               + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in top)
               + (f"; the scan kernel {sum(scans):.3f} ms in {len(scans)} "
-                 "launches" if scans else ""))
+                 "launches" if scans else "")
+              + (f"; the flash kernel {sum(flash):.3f} ms in {len(flash)} "
+                 "launches" if flash else ""))
 
     step("prefill", lambda: prefill(model, {"tokens": prompts}, cache))
     tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.long, device="cuda")
     step("decode step", lambda: decode(model, cache, {
         "tokens": tok, "cache_index": PROMPT}))
+    del model, cache
+    torch.cuda.empty_cache()
 
 
 def phase_llm_replay(torch, tm, get_config, full_fp32, arch, kernels,
-                     states=(), **cut):
+                     states=(), caches=(), absorbed=False, **cut):
     """``arch`` at full width, cut by ``cut`` (default: depth cut to 2
-    layers), fp32 with TF32 off: the same weights and prompt on the CPU
-    and on the card.  ``states``: the pattern positions whose recurrent
-    state after the prefill is held too, each repeat of each.  Returns
-    the kernel launches of the card's run (counts zeroed just before
-    it): the fp32 kernels' own path."""
+    layers), fp32 with TF32 off: the same weights and prompt on the card
+    and on the CPU, drawn on the card and then moved to the host (the
+    host would take minutes to draw deepseek's 22 GB).  Held after the
+    prefill: the logits, the recurrent state of
+    the pattern positions ``states`` (each repeat of each) and the cache
+    entries ``caches`` of every layer; then the greedy tokens of
+    ``REPLAY_STEPS`` decode steps, and with ``absorbed`` those of the
+    absorbed latent-attention decode from the same prefill too.  An MoE
+    decoder's prefill routing must be equal: each token's top-k experts
+    and each expert's dispatched tokens where the gate is > 0; the
+    smallest gap between a token's k-th and (k+1)-th router probability
+    is printed, so that a near-tie can be told from a fault.  Returns the
+    kernel launches of the card's run (counts zeroed just before it): the
+    fp32 kernels' own path."""
+    from repro_torch.models.moe import MoE, dropped, topk_gap
     cut = cut or {"n_layers": REPLAY_LAYERS}
     cfg = get_config(arch).scaled(dtype="float32", **cut)
-    model = tm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = tm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          "cuda")
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
     prompt = torch.randint(0, cfg.vocab, (1, REPLAY_PROMPT),
                            generator=torch.Generator().manual_seed(1))
-    prefill, decode = tm.make_prefill_step(cfg), tm.make_decode_step(cfg)
+    prefill = tm.make_prefill_step(cfg)
+    decodes = {"naive": tm.make_decode_step(cfg)}
+    if absorbed:
+        decodes["absorbed"] = tm.make_decode_step(cfg, mla_absorbed=True)
+
+    def held(cache):
+        out = [(f"state {pos}[{r}]", layer) for pos in states
+               for r, layer in enumerate(cache["body"][pos]["h"])]
+        for name in caches:
+            out += [(f"head[{i}] {name}", c[name])
+                    for i, c in enumerate(cache["head"])]
+            out += [(f"body[{r}] {name}", layer)
+                    for pos in cache["body"]
+                    for r, layer in enumerate(cache["body"][pos][name])]
+        return [(label, t.cpu().clone()) for label, t in out]
+
+    def greedy(decode, cache, logits):
+        tok = torch.argmax(logits[:, -1], -1)
+        toks, steps = [int(tok)], []
+        for i in range(REPLAY_STEPS):
+            logits, cache = decode(model, cache, {
+                "tokens": tok[:, None], "cache_index": REPLAY_PROMPT + i})
+            steps.append(logits.cpu())
+            tok = torch.argmax(logits[:, -1], -1)
+            toks.append(int(tok))
+        return toks, steps
 
     def run(device):
         t0 = time.perf_counter()
         with full_fp32():
             cache = tm.make_cache(cfg, 1, REPLAY_PROMPT + REPLAY_STEPS,
                                   device=device)
+            for m in moes:
+                m.routing_log = []
             logits, cache = prefill(model, {"tokens": prompt.to(device)},
                                     cache)
-            first = logits.cpu()
-            h = [layer.cpu().clone() for pos in states
-                 for layer in cache["body"][pos]["h"]]
-            tok = torch.argmax(logits[:, -1], -1)
-            toks, steps = [int(tok)], []
-            for i in range(REPLAY_STEPS):
-                logits, cache = decode(model, cache, {
-                    "tokens": tok[:, None],
-                    "cache_index": REPLAY_PROMPT + i})
-                steps.append(logits.cpu())
-                tok = torch.argmax(logits[:, -1], -1)
-                toks.append(int(tok))
-        return first, toks, steps, time.perf_counter() - t0, h
+            routing = [{"top_idx": r["top_idx"].cpu(),
+                        "w_ec": r["w_ec"].cpu(), "idx_ec": r["idx_ec"].cpu(),
+                        "C": r["w_ec"].shape[1], "dropped": int(dropped(r)),
+                        "gap": float(topk_gap(r))}
+                       for r in (m.routing_log[0] for m in moes)]
+            for m in moes:
+                m.routing_log = None
+            out = {"first": logits.cpu(), "held": held(cache),
+                   "routing": routing}
+            # every path after the first starts from a copy of the
+            # prefill's cache, taken before any step writes into it
+            starts = {path: cache if path == "naive" else
+                      _clone_cache(torch, cache) for path in decodes}
+            for path, decode in decodes.items():
+                out[path] = greedy(decode, starts[path], logits)
+        out["s"] = time.perf_counter() - t0
+        return out
 
-    cpu = run("cpu")
-    model.to("cuda")
     for m in kernels:
         m.reset_launch_counts()
     gpu = run("cuda")
     launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
-    ref = cpu[0]
+    model.to("cpu")
+    torch.cuda.empty_cache()
+    cpu = run("cpu")
+    ref = cpu["first"]
     atol = LOGITS_RTOL * float(ref.abs().max())
-    err = float((gpu[0] - ref).abs().max())
-    check(bool(torch.allclose(gpu[0], ref, rtol=LOGITS_RTOL, atol=atol)),
+    err = float((gpu["first"] - ref).abs().max())
+    check(bool(torch.allclose(gpu["first"], ref, rtol=LOGITS_RTOL,
+                              atol=atol)),
           f"{arch} replay: prefill logits differ by {err:.3g} (rtol "
           f"{LOGITS_RTOL}, atol {atol:.3g})")
-    check(gpu[1] == cpu[1], f"{arch} replay: greedy tokens differ: card "
-          f"{gpu[1]} cpu {cpu[1]}")
-    state_msg = ""
-    for layer, (g, c) in enumerate(zip(gpu[4], cpu[4])):
+    held_msg = ""
+    for (label, g), (_, c) in zip(gpu["held"], cpu["held"]):
         h_atol = LOGITS_RTOL * float(c.abs().max())
         h_err = float((g - c).abs().max())
         check(bool(torch.allclose(g, c, rtol=LOGITS_RTOL, atol=h_atol)),
-              f"{arch} replay: recurrent state {layer} differs by "
-              f"{h_err:.3g} (rtol {LOGITS_RTOL}, atol {h_atol:.3g})")
-        state_msg += (f", state {layer} max abs err {h_err:.3g} "
-                      f"(max |h| {float(c.abs().max()):.3g})")
-    step_err = max(float((g - c).abs().max()) for g, c in zip(gpu[2], cpu[2]))
+              f"{arch} replay: {label} differs by {h_err:.3g} (rtol "
+              f"{LOGITS_RTOL}, atol {h_atol:.3g})")
+        held_msg += (f", {label} max abs err {h_err:.3g} (max "
+                     f"{float(c.abs().max()):.3g})")
+    for layer, (g, c) in enumerate(zip(gpu["routing"], cpu["routing"])):
+        same = torch.equal(g["top_idx"], c["top_idx"]) and all(
+            torch.equal(g["idx_ec"][e][g["w_ec"][e] > 0].sort().values,
+                        c["idx_ec"][e][c["w_ec"][e] > 0].sort().values)
+            for e in range(cfg.n_experts))
+        held_msg += (f", MoE layer {layer} routing equal {same} (C "
+                     f"{c['C']}, dropped {c['dropped']}; smallest "
+                     f"top-k gap card {g['gap']:.3g} cpu {c['gap']:.3g})")
+        check(same, f"{arch} replay: MoE layer {layer} routes differently "
+              f"on the card (smallest top-k gap card {g['gap']:.3g}, "
+              f"cpu {c['gap']:.3g})")
+    paths_msg = ""
+    for path in decodes:
+        check(gpu[path][0] == cpu[path][0], f"{arch} replay: {path} greedy "
+              f"tokens differ: card {gpu[path][0]} cpu {cpu[path][0]}")
+        step_err = max(float((g - c).abs().max())
+                       for g, c in zip(gpu[path][1], cpu[path][1]))
+        paths_msg += (f", {path} decode logits max abs err {step_err:.3g}, "
+                      f"tokens equal {gpu[path][0]}")
     print(f"{arch} replay (full width, {cfg.n_layers} layers "
           f"{list(cfg.layer_pattern)}, window {cfg.window}, fp32, TF32 "
           f"off, prompt {REPLAY_PROMPT}, {REPLAY_STEPS} greedy steps): "
           f"prefill logits max abs err {err:.3g} (max |logit| "
-          f"{float(ref.abs().max()):.3g}){state_msg}, decode logits max abs "
-          f"err {step_err:.3g}, tokens equal {gpu[1]}; cpu {cpu[3]:.2f} s, "
-          f"card {gpu[3]:.2f} s; card launches {launches}")
+          f"{float(ref.abs().max()):.3g}){held_msg}{paths_msg}; cpu "
+          f"{cpu['s']:.2f} s, card {gpu['s']:.2f} s; card launches "
+          f"{launches}")
     return launches
+
+
+def _clone_cache(torch, cache):
+    """A copy of a decoder cache (nested dicts and lists of tensors)."""
+    if torch.is_tensor(cache):
+        return cache.clone()
+    if isinstance(cache, dict):
+        return {k: _clone_cache(torch, v) for k, v in cache.items()}
+    return [_clone_cache(torch, v) for v in cache]
 
 
 def main() -> None:
@@ -1406,8 +1567,10 @@ def main() -> None:
 
     # -- 3. kernels against their plain versions ------------------------
     norm_rec, sigma_rec = phase_kernels(torch, gradnorm)
-    flash_rec, flash_gemma_rec, flash_f32_rec = phase_flash(
-        torch, flash_attention, ops)
+    flash_recs = phase_flash(torch, flash_attention, ops)
+    flash_rec = flash_recs[(FLASH_GQA, "bfloat16", "bshd")]
+    flash_gemma_rec = flash_recs[(FLASH_GEMMA, "bfloat16", "bshd")]
+    flash_f32_rec = flash_recs[(FLASH_F32_REPLAY, "float32", "bshd")]
     scan_recs = phase_scan(torch, lru_scan, ops)
     scan_rec = scan_recs[SCAN_SLICE]
     done("3 kernels")
@@ -1498,12 +1661,12 @@ def main() -> None:
 
     # -- 9. the mamba serving path --------------------------------------
     torch.cuda.empty_cache()
-    mamba_launches, n_params = phase_serve(
+    mamba_launches, served = phase_serve(
         torch, serve_mod, kernels, MAMBA,
         {"prefill": {"flash_attention": 0, "lru_scan": MAMBA_LAYERS},
          "decode": {"flash_attention": 0, "lru_scan": 0}}, 65024)
-    check(n_params == MAMBA_PARAMS,
-          f"{MAMBA}: {n_params:,} parameters, expected {MAMBA_PARAMS:,}")
+    check(served.n_params == MAMBA_PARAMS,
+          f"{MAMBA}: {served.n_params:,} parameters, expected {MAMBA_PARAMS:,}")
     print(f"lru_scan device time of one prefill's {MAMBA_LAYERS} launches: "
           f"{MAMBA_LAYERS * scan_rec['ms']:.3f} ms ({MAMBA_LAYERS} x the "
           f"{SCAN_SLICE} time)")
@@ -1549,12 +1712,12 @@ def main() -> None:
 
     # -- 15. the recurrentgemma-9b serving path -------------------------
     torch.cuda.empty_cache()
-    rg_launches, n_params = phase_serve(
+    rg_launches, served = phase_serve(
         torch, serve_mod, kernels, RGEMMA,
         {"prefill": {"flash_attention": 0, "lru_scan": RGEMMA_RGLRU},
          "decode": {"flash_attention": 0, "lru_scan": 0}}, 256000)
-    check(n_params == RGEMMA_PARAMS,
-          f"{RGEMMA}: {n_params:,} parameters, expected {RGEMMA_PARAMS:,}")
+    check(served.n_params == RGEMMA_PARAMS,
+          f"{RGEMMA}: {served.n_params:,} parameters, expected {RGEMMA_PARAMS:,}")
     rg_rec, rg1_rec = scan_recs[SCAN_RG], scan_recs[SCAN_RG1]
     print(f"lru_scan device time of one prefill's {RGEMMA_RGLRU} launches: "
           f"{RGEMMA_RGLRU * rg_rec['ms']:.3f} ms ({RGEMMA_RGLRU} x the "
@@ -1573,12 +1736,12 @@ def main() -> None:
 
     # -- 16. the gemma3-12b serving path --------------------------------
     torch.cuda.empty_cache()
-    gemma_launches, n_params = phase_serve(
+    gemma_launches, served = phase_serve(
         torch, serve_mod, kernels, GEMMA,
         {"prefill": {"flash_attention": GEMMA_GLOBAL, "lru_scan": 0},
          "decode": {"flash_attention": 0, "lru_scan": 0}}, 262144)
-    check(n_params == GEMMA_PARAMS,
-          f"{GEMMA}: {n_params:,} parameters, expected {GEMMA_PARAMS:,}")
+    check(served.n_params == GEMMA_PARAMS,
+          f"{GEMMA}: {served.n_params:,} parameters, expected {GEMMA_PARAMS:,}")
     print(f"flash_attention device time of one prefill's {GEMMA_GLOBAL} "
           f"launches: {GEMMA_GLOBAL * flash_gemma_rec['ms']:.3f} ms "
           f"({GEMMA_GLOBAL} x the {FLASH_GEMMA} time)")
@@ -1601,6 +1764,90 @@ def main() -> None:
         torch.cuda.empty_cache()
     done("17 hybrid replays")
 
+    # -- 18. the stablelm-12b serving path ------------------------------
+    none = {"flash_attention": 0, "lru_scan": 0}
+
+    def prefill_flash(n):
+        return {"prefill": {"flash_attention": n, "lru_scan": 0},
+                "decode": none}
+
+    def flash_time(arch, n, shape):
+        rec = flash_recs[(shape, "bfloat16", "bshd")]
+        print(f"flash_attention device time of one {arch} prefill's {n} "
+              f"launches: {n * rec['ms']:.3f} ms ({n} x the {shape} time)")
+        return rec
+
+    torch.cuda.empty_cache()
+    stablelm_launches, served = phase_serve(
+        torch, serve_mod, kernels, STABLELM, prefill_flash(STABLELM_LAYERS),
+        100352)
+    check(served.n_params == STABLELM_PARAMS, f"{STABLELM}: "
+          f"{served.n_params:,} parameters, expected {STABLELM_PARAMS:,}")
+    flash_stablelm_rec = flash_time(STABLELM, STABLELM_LAYERS, FLASH_STABLELM)
+    phase_serve_profile(torch, tm, get_config, STABLELM)
+    done("18 stablelm serve")
+
+    # -- 19. the command-r-35b serving path -----------------------------
+    torch.cuda.empty_cache()
+    command_r_launches, served = phase_serve(
+        torch, serve_mod, kernels, COMMAND_R,
+        prefill_flash(COMMAND_R_LAYERS), 256000)
+    check(served.n_params == COMMAND_R_PARAMS, f"{COMMAND_R}: "
+          f"{served.n_params:,} parameters, expected {COMMAND_R_PARAMS:,}")
+    flash_command_r_rec = flash_time(COMMAND_R, COMMAND_R_LAYERS,
+                                     FLASH_COMMAND_R)
+    phase_serve_profile(torch, tm, get_config, COMMAND_R)
+    done("19 command-r serve")
+
+    # -- 20. the deepseek-v2-236b serving path, cut to 8 layers ---------
+    torch.cuda.empty_cache()
+    dsv2 = get_config(DSV2).scaled(n_layers=DSV2_LAYERS)
+    dsv2_launches, naive = phase_serve(
+        torch, serve_mod, kernels, dsv2, prefill_flash(DSV2_LAYERS), 102400)
+    check(naive.n_params == DSV2_PARAMS, f"{DSV2} cut to {DSV2_LAYERS} "
+          f"layers: {naive.n_params:,} parameters, expected {DSV2_PARAMS:,}")
+    torch.cuda.empty_cache()
+    dsv2_abs_launches, absorbed = phase_serve(
+        torch, serve_mod, kernels, dsv2, prefill_flash(DSV2_LAYERS), 102400,
+        mla_absorbed=True)
+    check(torch.equal(absorbed.tokens[:, 0], naive.tokens[:, 0]),
+          f"{DSV2}: the absorbed serve's prefill token "
+          f"{absorbed.tokens[:, 0].tolist()} is not the naive one's "
+          f"{naive.tokens[:, 0].tolist()}")
+    for label, res in (("naive", naive), ("absorbed", absorbed)):
+        print(f"{DSV2} {label} decode: ms/step "
+              f"{[round(t * 1e3, 3) for t in res.decode_s]}; tokens "
+              f"{res.tokens.tolist()}")
+    print(f"{DSV2}: naive and absorbed tokens equal "
+          f"{torch.equal(naive.tokens, absorbed.tokens)}")
+    flash_mla_rec = flash_time(DSV2, DSV2_LAYERS, FLASH_MLA)
+    phase_serve_profile(torch, tm, get_config, dsv2)
+    done("20 deepseek-v2 serve")
+
+    # -- 21. the deepseek-v3-671b serving path, cut to 4 layers ---------
+    torch.cuda.empty_cache()
+    dsv3 = get_config(DSV3).scaled(n_layers=DSV3_LAYERS)
+    dsv3_launches, served = phase_serve(
+        torch, serve_mod, kernels, dsv3, prefill_flash(DSV3_LAYERS), 129280)
+    check(served.n_params == DSV3_PARAMS, f"{DSV3} cut to {DSV3_LAYERS} "
+          f"layers: {served.n_params:,} parameters, expected {DSV3_PARAMS:,}")
+    flash_dsv3_rec = flash_time(DSV3, DSV3_LAYERS, FLASH_MLA)
+    phase_serve_profile(torch, tm, get_config, dsv3)
+    done("21 deepseek-v3 serve")
+
+    # -- 22. zoo replays on the CPU -------------------------------------
+    torch.cuda.empty_cache()
+    for arch, options in ((STABLELM, {}),
+                          (DSV2, {"caches": ("ckv", "kr"),
+                                  "absorbed": True})):
+        got = phase_llm_replay(torch, tm, get_config, full_fp32, arch,
+                               kernels, **options)
+        want = {"flash_attention": REPLAY_LAYERS, "lru_scan": 0}
+        check({k: got[k] for k in want} == want,
+              f"{arch} replay: launches {got}, expected {want}")
+        torch.cuda.empty_cache()
+    done("22 zoo replays")
+
     # -- results --------------------------------------------------------
     def entry(name, source, replaces, launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -1611,6 +1858,8 @@ def main() -> None:
                 "library_ms": rec.get("library_ms")}
 
     gn_src = "src/repro_torch/kernels/csrc/gradnorm.cu"
+    sm90_src = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
+    flash_src = "src/repro/kernels/flash_attention.py:112"
     print(f"total wall {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [
         entry("rownorm2", gn_src, "src/repro/kernels/gradnorm.py:62",
@@ -1644,7 +1893,15 @@ def main() -> None:
         entry(f"lru_scan@{RGEMMA}-batch1",
               "src/repro_torch/kernels/csrc/lru_scan.cu",
               "src/repro/kernels/lru_scan.py:70",
-              rg1_launches["lru_scan"], rg1_rec)]}))
+              rg1_launches["lru_scan"], rg1_rec),
+        entry(f"flash_attention@{STABLELM}", sm90_src, flash_src,
+              stablelm_launches["flash_attention"], flash_stablelm_rec),
+        entry(f"flash_attention@{COMMAND_R}", sm90_src, flash_src,
+              command_r_launches["flash_attention"], flash_command_r_rec),
+        entry(f"flash_attention@{DSV2}", sm90_src, flash_src,
+              dsv2_launches["flash_attention"], flash_mla_rec),
+        entry(f"flash_attention@{DSV3}", sm90_src, flash_src,
+              dsv3_launches["flash_attention"], flash_dsv3_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,6 +17,10 @@ ARCHS: List[str] = [
     "falcon-mamba-7b",
     "recurrentgemma-9b",
     "gemma3-12b",
+    "stablelm-12b",
+    "command-r-35b",
+    "deepseek-v2-236b",
+    "deepseek-v3-671b",
 ]
 
 ALIASES = {"llama3.2-3b": "llama3_2-3b"}

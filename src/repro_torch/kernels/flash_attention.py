@@ -7,12 +7,15 @@ the same type out.  Two entries:
 - ``flash_attention(q, k, v)`` keeps the reference's (BH, S, d)
   signature, batch and heads merged;
 - ``flash_attention_bhsd(q, k, v)``, the reference's MHA entry widened
-  to GQA, reads the serving layout in place: q (B, S, H, d) and k, v
-  (B, S, Hk, d) with Hk dividing H, any strides with a unit stride over
-  d; query head h reads kv head h // (H / Hk), as
-  ``models.layers._gqa_split`` groups them.  It makes no fold copy of
-  q, k or v and no per-head copy of the kv heads, and writes a
-  contiguous (B, S, H, d) output.
+  to GQA, reads the serving layout in place: q (B, S, H, d), k (B, S,
+  Hk, d) and v (B, S, Hk, dv) with Hk dividing H and dv <= d, any
+  strides with a unit stride over d; query head h reads kv head
+  h // (H / Hk), as ``models.layers._gqa_split`` groups them.  It makes
+  no fold copy of q, k or v and no per-head copy of the kv heads, and
+  writes a contiguous (B, S, H, dv) output.  A v narrower than q and k
+  (multi-head latent attention's prefill: d = 192, dv = 128) is copied
+  with its columns zero-padded to d before the launch, since the
+  kernels take one head width, and the output is cut back to dv.
 
 On CUDA tensors, bf16 launches the TMA + wgmma tensor-core kernel of
 ``csrc/flash_attention_sm90.cu`` and fp32 the CUDA-core kernel of
@@ -23,8 +26,8 @@ the serving path; any other bf16 operand is first copied into an
 aligned buffer with d zero-padded to a multiple of 8 (``_tma_operand``).
 CPU tensors take the plain version.
 Any other device, a dtype other than float32 or bfloat16, a wrong rank,
-a non-unit stride over d, mismatched shapes or d > 256 raises: there is
-no silent fallback.
+a non-unit stride over d, mismatched shapes, dv > d or d > 256 raises:
+there is no silent fallback.
 """
 from __future__ import annotations
 
@@ -81,17 +84,18 @@ def flash_attention_bhsd_plain(q: torch.Tensor, k: torch.Tensor,
                                scale: Optional[float] = None) -> torch.Tensor:
     """The plain version in the serving layout: the kv heads are
     broadcast to the query heads, then ``flash_attention_plain``.
-    q: (B, S, H, d); k, v: (B, S, Hk, d) -> contiguous (B, S, H, d)."""
+    q: (B, S, H, d); k: (B, S, Hk, d); v: (B, S, Hk, dv) -> contiguous
+    (B, S, H, dv)."""
     B, S, H, d = q.shape
 
     def fold(x):
         if x.shape[2] != H:
             x = x.repeat_interleave(H // x.shape[2], dim=2)
-        return x.movedim(2, 1).reshape(B * H, S, d)
+        return x.movedim(2, 1).reshape(B * H, S, x.shape[-1])
 
     out = flash_attention_plain(fold(q), fold(k), fold(v), causal=causal,
                                 scale=scale)
-    return out.reshape(B, H, S, d).movedim(1, 2).contiguous()
+    return out.reshape(B, H, S, -1).movedim(1, 2).contiguous()
 
 
 # ---------------------------------------------------------------- build
@@ -174,6 +178,24 @@ def _check_pair(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"got d={q.shape[-1]}")
 
 
+def _check_bhsd_shapes(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> None:
+    """q (B, S, H, d), k (B, S, Hk, d) and v (B, S, Hk, dv) with Hk
+    dividing H and dv <= d, on either device."""
+    ok = q.dim() == k.dim() == v.dim() == 4
+    if ok:
+        B, S, H, d = q.shape
+        Hk = k.shape[2]
+        ok = (k.shape[:2] == (B, S) and k.shape[3] == d
+              and v.shape[:3] == k.shape[:3] and v.shape[3] <= d
+              and Hk > 0 and H % Hk == 0)
+    if not ok:
+        raise ValueError("expected q (B, S, H, d), k (B, S, Hk, d) and v "
+                         "(B, S, Hk, dv) with Hk dividing H and dv <= d, got "
+                         f"shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+
+
 def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 o: torch.Tensor) -> tuple:
     """Sizes (B, S, H, Hk, d) and the 12 element strides (batch, seq,
@@ -203,6 +225,15 @@ def _tma_operand(x: torch.Tensor) -> torch.Tensor:
     buf = x.new_empty(x.shape[:-1] + (-(-d // 8) * 8,))
     buf[..., :d] = x
     buf[..., d:] = 0
+    return buf
+
+
+def _value_operand(v: torch.Tensor, d: int) -> torch.Tensor:
+    """v (B, S, Hk, dv) as a fresh contiguous copy with its columns
+    zero-padded to d: zero columns of V add nothing to P V, and the
+    output's padded columns are dropped."""
+    buf = v.new_zeros(v.shape[:-1] + (d,))
+    buf[..., :v.shape[-1]] = v
     return buf
 
 
@@ -250,21 +281,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, S, H, d); k, v: (B, S, Hk, d) with Hk dividing H, read in
-    place (GQA: query head h reads kv head h // (H / Hk)) -> contiguous
-    (B, S, H, d) in the input dtype.  With Hk == H it is the reference's
-    ``ops.flash_attention_bhsd``."""
+    """q: (B, S, H, d); k: (B, S, Hk, d); v: (B, S, Hk, dv) with Hk
+    dividing H and dv <= d, read in place (GQA: query head h reads kv
+    head h // (H / Hk)) -> contiguous (B, S, H, dv) in the input dtype.
+    With Hk == H and dv == d it is the reference's
+    ``ops.flash_attention_bhsd``; with dv < d, the reference's
+    ``causal_attend`` (to which MLA's prefill hands a narrower v)."""
     if _on_cpu(q=q, k=k, v=v):
+        _check_bhsd_shapes(q, k, v)
         return flash_attention_bhsd_plain(q, k, v, causal=causal,
                                           scale=scale)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_tensor(name, x, 4)
-    B, S, H, d = q.shape
-    Hk = k.shape[2]
-    if (k.shape != v.shape or k.shape[:2] != (B, S) or k.shape[3] != d
-            or Hk == 0 or H % Hk):
-        raise ValueError("expected q (B, S, H, d) and k, v (B, S, Hk, d) "
-                         f"with Hk dividing H, got shapes {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _check_bhsd_shapes(q, k, v)
     _check_pair(q, k, v)
-    return _launch(q, k, v, causal, scale)
+    d, dv = q.shape[3], v.shape[3]
+    if dv == d:
+        return _launch(q, k, v, causal, scale)
+    return _launch(q, k, _value_operand(v, d), causal,
+                   scale)[..., :dv].contiguous()

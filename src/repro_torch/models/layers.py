@@ -19,6 +19,7 @@ ported yet (ROADMAP.md queue 1, item 10) and raise.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -49,12 +50,28 @@ def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
     return (y * scale.float()).to(x.dtype)
 
 
+def init_normal(generator: torch.Generator, shape: Tuple[int, ...],
+                std: float, dtype: torch.dtype, device=None) -> Tensor:
+    """N(0, std^2) draws in fp32, cast to ``dtype``.  A tensor of more
+    than 2^28 values is drawn in blocks of leading rows of at most that
+    many (1 GiB of fp32), so a full-size matrix never has an fp32 copy
+    of itself on the card (command-r's untied head would take 7.8 GiB);
+    a smaller one is one draw."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    row = math.prod(shape[1:])
+    step = max(1, (1 << 28) // max(row, 1))
+    for i in range(0, shape[0], step):
+        n = min(step, shape[0] - i)
+        out[i:i + n] = torch.randn((n,) + tuple(shape[1:]),
+                                   generator=generator, device=device,
+                                   dtype=torch.float32).mul_(std)
+    return out
+
+
 def init_dense(generator: torch.Generator, d_in: int, d_out: int,
                dtype: torch.dtype, device=None) -> Tensor:
     """(d_in, d_out) normal draws scaled by d_in^-0.5, drawn in fp32."""
-    w = torch.randn((d_in, d_out), generator=generator, device=device,
-                    dtype=torch.float32)
-    return (w * d_in ** -0.5).to(dtype)
+    return init_normal(generator, (d_in, d_out), d_in ** -0.5, dtype, device)
 
 
 # ------------------------------------------------------------------- rope
@@ -180,7 +197,8 @@ def causal_attend(q: Tensor, k: Tensor, v: Tensor, q_offset: int = 0,
                   window: int = 0, scale: Optional[float] = None,
                   softcap: float = 0.0) -> Tensor:
     """Causal GQA attention over a whole sequence, through the flash
-    kernel.  q: (B,S,H,Dh); k/v: (B,S,Hk,Dh); positions 0..S-1.
+    kernel.  q: (B,S,H,Dh); k: (B,S,Hk,Dh); v: (B,S,Hk,Dv) with Dv <= Dh
+    (MLA's prefill hands a narrower v); positions 0..S-1.
 
     The kernel reads the kv heads in place: q head h reads kv head
     h // (H / Hk), as ``_gqa_split`` groups them.  It takes no window:

@@ -2,12 +2,12 @@
 prefill / decode step functions the serving driver calls.
 
 Counterpart of ``repro/models/model.py`` for the text modality and the
-serving path (attention, sliding-window attention, mamba and RG-LRU
-decoders).  The model is an ``nn.Module`` (``Model``) holding the
-decoder, the embedding table and the LM head, with no gradients
-tracked; the steps run under ``torch.no_grad``.  Training, the FEEL
-integration and the vlm/audio modalities are not ported yet
-(ROADMAP.md queue 1, item 10).
+serving path (attention, sliding-window attention, latent attention,
+mamba and RG-LRU decoders, dense or MoE FFNs).  The model is an
+``nn.Module`` (``Model``) holding the decoder, the embedding table and
+the LM head, with no gradients tracked; the steps run under
+``torch.no_grad``.  Training, the FEEL integration and the vlm/audio
+modalities are not ported yet (ROADMAP.md queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -18,11 +18,11 @@ import torch
 from torch import nn
 
 from .config import ArchConfig
-from . import rglru, ssm
-from .layers import MLP, Attention, _TODO, frozen, init_dense
+from . import mla, moe, rglru, ssm
+from .layers import MLP, Attention, _TODO, frozen, init_dense, init_normal
 from .transformer import (Block, Cache, Decoder, MambaBlock, RGLRUBlock,
-                          _layer_plan, apply_decoder, check_supported,
-                          init_cache, init_decoder)
+                          _layer_plan, _uses_moe, apply_decoder,
+                          check_supported, init_cache, init_decoder)
 
 Tensor = torch.Tensor
 
@@ -44,14 +44,15 @@ class Model(nn.Module):
 def init_model(cfg: ArchConfig, generator: torch.Generator,
                device=None) -> Model:
     """Random weights with the reference's distributions, drawn on
-    ``device`` (the generator's device) tensor by tensor, so full-size
-    weights never pass through the host."""
+    ``device`` (the generator's device) tensor by tensor, the large ones
+    in blocks (``layers.init_normal``), so full-size weights never pass
+    through the host.  On the ``meta`` device it allocates nothing (parameter
+    counts of configs that fit no card)."""
     check_supported(cfg)
     dtype = cfg.act_dtype
     decoder = init_decoder(cfg, generator, device)
-    embed = (torch.randn((cfg.vocab, cfg.d_model), generator=generator,
-                         device=device, dtype=torch.float32)
-             * cfg.d_model ** -0.5).to(dtype)
+    embed = init_normal(generator, (cfg.vocab, cfg.d_model),
+                        cfg.d_model ** -0.5, dtype, device)
     lm_head = (None if cfg.tie_embeddings else
                init_dense(generator, cfg.d_model, cfg.vocab, dtype, device))
     return Model(decoder, embed, lm_head)
@@ -77,9 +78,10 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping,
     of ``tree["decoder"]["body"]["pos{p}"]`` is unstacked into one
     ``Block`` per layer, repeat r and pattern position p at
     ``decoder.body[r * P + p]``.  Values are carried exactly, in
-    ``cfg.act_dtype``, except the mixers' float32 leaves
-    (``ssm.FP32_LEAVES``, ``rglru.FP32_LEAVES``), which stay float32 as
-    in the reference.
+    ``cfg.act_dtype``, except the float32 leaves (``ssm.FP32_LEAVES``,
+    ``rglru.FP32_LEAVES``, the MoE router ``moe.FP32_LEAVES``), which
+    stay float32 as in the reference.  An MoE FFN keeps its ``shared``
+    MLP.
     """
     check_supported(cfg)
     dtype = cfg.act_dtype
@@ -91,18 +93,28 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping,
         return cls(**{n: t(m[n], torch.float32 if n in fp32 else dtype)
                       for n in cls.LEAVES})
 
-    def block(kind, p):
+    def dense(f):
+        return MLP(t(f["w_gate"]), t(f["w_up"]), t(f["w_down"]))
+
+    def block(kind, p, use_moe=False):
         if kind == "mamba":
             return MambaBlock(t(p["ln1"]), mixer(ssm.Mamba, ssm.FP32_LEAVES,
                                                  p["mixer"]))
         f = p["ffn"]
-        ffn = MLP(t(f["w_gate"]), t(f["w_up"]), t(f["w_down"]))
+        ffn = (moe.MoE(shared=dense(f["shared"]) if "shared" in f else None,
+                       **{n: t(f[n], torch.float32 if n in moe.FP32_LEAVES
+                               else dtype) for n in moe.MoE.LEAVES})
+               if use_moe else dense(f))
         if kind == "rglru":
             return RGLRUBlock(t(p["ln1"]), mixer(rglru.RGLRU,
                                                  rglru.FP32_LEAVES,
                                                  p["mixer"]),
                               t(p["ln2"]), ffn)
         a = p["attn"]
+        if kind == "mla":
+            return Block(t(p["ln1"]),
+                         mla.MLA(**{n: t(a[n]) for n in mla.leaves(cfg)}),
+                         t(p["ln2"]), ffn)
         norms = [t(a["q_norm"]), t(a["k_norm"])] if cfg.qk_norm else []
         return Block(t(p["ln1"]),
                      Attention(t(a["wq"]), t(a["wk"]), t(a["wv"]),
@@ -111,13 +123,15 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping,
 
     dec = tree["decoder"]
     head, n_body, pattern, tail = _layer_plan(cfg)
+    use_moe = _uses_moe(cfg)
     body = []
     for r in range(n_body):
         for p, kind in enumerate(pattern):
             stacked = dec["body"][f"pos{p}"]
-            body.append(block(kind, _index(stacked, r)))
+            body.append(block(kind, _index(stacked, r), use_moe))
     decoder = Decoder([block(k, p) for k, p in zip(head, dec["head"])], body,
-                      [block(k, p) for k, p in zip(tail, dec["tail"])],
+                      [block(k, p, use_moe)
+                       for k, p in zip(tail, dec["tail"])],
                       t(dec["final_norm"]))
     return Model(decoder, t(tree["embed"]),
                  None if cfg.tie_embeddings else t(tree["lm_head"]))
@@ -175,10 +189,12 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig) -> Callable:
+def make_decode_step(cfg: ArchConfig, mla_absorbed: bool = False
+                     ) -> Callable:
     """decode_step(model, cache, batch) -> (logits (B, 1, V), cache): one
     new token per sequence at position ``batch["cache_index"]`` (an int),
-    written into the cache in place."""
+    written into the cache in place.  ``mla_absorbed``: the absorbed
+    decode path of ``mla`` blocks (``mla.py``)."""
 
     @torch.no_grad()
     def decode_step(model: Model, cache: Cache,
@@ -188,7 +204,8 @@ def make_decode_step(cfg: ArchConfig) -> Callable:
         pos = _positions(cfg, x.shape[0], 1, offset=idx, device=x.device)
         hidden, cache = apply_decoder(cfg, model.decoder, x, pos,
                                       mode="decode", cache=cache,
-                                      cache_index=idx)
+                                      cache_index=idx,
+                                      mla_absorbed=mla_absorbed)
         return unembed(cfg, model, hidden), cache
 
     return decode_step

@@ -167,6 +167,69 @@ def test_cuda_flash_gqa_at_the_gemma3_global_shape(cuda):
                                rtol=2e-2)
 
 
+# (B, S, H, Hk, d, dv): stablelm-12b's head width d = 160 with GQA, and
+# multi-head latent attention's q, k at d = 192 with v at dv = 128 (v
+# zero-padded to d by the wrapper), each at its fp32 replay's shape (256
+# tokens) and at a small one past a tile edge; dv < d with GQA and d %
+# 8 != 0 besides
+FLASH_WIDTHS = [(1, 256, 32, 8, 160, 160), (2, 129, 4, 2, 160, 160),
+                (1, 256, 128, 128, 192, 128), (2, 130, 4, 4, 192, 128),
+                (1, 77, 6, 2, 40, 24), (1, 65, 3, 3, 20, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hk,d,dv", FLASH_WIDTHS)
+def test_cuda_flash_head_widths_and_narrower_v(cuda, b, s, h, hk, d, dv,
+                                               dtype):
+    q = _normal(d, (b, s, h, d), cuda).to(dtype)
+    k = _normal(d + 1, (b, s, hk, d), cuda).to(dtype)
+    v = _normal(d + 2, (b, s, hk, dv), cuda).to(dtype)
+    scale = 192 ** -0.5 if dv < d else None  # MLA scales by nope + rope
+    flash_attention.reset_launch_counts()
+    got = ops.flash_attention_bhsd(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash_attention": 1}
+    assert got.dtype == dtype and got.shape == (b, s, h, dv)
+    assert got.is_contiguous()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(),
+        flash_attention.flash_attention_bhsd_plain(q, k, v,
+                                                   scale=scale).float(),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [((4, 2048, 32, 160), (4, 2048, 8, 160),
+                                    (4, 2048, 8, 160)),
+                                   ((4, 2048, 128, 192), (4, 2048, 128, 192),
+                                    (4, 2048, 128, 128))])
+def test_cuda_flash_at_the_stablelm_and_mla_serving_shapes(cuda, shape):
+    """bf16 at the serving requests' prefill shapes: stablelm-12b's GQA
+    at d = 160, and deepseek's latent attention (128 heads, q and k at d
+    = 192, v at 128)."""
+    q, k, v = (_normal(i, s, cuda).bfloat16() for i, s in enumerate(shape))
+    flash_attention.reset_launch_counts()
+    got = ops.flash_attention_bhsd(q, k, v, scale=shape[0][3] ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash_attention": 1}
+    assert got.shape == shape[0][:3] + shape[2][3:]
+    want = flash_attention.flash_attention_bhsd_plain(
+        q, k, v, scale=shape[0][3] ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_a_wider_v(cuda):
+    q = _normal(0, (1, 64, 2, 32), cuda)
+    flash_attention.reset_launch_counts()
+    with pytest.raises(ValueError, match="dv <= d"):
+        ops.flash_attention_bhsd(q, q, _normal(1, (1, 64, 2, 40), cuda))
+    assert flash_attention.LAUNCHES == {"flash_attention": 0}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,hk,d", [(1, 6, 2, 64), (2, 4, 1, 128),
@@ -317,6 +380,54 @@ def test_cuda_rglru_mixer_prefill_matches_the_cpu(cuda):
     assert out["cuda"][3] == {"lru_scan": 1}
     for got, want in zip(out["cuda"][:3], out["cpu"][:3]):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("absorbed", [False, True])
+def test_cuda_deepseek_smoke_decoder_matches_the_cpu(cuda, absorbed):
+    """deepseek-v2-236b's smoke decoder (latent attention, a dense head
+    layer and an MoE layer) in fp32 with TF32 off on the card, its
+    prefill through the fp32 flash kernel (v narrower than q, k), against
+    the same weights on the CPU: prefill logits, the latent caches and 4
+    decode steps at rtol 1e-4 (the replays' tolerance, chip_smoke.py),
+    and the MoE routing equal."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.device import full_fp32
+    from repro_torch.models import model as tm
+    from repro_torch.models.moe import MoE
+    cfg = smoke_config("deepseek-v2-236b").scaled(dtype="float32")
+    model = tm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda):
+        model.to(dev)
+        moe = [m for m in model.modules() if isinstance(m, MoE)]
+        for m in moe:
+            m.routing_log = []
+        flash_attention.reset_launch_counts()
+        with full_fp32():
+            cache = tm.make_cache(cfg, 2, 44, device=dev)
+            logits, cache = tm.make_prefill_step(cfg)(
+                model, {"tokens": toks.to(dev)}, cache)
+            steps = [logits.cpu()]
+            decode = tm.make_decode_step(cfg, mla_absorbed=absorbed)
+            for i in range(4):
+                tok = torch.argmax(logits[:, -1], -1)
+                logits, cache = decode(model, cache, {
+                    "tokens": tok[:, None], "cache_index": 40 + i})
+                steps.append(logits.cpu())
+        out[str(dev)] = (steps, {n: c.cpu() for n, c in
+                                 cache["body"]["pos0"].items()},
+                         moe[0].routing_log[0]["top_idx"].cpu(),
+                         dict(flash_attention.LAUNCHES))
+    assert out["cpu"][3] == {"flash_attention": 0}
+    assert out["cuda"][3] == {"flash_attention": cfg.n_layers}
+    for got, want in zip(out["cuda"][0] + list(out["cuda"][1].values()),
+                         out["cpu"][0] + list(out["cpu"][1].values())):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
 
 
 @pytest.mark.cuda

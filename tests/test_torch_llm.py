@@ -105,7 +105,7 @@ def test_decode_attend_matches_reference(index):
 
 
 def test_unported_attention_paths_raise():
-    """Softcapping, ``mla`` blocks and MoE FFNs are not ported; the
+    """Softcapping, M-RoPE and the vlm modality are not ported; the
     flash path takes no window (local layers have their own path)."""
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(NotImplementedError, match="local_attend_chunked"):
@@ -117,8 +117,8 @@ def test_unported_attention_paths_raise():
         with pytest.raises(NotImplementedError, match="softcap"):
             call()
     cfg = smoke_config(ARCH)
-    for bad in (cfg.scaled(layer_pattern=("mla",), kv_lora=16),
-                cfg.scaled(n_experts=4, topk=2, moe_d_ff=32),
+    for bad in (cfg.scaled(modality="vlm", mrope_sections=(6, 5, 5)),
+                cfg.scaled(mrope_sections=(6, 5, 5)),
                 cfg.scaled(attn_logit_softcap=50.0)):
         with pytest.raises(NotImplementedError):
             tt.init_decoder(bad, torch.Generator().manual_seed(0))
