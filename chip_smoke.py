@@ -28,7 +28,9 @@ exit) if anything in it fails; no failure is caught:
    = 128, which the wrapper zero-pads to d; the padding copy timed
    alone, and the same heads at d = dv = 128 beside them), and fp32
    flash at the zoo replays' shapes (d = 160; d = 192 with dv = 128),
-   every flash case with % of bound; the scan, fp32 and bf16, also at the seams of its
+   every flash case with % of bound; ``gradnorm_sigma`` also at the
+   256-device round's (51200, 84) + (51200, 10); the scan, fp32 and
+   bf16, also at the seams of its
    chunk of L
    steps (S of 1, L - 1, L, L + 1; C of 1 and 130; a view 4 bytes past
    a 16-byte boundary; a batch of 70000; gates in (0.999, 1) at S =
@@ -155,15 +157,34 @@ exit) if anything in it fails; no failure is caught:
    layers, the MoE layer's routing equal (each token's top-k experts,
    each expert's tokens where the gate is > 0, with the smallest gap
    between the k-th and (k+1)-th router probability printed), and 8
-   greedy steps, deepseek's on the naive and the absorbed path.
+   greedy steps, deepseek's on the naive and the absorbed path;
+23. the trainer's options at phase 4's setup, 2 rounds each on the
+   card, each replayed on the CPU from the same initial state and
+   channel draws, round 1 from the card's state after round 0 (phase
+   5's rule; params by the optimizer's own noise rule): (a)
+   ``local_steps=3`` with sgd (FedAvg pseudo-gradients), (b) momentum
+   with one warmup round (every sample selected, the selection stage
+   present) and ``gp_step0=5.0``, (c) adafactor with
+   ``sigma_method="full"``, whose round-2 checkpoint is written on the
+   card and resumed on the CPU (params and factored moments
+   bit-identical, round 2 held under the rule), (d)
+   ``sigma_method="last_layer"``; the kernel launches once a round in
+   (a) and (b) and never in (c) and (d);
+24. a 256-device round: ``default_system(K=256, N=32, Q=8, D_hat=200)``
+   at 28x28, ``selection_chunk=64`` and the batched matching sweep, 3
+   rounds with sigma through the kernel at (51200, 84) + (51200, 10),
+   the per-stage ms of rounds 1 and up, round 0 replayed on the CPU.
 
 Every replay (8, 10, 17, 22) draws its weights on the card from a
 seed, runs there, moves them to the host and runs again.  Launch counts
 are zeroed just before each path (4, 7, 9, 11, 12b, 13,
-14, both requests of 15, 16, 18, 19, both requests of 20, 21, and the
-card's runs in 8, 10, 17 and 22) and read just after.  It prints one
+14, both requests of 15, 16, 18, 19, both requests of 20, 21, the
+card's runs in 8, 10, 17 and 22, each run of 23, and 24) and read just
+after.  It prints one
 ``{"kernels": [...]}`` line, with one entry per kernel and serving shape
-(the bf16 flash kernel at llama's, gemma3's, stablelm's, command-r's,
+(``gradnorm_sigma`` at the §VI-A shape with the launches of phases 4,
+11-14 and 23, and at the 256-device shape with phase 24's own; the
+bf16 flash kernel at llama's, gemma3's, stablelm's, command-r's,
 deepseek-v2's and deepseek-v3's, the last two at the one latent
 attention shape, each with the launches of its own path: phase 20's
 naive request and phase 21's; the scan at mamba's and at
@@ -240,6 +261,19 @@ SCAN_BIG_BATCH = (70000, 3, 5)     # a batch past 65535
 SCAN_TOL = 1e-5
 MAMBA, MAMBA_LAYERS, MAMBA_PARAMS = "falcon-mamba-7b", 64, 7_272_665_088
 FAULT_ROUNDS, RESUME_AT = 4, 2  # phase 14: fault rounds, checkpoint round
+# phase 23: the trainer's options at the §VI-A setup, 2 rounds each, each
+# replayed on the CPU: (label, FEELConfig options, sigma kernel launches
+# a round)
+OPTION_ROUNDS = 2
+OPTION_RUNS = (
+    ("a", dict(local_steps=3, optimizer="sgd"), 1),
+    ("b", dict(optimizer="momentum", warmup_rounds=1, gp_step0=5.0), 1),
+    ("c", dict(optimizer="adafactor", sigma_method="full"), 0),
+    ("d", dict(sigma_method="last_layer"), 0),
+)
+# phase 24: a 256-device round at benchmarks/scale.py's geometry (N = 32,
+# Q = 8: capacity K), the chunked GP and the batched matching sweep
+K256, N256, Q256, CHUNK256, ROUNDS256 = 256, 32, 8, 64, 3
 RGEMMA, RGEMMA_PARAMS, RGEMMA_RGLRU = "recurrentgemma-9b", 10_444_771_328, 26
 GEMMA, GEMMA_PARAMS, GEMMA_GLOBAL = "gemma3-12b", 12_772_052_736, 8
 # phase 17: one pattern of each hybrid, the window cut below the prompt
@@ -313,6 +347,11 @@ def bound(n_bytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_launches(kernels):
+    """{kernel name: launches since its module's last reset}."""
+    return {k: v for m in kernels for k, v in m.LAUNCHES.items()}
+
+
 def max_rel(got, want) -> float:
     return float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
 
@@ -327,8 +366,8 @@ def phase_kernels(torch, gradnorm):
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    rows = K * D_HAT
-    main_sigma = main_norm = None
+    rows, rows256 = K * D_HAT, K256 * D_HAT
+    main_sigma = main_norm = big_sigma = None
     for n, f in TEST_SHAPES + [(rows, 84), (rows, 10)]:
         x = randn(n, f)
         got, want = gradnorm.rownorm2(x), gradnorm.rownorm2_plain(x)
@@ -355,7 +394,7 @@ def phase_kernels(torch, gradnorm):
         if (n, f) == (rows, 84):
             main_norm = rec
 
-    for n, f in TEST_SHAPES + [(rows, 84)]:
+    for n, f in TEST_SHAPES + [(rows, 84), (rows256, 84)]:
         h, d = randn(n, f), randn(n, 10)
         got = gradnorm.gradnorm_sigma(h, d)
         want = gradnorm.gradnorm_sigma_plain(h, d)
@@ -377,7 +416,9 @@ def phase_kernels(torch, gradnorm):
               f"plain {call_ms(torch, lambda: gradnorm.gradnorm_sigma_plain(h, d)):.6f}")
         if n == rows:
             main_sigma = rec
-    return main_norm, main_sigma
+        if n == rows256:
+            big_sigma = rec
+    return main_norm, main_sigma, big_sigma
 
 
 def flash_bound(b: int, s: int, h: int, hk: int, d: int, causal: bool,
@@ -586,23 +627,27 @@ def phase_scan(torch, lru, ops):
     return recs
 
 
-def make_data(rt):
+def make_data(rt, k=K):
     train = rt.data.SyntheticImages.make(6000, side=SIDE, seed=0)
     test = rt.data.SyntheticImages.make(1500, side=SIDE, seed=1)
-    return rt.data.non_iid_split(train, test, K=K, per_device=600,
+    return rt.data.non_iid_split(train, test, K=k, per_device=600,
                                  mislabel_prop=0.1, seed=0)
 
 
 def make_trainer(rt, torch, data, state_dict, device, telemetry=None,
-                 monitor=False, faults=None, resilience=None, **options):
-    """A trainer at the §VI-A setup; ``telemetry``: an ``obs`` sink;
-    ``monitor``: attach a ``ConvergenceMonitor`` writing to that sink
-    and to the process-default metrics registry; ``faults`` and
-    ``resilience``: the trainer's fault plan and resilience policies."""
+                 monitor=False, faults=None, resilience=None,
+                 geometry=(K, N, Q), **options):
+    """A trainer at the §VI-A setup (``geometry``: its K, N, Q);
+    ``telemetry``: an ``obs`` sink; ``monitor``: attach a
+    ``ConvergenceMonitor`` writing to that sink and to the
+    process-default metrics registry; ``faults`` and ``resilience``: the
+    trainer's fault plan and resilience policies; ``options``: further
+    ``FEELConfig`` fields."""
     cfg = rt.fed.FEELConfig(d_hat=D_HAT, gp_steps=GP_STEPS, lr=LR, **options)
     model = rt.models.cnn.CNN(rt.models.cnn.CNNConfig(side=SIDE))
     model.load_state_dict(state_dict)
-    sys_ = rt.core.default_system(K=K, N=N, Q=Q, D_hat=D_HAT, device=device)
+    k, n, q = geometry
+    sys_ = rt.core.default_system(K=k, N=n, Q=q, D_hat=D_HAT, device=device)
     mon = (rt.obs.ConvergenceMonitor(sys_, telemetry=telemetry,
                                      registry=rt.obs.metrics.get_default())
            if monitor else None)
@@ -615,14 +660,40 @@ def host(tensors):
     return {n: t.detach().cpu().clone() for n, t in tensors.items()}
 
 
+def moved(state, device):
+    """A copy of an optimizer state (NamedTuples, dicts and tuples of
+    tensors and step counts) on ``device``."""
+    if isinstance(state, dict):
+        return {n: moved(v, device) for n, v in state.items()}
+    if isinstance(state, tuple):
+        items = [moved(v, device) for v in state]
+        return type(state)(*items) if hasattr(state, "_fields") else \
+            tuple(items)
+    if hasattr(state, "detach"):
+        return state.detach().to(device, copy=True)
+    return state
+
+
 def round_record(tr):
-    """What a replay holds the card's round against."""
+    """What a replay holds the card's round against.  ``signal``: per
+    parameter the tensor whose entries at float32 noise mark where the
+    optimizer's step direction is noise (Adam's first moment,
+    adafactor's gradient; none for sgd and momentum, whose steps are
+    linear in the gradient), and ``clip`` the most such an entry can
+    move a round, in units of lr (adafactor: sqrt(n) after its RMS
+    clip)."""
     st, dec = tr.last_state, tr.last_decision
+    opt = tr.cfg.optimizer
+    signal = (host(tr.opt_state.mu) if opt == "adam" else
+              host(tr.last_g_hat) if opt == "adafactor" else {})
     return {"rho": dec.rho.copy(), "delta": dec.delta.cpu(),
             "delta_cont": (None if dec.delta_cont is None
                            else dec.delta_cont.cpu()),
             "sigma": st.sigma.cpu(), "net_cost": dec.net_cost,
-            "params": host(tr.params), "mu": host(tr.opt_state.mu),
+            "params": host(tr.params), "signal": signal,
+            "opt_state": moved(tr.opt_state, "cpu"),
+            "clip": {n: (math.sqrt(p.numel()) if opt == "adafactor" else 1.0)
+                     for n, p in tr.params.items()},
             "state": st}
 
 
@@ -649,42 +720,68 @@ def check_same_decision(torch, want, dec, label):
     return differ, in_band
 
 
-def phase_replay(rt, torch, data, init_sd, gpu0, label="", **options):
-    """Round 0 on the CPU against the card's round 0 (same trainer
-    ``options``), under ``check_same_decision``'s rule; sigma and params
-    are held too."""
-    cpu = make_trainer(rt, torch, data, init_sd, "cpu", **options)
-    t0 = time.perf_counter()
-    cpu.run_round(0)
-    wall = time.perf_counter() - t0
+def check_replayed_round(torch, want, cpu, label):
+    """The replay rule for one round run from the same params and
+    optimizer state: ``check_same_decision``, sigma at SIGMA_RTOL, and
+    params: an entry whose ``signal`` is at float32 noise may differ by
+    up to 2 * lr * clip, every entry by that much; the others, while
+    the selections are equal, at atol 1e-6 + rtol 1e-5."""
     dec = cpu.last_decision
-    differ, in_band = check_same_decision(torch, gpu0, dec,
-                                          f"replay{label}")
-    sig_rel = max_rel(gpu0["sigma"], cpu.last_state.sigma)
-    check(sig_rel <= SIGMA_RTOL, f"replay{label}: sigma rel err {sig_rel:.3g}")
+    differ, in_band = check_same_decision(torch, want, dec, label)
+    sig_rel = max_rel(want["sigma"], cpu.last_state.sigma)
+    check(sig_rel <= SIGMA_RTOL, f"{label}: sigma rel err {sig_rel:.3g}")
     worst, n_noise, n_total = 0.0, 0, 0
     same_selection = not bool(differ.any())
     for name, p in cpu.params.items():
-        p_g, m_abs = gpu0["params"][name], gpu0["mu"][name].abs()
-        noise = (m_abs > 0) & (m_abs <= NOISE * m_abs.max())
+        p_g = want["params"][name]
+        noise = torch.zeros_like(p_g, dtype=torch.bool)
+        if name in want["signal"]:
+            s_abs = want["signal"][name].abs()
+            noise = (s_abs > 0) & (s_abs <= NOISE * s_abs.max())
         diff = (p.detach() - p_g).abs()
         n_noise += int(noise.sum())
         n_total += p.numel()
         if same_selection:
             tight = 1e-6 + 1e-5 * p_g.abs()
             check(bool(torch.all(diff[~noise] <= tight[~noise])),
-                  f"replay{label}: params {name} differ")
-        check(bool(torch.all(diff <= 2 * LR)),
-              f"replay{label}: params {name} differ")
+                  f"{label}: params {name} differ")
+        check(bool(torch.all(diff <= 2 * LR * want["clip"][name])),
+              f"{label}: params {name} differ")
         worst = max(worst, float(diff.max()))
-    print(f"replay{label} round 0 on cpu ({wall:.2f} s): rho equal, "
-          f"selection equal "
-          f"outside |delta-1/2|<{SELECTION_BAND} ({int(in_band.sum())} entries "
-          f"in the band, {int(differ.sum())} differ), sigma max rel err "
-          f"{sig_rel:.3g}, net_cost gpu {gpu0['net_cost']:.6f} cpu "
-          f"{dec.net_cost:.6f}, params max abs err {worst:.3g} "
-          f"({n_noise}/{n_total} entries with a first moment at float32 "
-          f"noise held at 2*lr)")
+    return (f"rho equal, selection equal outside |delta-1/2|<"
+            f"{SELECTION_BAND} ({int(in_band.sum())} entries in the band, "
+            f"{int(differ.sum())} differ), sigma max rel err {sig_rel:.3g}, "
+            f"net_cost gpu {want['net_cost']:.6f} cpu {dec.net_cost:.6f}, "
+            f"params max abs err {worst:.3g} ({n_noise}/{n_total} entries "
+            "whose step direction is at float32 noise held at 2*lr*clip)")
+
+
+def phase_replay(rt, torch, data, init_sd, gpu_recs, label="",
+                 geometry=(K, N, Q), **options):
+    """The card's first rounds again on the CPU (same trainer
+    ``options``, the same initial state and channel draws), each held
+    against the card's under ``check_replayed_round``.  ``gpu_recs``:
+    one ``round_record`` or a list, one a round from round 0.  Round
+    i > 0 starts from the card's params and optimizer state after round
+    i - 1, so each round is held to one round's divergence: an entry
+    that Adam or adafactor moved by a noise-level step would otherwise
+    carry its up to 2 * lr into every later round."""
+    if isinstance(gpu_recs, dict):
+        gpu_recs = [gpu_recs]
+    cpu = make_trainer(rt, torch, data, init_sd, "cpu", geometry=geometry,
+                       **options)
+    for i, want in enumerate(gpu_recs):
+        if i:
+            prev = gpu_recs[i - 1]
+            with torch.no_grad():
+                for name, p in cpu.params.items():
+                    p.copy_(prev["params"][name])
+            cpu.opt_state = moved(prev["opt_state"], "cpu")
+        t0 = time.perf_counter()
+        cpu.run_round(i)
+        wall = time.perf_counter() - t0
+        line = check_replayed_round(torch, want, cpu, f"replay{label}")
+        print(f"replay{label} round {i} on cpu ({wall:.2f} s): {line}")
 
 
 def stage_ms(obs, tele, i):
@@ -701,16 +798,149 @@ def print_round(label, i, m, obs=None, tele=None):
           f"uploaded {m.n_uploaded}" + stages)
 
 
-def check_assignment(rho, alpha, label):
+def check_assignment(rho, alpha, label, q=Q):
     """Definition 1 / constraints (12)-(14): each available device at
-    most one RB, each RB at most Q devices, no RB for an unavailable
+    most one RB, each RB at most q devices, no RB for an unavailable
     device."""
     per_dev, per_rb = rho.sum(axis=1), rho.sum(axis=0)
     avail = alpha > 0
     check(bool((per_dev[avail] <= 1).all()) and bool((per_dev[~avail] == 0)
                                                      .all()),
           f"{label}: a device holds more than one RB or is unavailable")
-    check(bool((per_rb <= Q).all()), f"{label}: an RB holds more than {Q}")
+    check(bool((per_rb <= q).all()), f"{label}: an RB holds more than {q}")
+
+
+def check_round(torch, tr, label, i, k=K):
+    """Finite sigma of shape (k, D̂), finite params, a valid assignment."""
+    st, dec = tr.last_state, tr.last_decision
+    check(tuple(st.sigma.shape) == (k, D_HAT), f"{label}: sigma shape")
+    check(bool(torch.isfinite(st.sigma).all()), f"{label}: sigma not finite")
+    check(all(bool(torch.isfinite(p).all()) for p in tr.params.values()),
+          f"{label} round {i}: params not finite")
+    check_assignment(dec.rho, st.alpha.cpu().numpy(), label, tr.sys.Q)
+
+
+def phase_options(rt, torch, data, init_sd, kernels, gradnorm):
+    """Phase 23: each of ``OPTION_RUNS`` for ``OPTION_ROUNDS`` rounds on
+    the card, each replayed on the CPU; run (c)'s checkpoint written on
+    the card and resumed on the CPU.  Returns the launches of the
+    card's rounds, summed over the runs."""
+    import shutil
+    import tempfile
+
+    total = {}
+    for label, options, per_round in OPTION_RUNS:
+        name = f"options ({label}) " + " ".join(
+            f"{k}={v}" for k, v in options.items())
+        tele = rt.obs.Telemetry()  # in memory: the stage times
+        tr = make_trainer(rt, torch, data, init_sd, "cuda", telemetry=tele,
+                          **options)
+        for m in kernels:
+            m.reset_launch_counts()
+        recs, ms = [], []
+        for i in range(OPTION_ROUNDS):
+            m = tr.run_round(i)
+            check_round(torch, tr, name, i)
+            check(gradnorm.LAUNCHES["gradnorm_sigma"] == per_round * (i + 1),
+                  f"{name}: gradnorm_sigma launches {dict(gradnorm.LAUNCHES)}"
+                  f" after round {i}")
+            print_round(name, i, m, rt.obs, tele)
+            recs.append(round_record(tr))
+            ms.append(m)
+        if tr.cfg.warmup_rounds:
+            check(ms[0].n_selected == K * D_HAT and recs[0]["delta_cont"]
+                  is None, f"{name}: the warmup round did not select all")
+            check("selection" in stage_ms(rt.obs, tele, 0),
+                  f"{name}: the warmup round has no selection stage")
+        if label == "c":
+            # a checkpoint written on the card, resumed on the CPU; both
+            # then run round OPTION_ROUNDS
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+            path = tr.save_checkpoint(str(Path(tmp) / "ck"),
+                                      next_round=OPTION_ROUNDS)
+            saved = {"params": host(tr.params), "vr": host(tr.opt_state.vr),
+                     "vc": host(tr.opt_state.vc),
+                     "count": tr.opt_state.count}
+            tr.run_round(OPTION_ROUNDS)
+            card = round_record(tr)
+            cpu = make_trainer(rt, torch, data, init_sd, "cpu", **options)
+            check(cpu.resume(path) == OPTION_ROUNDS, f"{name}: resumed round")
+            same = (cpu.opt_state.count == saved["count"]
+                    and all(torch.equal(cpu.params[n], saved["params"][n])
+                            for n in saved["params"])
+                    and all(torch.equal(getattr(cpu.opt_state, f)[n],
+                                        saved[f][n])
+                            for f in ("vr", "vc") for n in saved[f]))
+            check(same, f"{name}: the CPU's resumed params or adafactor "
+                  "state differ from the card's")
+            t0 = time.perf_counter()
+            cpu.run_round(OPTION_ROUNDS)
+            line = check_replayed_round(torch, card, cpu,
+                                        f"{name} resumed on cpu")
+            n_bytes = sum(os.path.getsize(Path(tmp) / f)
+                          for f in os.listdir(tmp))
+            print(f"{name}: checkpoint of round {OPTION_ROUNDS} written on "
+                  f"the card ({n_bytes} bytes), resumed on the cpu with "
+                  f"params, vr, vc and count (={saved['count']}) "
+                  f"bit-identical; round {OPTION_ROUNDS} on cpu "
+                  f"({time.perf_counter() - t0:.2f} s): {line}")
+            shutil.rmtree(tmp)
+        launches = kernel_launches(kernels)
+        want = per_round * (OPTION_ROUNDS + (label == "c"))
+        check(launches == {"rownorm2": 0, "gradnorm_sigma": want,
+                           "flash_attention": 0, "lru_scan": 0},
+              f"{name}: launches {launches}")
+        print(f"{name}: launches {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del tr
+        phase_replay(rt, torch, data, init_sd, recs, label=f" {name}",
+                     **options)
+    return total
+
+
+def phase_k256(rt, torch, init_sd, kernels, gradnorm):
+    """Phase 24: ``ROUNDS256`` rounds of ``K256`` devices on the card
+    with the chunked GP and the batched matching sweep, sigma through
+    the kernel at (K256 * D̂, 84) + (K256 * D̂, 10); round 0 replayed
+    on the CPU.  Returns the launches of the card's rounds."""
+    data = make_data(rt, K256)
+    geometry = (K256, N256, Q256)
+    options = dict(selection_chunk=CHUNK256, matching_mode="batched")
+    tele = rt.obs.Telemetry()  # in memory: the stage times
+    tr = make_trainer(rt, torch, data, init_sd, "cuda", telemetry=tele,
+                      geometry=geometry, **options)
+    print(f"K={K256} path: N={N256} Q={Q256} d_hat={D_HAT} side={SIDE} "
+          f"gp_steps={GP_STEPS} {options}; sigma through the kernel at "
+          f"({K256 * D_HAT}, 84) + ({K256 * D_HAT}, 10)")
+    for m in kernels:
+        m.reset_launch_counts()
+    rec0, walls = None, []
+    for i in range(ROUNDS256):
+        m = tr.run_round(i)
+        check_round(torch, tr, f"K={K256}", i, K256)
+        check(gradnorm.LAUNCHES["gradnorm_sigma"] == i + 1,
+              f"K={K256}: gradnorm_sigma launches {dict(gradnorm.LAUNCHES)} "
+              f"after round {i}")
+        check(m.n_selected > 0 and abs(m.net_cost) < float("inf"),
+              f"K={K256}: empty selection or non-finite net cost")
+        print_round(f"K={K256}", i, m, rt.obs, tele)
+        walls.append(m.wall_s)
+        if i == 0:
+            rec0 = round_record(tr)
+    launches = kernel_launches(kernels)
+    check(launches == {"rownorm2": 0, "gradnorm_sigma": ROUNDS256,
+                       "flash_attention": 0, "lru_scan": 0},
+          f"K={K256}: launches {launches}")
+    later = [stage_ms(rt.obs, tele, i) for i in range(1, ROUNDS256)]
+    print(f"K={K256}: launches {launches}; rounds 1-{ROUNDS256 - 1} wall ms "
+          f"{[round(w * 1e3, 3) for w in walls[1:]]}, stage ms "
+          + "; ".join(" ".join(f"{k}={v:.3f}" for k, v in st.items())
+                      for st in later))
+    del tr
+    phase_replay(rt, torch, data, init_sd, rec0, label=f" K={K256}",
+                 geometry=geometry, **options)
+    return launches
 
 
 def phase_schemes(rt, torch, data, init_sd, kernels, gradnorm):
@@ -748,7 +978,7 @@ def phase_schemes(rt, torch, data, init_sd, kernels, gradnorm):
               f"{gradnorm.LAUNCHES['gradnorm_sigma'] - start}, wall ms per "
               f"round {[round(w * 1e3, 3) for w in walls]}")
         del tr
-    launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
+    launches = kernel_launches(kernels)
     check(launches == {"rownorm2": 0, "gradnorm_sigma": 4 * ROUNDS,
                        "flash_attention": 0, "lru_scan": 0},
           f"launches on the schemes' path {launches}")
@@ -829,7 +1059,7 @@ def phase_ccp_round(rt, torch, data, init_sd, kernels, gradnorm):
     for m in kernels:
         m.reset_launch_counts()
     m = tr.run_round(0)
-    launches = {k: v for mod in kernels for k, v in mod.LAUNCHES.items()}
+    launches = kernel_launches(kernels)
     check(launches == {"rownorm2": 0, "gradnorm_sigma": 1,
                        "flash_attention": 0, "lru_scan": 0},
           f"launches on the CCP round {launches}")
@@ -939,7 +1169,7 @@ def phase_traced(rt, torch, data, init_sd, kernels, gradnorm, gpu0,
                                 "traced round 0 against phase 4's")
         if tr is proposed and not i % 2:
             run_plain(i)
-    launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
+    launches = kernel_launches(kernels)
     tele.close()
     obs.metrics.set_default(None)
 
@@ -1165,7 +1395,7 @@ def phase_resilience(rt, torch, data, init_sd, kernels, gradnorm):
                            resilience=res)
     check(resumed.resume(at2) == RESUME_AT, "resilience: resumed round")
     ms_b = resumed.run(FAULT_ROUNDS)
-    launches = {k: v for mod in kernels for k, v in mod.LAUNCHES.items()}
+    launches = kernel_launches(kernels)
     check(launches == {"rownorm2": 0,
                        "gradnorm_sigma": 2 * FAULT_ROUNDS - RESUME_AT,
                        "flash_attention": 0, "lru_scan": 0},
@@ -1193,7 +1423,7 @@ def phase_resilience(rt, torch, data, init_sd, kernels, gradnorm):
                         resilience=res)
     check(free.resume(at2) == RESUME_AT, "resilience: resumed round")
     ms_f = free.run(FAULT_ROUNDS)
-    launches = {k: v for mod in kernels for k, v in mod.LAUNCHES.items()}
+    launches = kernel_launches(kernels)
     check(launches == {"rownorm2": 0,
                        "gradnorm_sigma": 3 * FAULT_ROUNDS - 2 * RESUME_AT,
                        "flash_attention": 0, "lru_scan": 0},
@@ -1281,7 +1511,7 @@ def phase_serve(torch, serve_mod, kernels, arch, expected, vocab,
     res = serve_mod.serve(arch, batch=batch, prompt_len=PROMPT,
                           new_tokens=NEW_TOKENS, smoke=False, seed=0,
                           device="cuda", **options)
-    launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
+    launches = kernel_launches(kernels)
     peak = torch.cuda.max_memory_allocated()
     check(res.launches == expected,
           f"{name}: launches per phase {res.launches}, expected {expected}")
@@ -1452,7 +1682,7 @@ def phase_llm_replay(torch, tm, get_config, full_fp32, arch, kernels,
     for m in kernels:
         m.reset_launch_counts()
     gpu = run("cuda")
-    launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
+    launches = kernel_launches(kernels)
     model.to("cpu")
     torch.cuda.empty_cache()
     cpu = run("cpu")
@@ -1566,7 +1796,7 @@ def main() -> None:
     done("2 build")
 
     # -- 3. kernels against their plain versions ------------------------
-    norm_rec, sigma_rec = phase_kernels(torch, gradnorm)
+    norm_rec, sigma_rec, sigma256_rec = phase_kernels(torch, gradnorm)
     flash_recs = phase_flash(torch, flash_attention, ops)
     flash_rec = flash_recs[(FLASH_GQA, "bfloat16", "bshd")]
     flash_gemma_rec = flash_recs[(FLASH_GEMMA, "bfloat16", "bshd")]
@@ -1609,7 +1839,7 @@ def main() -> None:
               + ("" if m.test_acc is None else f" test_acc {m.test_acc:.4f}"))
         if i == 0:
             gpu0 = round_record(tr)
-    feel_launches = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
+    feel_launches = kernel_launches(kernels)
     check(feel_launches == {"rownorm2": 0, "gradnorm_sigma": ROUNDS,
                             "flash_attention": 0, "lru_scan": 0},
           f"launches on the FEEL path {feel_launches} in {ROUNDS} rounds")
@@ -1848,6 +2078,17 @@ def main() -> None:
         torch.cuda.empty_cache()
     done("22 zoo replays")
 
+    # -- 23. the trainer's options at the §VI-A setup ---------------------
+    data = make_data(rt)
+    options_launches = phase_options(rt, torch, data, init_sd, kernels,
+                                     gradnorm)
+    del data
+    done("23 trainer options")
+
+    # -- 24. a 256-device round -----------------------------------------
+    k256_launches = phase_k256(rt, torch, init_sd, kernels, gradnorm)
+    done("24 K=256 round")
+
     # -- results --------------------------------------------------------
     def entry(name, source, replaces, launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -1871,7 +2112,11 @@ def main() -> None:
               + schemes_launches["gradnorm_sigma"]
               + ccp_launches["gradnorm_sigma"]
               + traced_launches["gradnorm_sigma"]
-              + resilience_launches["gradnorm_sigma"], sigma_rec),
+              + resilience_launches["gradnorm_sigma"]
+              + options_launches["gradnorm_sigma"], sigma_rec),
+        entry(f"gradnorm_sigma@K{K256}", gn_src,
+              "src/repro/kernels/gradnorm.py:62",
+              k256_launches["gradnorm_sigma"], sigma256_rec),
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
               "src/repro/kernels/flash_attention.py:112",

@@ -130,11 +130,18 @@ def _greedy_fallback(sys: SystemParams, state: RoundState, tele,
 def proposed_scheme(sys: SystemParams, state: RoundState,
                     selection_method: str = "faithful",
                     power_evaluator: str = "closed_form",
-                    gp_steps: int = 400, faults=None,
-                    repair_infeasible: bool = False,
+                    gp_steps: int = 400, gp_step0: float = 0.3,
+                    matching_mode: str = "auto", selection_chunk: int = 0,
+                    faults=None, repair_infeasible: bool = False,
                     telemetry=None) -> RoundDecision:
     """Algorithm 1 (the paper's proposed scheme).  ``power_evaluator``
     prices the matching's candidates (``"closed_form"`` or ``"ccp"``).
+
+    ``matching_mode`` picks the swap-matching sweep (``"scalar"``,
+    ``"batched"`` or ``"auto"``; a CCP evaluator always runs ``"auto"``,
+    as in the reference), ``selection_chunk`` the device-chunked
+    gradient projection (0: the full matrix) and ``gp_step0`` its step
+    constant.
 
     ``faults``: an optional ``fed.faults.RoundFaults`` whose
     ``fail_power``/``fail_matching`` force the corresponding solve to
@@ -173,9 +180,11 @@ def proposed_scheme(sys: SystemParams, state: RoundState,
     else:
         matching_reason = None
         try:
-            match = matching_mod.swap_matching(sys, state.h, state.alpha,
-                                               evaluator=evaluator,
-                                               telemetry=tele)
+            match = matching_mod.swap_matching(
+                sys, state.h, state.alpha, evaluator=evaluator,
+                mode=(matching_mode if evaluator == "closed_form"
+                      else "auto"),
+                telemetry=tele)
         except Exception as e:  # degrade, don't die
             matching_reason = type(e).__name__
             tele.fault("solver_fail", injected=False, solver="matching",
@@ -191,7 +200,7 @@ def proposed_scheme(sys: SystemParams, state: RoundState,
                 try:
                     match = matching_mod.swap_matching(
                         sys, state.h, state.alpha, evaluator=evaluator,
-                        telemetry=tele)
+                        mode=matching_mode, telemetry=tele)
                 except Exception as e2:  # both evaluators failed
                     matching_reason = type(e2).__name__
 
@@ -227,7 +236,8 @@ def proposed_scheme(sys: SystemParams, state: RoundState,
     with tele.stage("selection"):
         delta, d_cont = selection_mod.solve_selection(
             sys, state.sigma, state.sigma_mask, method=selection_method,
-            steps=gp_steps, telemetry=tele)
+            steps=gp_steps, step0=gp_step0, device_chunk=selection_chunk,
+            telemetry=tele)
     return _finish(sys, rho, p, delta, state, feasible=feasible,
                    swaps=swaps, unmatched=unmatched, delta_cont=d_cont,
                    fallbacks=tuple(fallbacks), telemetry=tele)

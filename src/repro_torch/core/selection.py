@@ -1,7 +1,7 @@
 """Data selection (paper §V, Problem 4, Algorithms 4-5) + exact oracle.
 
-Counterpart of ``repro/core/selection.py`` (full-matrix gradient
-projection; the reference's device-chunked variant is not ported).
+Counterpart of ``repro/core/selection.py``, with the full-matrix and
+the device-chunked gradient projection.
 
 1. Alg. 4: gradient projection on the continuous relaxation (36) with a
    diminishing step; the projection (37) onto {0 <= d <= 1, sum_j d >= 1}
@@ -35,7 +35,7 @@ BISECTION_STEPS = 60
 
 def project_feasible(z: torch.Tensor, mask: torch.Tensor,
                      mask_is_ones: Optional[bool] = None) -> torch.Tensor:
-    """Projection (37), row by row. z, mask: (K, J).
+    """Projection (37), row by row over the last axis. z, mask: (..., J).
 
     ``mask_is_ones`` lets a caller that already knows the mask is all
     ones skip the multiplications by it (x * 1.0 == x exactly).
@@ -47,16 +47,16 @@ def project_feasible(z: torch.Tensor, mask: torch.Tensor,
         return x if mask_is_ones else x * mask
 
     clipped = masked(torch.clamp(z, 0.0, 1.0))
-    need_simplex = torch.sum(clipped, dim=1, keepdim=True) < 1.0
+    need_simplex = torch.sum(clipped, dim=-1, keepdim=True) < 1.0
     # find tau with sum(clip(z + tau, 0, 1) * mask) == 1 by bisection
-    n_valid = torch.clamp(torch.sum(mask, dim=1, keepdim=True), min=1.0)
-    z_max = torch.amax(torch.where(mask > 0, z, -_BIG), dim=1, keepdim=True)
-    z_min = torch.amin(torch.where(mask > 0, z, _BIG), dim=1, keepdim=True)
+    n_valid = torch.clamp(torch.sum(mask, dim=-1, keepdim=True), min=1.0)
+    z_max = torch.amax(torch.where(mask > 0, z, -_BIG), dim=-1, keepdim=True)
+    z_min = torch.amin(torch.where(mask > 0, z, _BIG), dim=-1, keepdim=True)
     lo = torch.clamp(1.0 / n_valid - z_max, max=0.0) - 1.0
     hi = torch.clamp(1.0 - z_min, min=0.0) + 1.0
     for _ in range(BISECTION_STEPS):
         mid = 0.5 * (lo + hi)
-        s = torch.sum(masked(torch.clamp(z + mid, 0.0, 1.0)), dim=1,
+        s = torch.sum(masked(torch.clamp(z + mid, 0.0, 1.0)), dim=-1,
                       keepdim=True)
         below = s < 1.0
         lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
@@ -65,35 +65,31 @@ def project_feasible(z: torch.Tensor, mask: torch.Tensor,
     return torch.where(need_simplex, simplex, clipped)
 
 
-def selection_gradient(sys: SystemParams, d: torch.Tensor,
-                       sigma: torch.Tensor, mask: torch.Tensor,
-                       A: torch.Tensor) -> torch.Tensor:
-    """d/dd of ``delta.selection_only_objective(sys, d * mask, sigma)``.
+def selection_gradient(lam: torch.Tensor, d: torch.Tensor, sigma: torch.Tensor,
+                       mask: torch.Tensor, A: torch.Tensor,
+                       q: torch.Tensor) -> torch.Tensor:
+    """d/dd of ``delta.selection_only_objective(sys, d * mask, sigma)``,
+    row by row over the last axis (A, q: the rows' weights, shaped like
+    d without its last axis).
 
     f = lam * sum_k A_k num_k / max(den_k, eps) - (1-lam) sum_k q_k den_k
     with num_k = sum_j dm_kj sigma_kj and den_k = sum_j dm_kj.
     """
     dm = d * mask
-    num = torch.sum(dm * sigma, dim=1)
-    den = torch.sum(dm, dim=1)
+    num = torch.sum(dm * sigma, dim=-1)
+    den = torch.sum(dm, dim=-1)
     M = torch.clamp(den, min=EPSDIV)
-    gm = sys.lam * A
+    gm = lam * A
     g_num = gm / M
     g_den = (-gm * num) * M ** -2 * (den > EPSDIV)
-    g = sigma * g_num[:, None] + (g_den - (1.0 - sys.lam) * sys.q)[:, None]
+    g = sigma * g_num[..., None] + (g_den - (1.0 - lam) * q)[..., None]
     return g * mask
 
 
-def gradient_projection(sys: SystemParams, sigma: torch.Tensor,
-                        mask: torch.Tensor, steps: int = 400,
-                        step0: float = 0.3) -> torch.Tensor:
-    """Algorithm 4: a stationary point delta† of (36) (continuous).
-
-    step0 picks which stationary point the diminishing-step GP lands at
-    (see the reference's docstring): ~0.3 gives the threshold-like
-    filter that drops high-sigma outliers.
-    """
-    A = sys.a_weights()
+def _gp_loop(lam: torch.Tensor, sigma: torch.Tensor, mask: torch.Tensor,
+             A: torch.Tensor, q: torch.Tensor, steps: int,
+             step0: float) -> torch.Tensor:
+    """The Alg. 4 iteration on rows of the last axis (any leading axes)."""
     mask_is_ones = bool(torch.all(mask == 1))  # one host read, before the loop
     # step_v = step0 / (1 + v)^0.6 in float32, as the reference's loop
     # computes it; read once so the loop itself never syncs
@@ -101,14 +97,52 @@ def gradient_projection(sys: SystemParams, sigma: torch.Tensor,
              ** 0.6).tolist()
     d = 0.5 * mask
     for step in rates:
-        g = selection_gradient(sys, d, sigma, mask, A)
+        g = selection_gradient(lam, d, sigma, mask, A, q)
         g = torch.where(torch.isfinite(g), g, 0.0)
         # per-device normalization keeps every device's subproblem
         # moving at the same rate (A_k/m_k spans orders of magnitude)
-        norm = torch.amax(torch.abs(g), dim=1, keepdim=True)
+        norm = torch.amax(torch.abs(g), dim=-1, keepdim=True)
         g = g / torch.clamp(norm, min=1e-12)
         d = project_feasible(d - step * g, mask, mask_is_ones)
     return d
+
+
+def gradient_projection(sys: SystemParams, sigma: torch.Tensor,
+                        mask: torch.Tensor, steps: int = 400,
+                        step0: float = 0.3,
+                        device_chunk: int = 0) -> torch.Tensor:
+    """Algorithm 4: a stationary point delta† of (36) (continuous).
+
+    step0 picks which stationary point the diminishing-step GP lands at
+    (see the reference's docstring): ~0.3 gives the threshold-like
+    filter that drops high-sigma outliers; ~5.0 chases the global
+    optimum of Problem 4, ~1 sample a device.
+
+    ``device_chunk``: 0 iterates the full (K, J) matrix; a positive
+    value below K runs the reference's chunked variant (``_gp_chunked``
+    there): K is padded to a multiple of the chunk with mask-0 rows
+    (pinned to 0 by the projection, with zero A and q, so they never
+    move the loop), the A weights, which carry the only cross-device
+    term (the |D̂| total), are computed once for all devices, and each
+    block's objective is the selection term restricted to it.  The
+    blocks run as one leading batch axis, (K / chunk, chunk, J), in a
+    single loop, not one loop a block.  The objective is separable per
+    device, so the iterates are the full matrix's device for device.
+    """
+    K = sigma.shape[0]
+    A = sys.a_weights()
+    if not device_chunk or device_chunk >= K:
+        return _gp_loop(sys.lam, sigma, mask, A, sys.q, steps, step0)
+    pad = (-K) % device_chunk
+    n_blocks = (K + pad) // device_chunk
+
+    def blocks(x):
+        x = torch.nn.functional.pad(x, (0, 0) * (x.ndim - 1) + (0, pad))
+        return x.reshape((n_blocks, device_chunk) + tuple(x.shape[1:]))
+
+    out = _gp_loop(sys.lam, blocks(sigma), blocks(mask), blocks(A),
+                   blocks(sys.q), steps, step0)
+    return out.reshape(n_blocks * device_chunk, -1)[:K]
 
 
 def binary_recovery(delta_cont: torch.Tensor,
@@ -124,10 +158,12 @@ def binary_recovery(delta_cont: torch.Tensor,
 
 def faithful_selection(sys: SystemParams, sigma: torch.Tensor,
                        mask: torch.Tensor, steps: int = 400,
-                       step0: float = 0.3) -> torch.Tensor:
+                       step0: float = 0.3,
+                       device_chunk: int = 0) -> torch.Tensor:
     """Algorithms 4 + 5 end to end (the paper's data-selection solver)."""
-    return binary_recovery(gradient_projection(sys, sigma, mask, steps=steps,
-                                               step0=step0), mask)
+    return binary_recovery(gradient_projection(
+        sys, sigma, mask, steps=steps, step0=step0,
+        device_chunk=device_chunk), mask)
 
 
 def exact_selection(sys: SystemParams, sigma: torch.Tensor,
@@ -152,7 +188,8 @@ def exact_selection(sys: SystemParams, sigma: torch.Tensor,
 
 def solve_selection(sys: SystemParams, sigma: torch.Tensor,
                     mask: torch.Tensor, method: str = "faithful",
-                    steps: int = 400, step0: float = 0.3, telemetry=None
+                    steps: int = 400, step0: float = 0.3,
+                    device_chunk: int = 0, telemetry=None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(binary selection, continuous GP point or None for ``exact``).
 
@@ -166,8 +203,9 @@ def solve_selection(sys: SystemParams, sigma: torch.Tensor,
     reg = metrics_mod.get_default()
     if method == "faithful":
         with tele.span("selection.gp", steps=steps):
-            d_cont = tele.block(gradient_projection(sys, sigma, mask,
-                                                    steps=steps, step0=step0))
+            d_cont = tele.block(gradient_projection(
+                sys, sigma, mask, steps=steps, step0=step0,
+                device_chunk=device_chunk))
         with tele.span("selection.recover"):
             out = tele.block(binary_recovery(d_cont, mask))
         gp_steps = steps

@@ -1,19 +1,28 @@
 """The FEEL communication-round loop (paper §II + Algorithm 1).
 
-Counterpart of ``repro/fed/rounds.py``, plain path (the proposed scheme
-or a baseline, FedSGD, Adam).  Each round:
+Counterpart of ``repro/fed/rounds.py``; ``FEELConfig`` has every field
+of the reference's, each meaning what it means there.  Each round:
 
   1. every device samples |D̂_k| local samples and scores them
-     (sigma_{k,j} = per-sample gradient-norm^2 of the output layer, the
-     reference's ``sigma_method="last_layer_kernel"``: one fused
-     all-device pass through the CUDA row-norm kernel);
+     (sigma_{k,j} = per-sample gradient-norm^2): by default of the
+     output layer in one fused all-device pass through the CUDA row-norm
+     kernel (``sigma_method="last_layer_kernel"``), or the same score in
+     plain tensor ops (``"last_layer"``), or over every parameter
+     (``"full"``);
   2. channel gains h_{k,n} and availability alpha_k are drawn;
   3. the server runs Algorithm 1 (``cfg.scheme="proposed"``, with the
-     closed-form or CCP power evaluator) or baseline 1-4 to fix
-     (rho*, p*, delta*) and is billed the net cost (eq. 18);
-  4. devices compute local gradients on their selected samples (eq. 4);
+     closed-form or CCP power evaluator, the scalar or batched matching
+     sweep, the full-matrix or device-chunked gradient projection and
+     its step constant ``gp_step0``) or baseline 1-4 to fix
+     (rho*, p*, delta*) and is billed the net cost (eq. 18); in the
+     first ``warmup_rounds`` rounds the proposed scheme allocates
+     resources as usual and selects every sample;
+  4. devices compute local gradients on their selected samples (eq. 4),
+     FedSGD; with ``local_steps > 1`` the FedAvg variant of footnote 4
+     runs that many local SGD steps and uploads (w - w') / lr;
   5. the server aggregates with inverse-propensity weights (eq. 19) and
-     takes an Adam step.
+     applies the optimizer update (eq. 20): adam (§VI-A), sgd, momentum
+     or adafactor.
 
 Randomness: data subsets come from a numpy ``Generator`` seeded with
 ``cfg.seed``, as in the reference, so they match it bit for bit; h and
@@ -35,10 +44,11 @@ from bit for bit: on the GPU only under cuDNN's deterministic algorithms
 sets); under its default algorithms the weight gradients of a resumed
 run may differ at float32 noise.  Either argument turns the layer on;
 with neither a round is the plain path.  Checkpoints are the
-reference's npz + meta files: the params and Adam moments in its layout
-(``cnn.params_to_numpy``), the numpy data stream, the round, the cost
-and the quarantine state, plus the CPU generator's state under a key of
-the port's own (``GEN_STATE_KEY``).
+reference's npz + meta files: the params and the optimizer's state in
+its layout and under its keys (``cnn.params_to_numpy``; adafactor's
+factored moments are kept on the reference's axes), the numpy data
+stream, the round, the cost and the quarantine state, plus the CPU
+generator's state under a key of the port's own (``GEN_STATE_KEY``).
 
 Observability, as in the reference: with a ``repro_torch.obs`` sink
 (``telemetry``) each round is a ``round`` span whose stages (``data``,
@@ -51,15 +61,12 @@ registry installed, the per-round metrics and a registry snapshot.  A
 every round.  With neither (the default sink is a no-op) a round makes
 no per-stage synchronize and its outputs are bit-for-bit those of a
 traced one.
-
-Not ported yet: warmup rounds, ``local_steps > 1`` (FedAvg), the
-optimizers other than Adam, ``gp_step0``, the chunked GP, and the
-"full" and "last_layer" sigma methods.
 """
 from __future__ import annotations
 
 import base64
 import dataclasses
+import functools
 import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple, Union
@@ -86,6 +93,12 @@ ChannelSource = Callable[[int], Tuple[np.ndarray, np.ndarray]]
 
 #: the schemes of paper §VI-A: Algorithm 1 and baselines 1-4
 SCHEMES = ("proposed", "baseline1", "baseline2", "baseline3", "baseline4")
+#: the values of the other choice fields of ``FEELConfig``
+SELECTION_METHODS = ("faithful", "exact")
+SIGMA_METHODS = ("last_layer_kernel", "last_layer", "full")
+POWER_EVALUATORS = ("closed_form", "ccp")
+MATCHING_MODES = ("auto", "scalar", "batched")
+OPTIMIZERS = ("adam", "sgd", "momentum", "adafactor")
 
 #: checkpoint file prefix inside a checkpoint directory.
 CKPT_NAME = "feel_ckpt"
@@ -99,20 +112,44 @@ GEN_STATE_KEY = "torch_generator_state"
 class FEELConfig:
     scheme: str = "proposed"            # proposed | baseline1..baseline4
     selection_method: str = "faithful"  # faithful (Alg 4+5) | exact
+    # last_layer_kernel (one fused all-device pass through the CUDA
+    # row-norm kernel, kernels/gradnorm) | last_layer | full.  The
+    # reference defaults to "last_layer"; the port's default stays on
+    # the kernel, so that no default moves sigma off it (a comparison
+    # with the reference sets the field on both sides)
+    sigma_method: str = "last_layer_kernel"
     power_evaluator: str = "closed_form"  # closed_form | ccp (Alg. 3)
+    # swap-matching sweep: auto (batched at >= AUTO_BATCH_MIN available
+    # devices) | scalar | batched
+    matching_mode: str = "auto"
+    # 0 = full-matrix Alg. 4; >0 = device blocks of that size
+    selection_chunk: int = 0
+    optimizer: str = "adam"           # adam | sgd | momentum | adafactor
     lr: float = 1e-3
     d_hat: int = 200
+    local_steps: int = 1              # >1 => FedAvg variant
     gp_steps: int = 400
+    gp_step0: float = 0.3
+    warmup_rounds: int = 0    # select ALL samples first (beyond-paper fix:
+                              # sigma is uninformative before the model fits)
     eval_every: int = 10
     seed: int = 0
 
     def __post_init__(self):
-        if self.scheme not in SCHEMES:
-            raise ValueError(f"unknown scheme {self.scheme!r}; one of "
-                             f"{SCHEMES}")
-        if self.power_evaluator not in ("closed_form", "ccp"):
-            raise ValueError(
-                f"unknown power evaluator {self.power_evaluator!r}")
+        for field, allowed in (("scheme", SCHEMES),
+                               ("selection_method", SELECTION_METHODS),
+                               ("sigma_method", SIGMA_METHODS),
+                               ("power_evaluator", POWER_EVALUATORS),
+                               ("matching_mode", MATCHING_MODES),
+                               ("optimizer", OPTIMIZERS)):
+            if getattr(self, field) not in allowed:
+                raise ValueError(f"unknown {field} {getattr(self, field)!r};"
+                                 f" one of {allowed}")
+        for field, least in (("selection_chunk", 0), ("local_steps", 1),
+                             ("warmup_rounds", 0)):
+            if getattr(self, field) < least:
+                raise ValueError(f"{field} must be >= {least}, got "
+                                 f"{getattr(self, field)}")
 
 
 @dataclasses.dataclass
@@ -212,7 +249,7 @@ class FEELTrainer:
         self._start_round = 0
         self._profiled: set = set()
         self.params = dict(self.model.named_parameters())
-        self.opt = optim.adam(cfg.lr)
+        self.opt = _build_optimizer(cfg, self.params)
         self.opt_state = self.opt.init(self.params)
         self.test_images = torch.as_tensor(data.test_images,
                                            device=self.device)
@@ -223,14 +260,21 @@ class FEELTrainer:
         self.last_state: Optional[RoundState] = None
         self.last_decision: Optional[joint_mod.RoundDecision] = None
         self.last_g_hat: Optional[Dict[str, torch.Tensor]] = None
-        self._sigma_all = client_mod.batched_sigma
+        if cfg.sigma_method == "last_layer_kernel":
+            self._sigma_all = client_mod.batched_sigma
+        else:
+            self._sigma_all = functools.partial(client_mod.device_sigma,
+                                                method=cfg.sigma_method)
         self._local_grads = client_mod.local_gradients
+        self._local_deltas = client_mod.local_deltas
         if self.obs.annotate:
             # named ranges in a torch.profiler trace
             self._sigma_all = obs.annotate_fn(self._sigma_all,
                                               "repro.sigma_all")
             self._local_grads = obs.annotate_fn(self._local_grads,
                                                 "repro.local_grads")
+            self._local_deltas = obs.annotate_fn(self._local_deltas,
+                                                 "repro.local_deltas")
 
     # ------------------------------------------------------------------
     def _gather_round_batches(self):
@@ -291,12 +335,28 @@ class FEELTrainer:
         state = RoundState(h=h, alpha=alpha, sigma=sigma,
                            sigma_mask=torch.ones_like(sigma))
 
-        if cfg.scheme == "proposed":
+        if cfg.scheme == "proposed" and i < cfg.warmup_rounds:
+            # warmup: resource allocation as proposed, selection = all
+            match = joint_mod.matching_mod.swap_matching(
+                sys, state.h, state.alpha, evaluator=cfg.power_evaluator,
+                mode=(cfg.matching_mode
+                      if cfg.power_evaluator == "closed_form" else "auto"),
+                telemetry=tele)
+            with tele.stage("selection"):
+                pass  # warmup selects everything; keep the stage present
+            dec = joint_mod._finish(sys, match.rho, match.p,
+                                    state.sigma_mask, state,
+                                    feasible=match.feasible,
+                                    swaps=match.swaps,
+                                    unmatched=match.unmatched,
+                                    telemetry=tele)
+        elif cfg.scheme == "proposed":
             dec = joint_mod.proposed_scheme(
                 sys, state, selection_method=cfg.selection_method,
                 power_evaluator=cfg.power_evaluator, gp_steps=cfg.gp_steps,
-                faults=rf, repair_infeasible=self._resilient,
-                telemetry=tele)
+                gp_step0=cfg.gp_step0, matching_mode=cfg.matching_mode,
+                selection_chunk=cfg.selection_chunk, faults=rf,
+                repair_infeasible=self._resilient, telemetry=tele)
         else:
             dec = joint_mod.baseline_scheme(
                 sys, state, int(cfg.scheme[-1]), generator=self.gen,
@@ -316,13 +376,18 @@ class FEELTrainer:
                     self.model, images.reshape((-1,) + images.shape[2:]),
                     labels.reshape(-1)))
 
+        if cfg.local_steps > 1:
+            name, local_fn = "local_deltas", self._local_deltas
+            local_args = (self.model, images, labels, delta, cfg.lr,
+                          cfg.local_steps)
+        else:
+            name, local_fn = "local_grads", self._local_grads
+            local_args = (self.model, images, labels, delta)
         if tele.profile:
-            self._profile_once("local_grads", "local_grads",
-                               self._local_grads,
-                               (self.model, images, labels, delta), tele, i)
+            self._profile_once(name, "local_grads", local_fn, local_args,
+                               tele, i)
         with tele.stage("local_grads"):
-            grads = tele.block(self._local_grads(self.model, images, labels,
-                                                 delta))
+            grads = tele.block(local_fn(*local_args))
 
         # fault application and the resilience policies
         planned = uploaded.cpu().numpy() > 0
@@ -356,8 +421,8 @@ class FEELTrainer:
             else:
                 g_hat = server_mod.aggregate_gradients(sys, grads, uploaded)
                 mass = server_mod.ipw_mass(sys, uploaded)
-            # no upload to aggregate: an Adam step on a zero gradient
-            # would still move the moments, so the update is skipped
+            # no upload to aggregate: a step on a zero gradient would
+            # still move the optimizer's state, so the update is skipped
             skipped_update = mass <= 0.0
             if skipped_update:
                 g_norm_sq = 0.0 if self.monitor is not None else None
@@ -372,8 +437,8 @@ class FEELTrainer:
                 if self.monitor is not None:
                     g_norm_sq = float(sum(torch.sum(x * x)
                                           for x in g_hat.values()))
-                updates, self.opt_state = self.opt.update(g_hat,
-                                                          self.opt_state)
+                updates, self.opt_state = self.opt.update(
+                    g_hat, self.opt_state, self.params)
                 optim.apply_updates(self.params, updates)
                 tele.block(self.params)
 
@@ -628,7 +693,8 @@ class FEELTrainer:
         sys = self.sys
         try:
             match2 = joint_mod.matching_mod.swap_matching(
-                sys, state.h, surv, evaluator="closed_form", telemetry=tele)
+                sys, state.h, surv, evaluator="closed_form",
+                mode=self.cfg.matching_mode, telemetry=tele)
         except Exception as e:  # keep the round alive
             tele.fault("solver_fail", injected=False, solver="matching",
                        reason=type(e).__name__, context="resolve")
@@ -647,12 +713,57 @@ class FEELTrainer:
     # crash-safe checkpoint / resume, in the reference's format
     # ------------------------------------------------------------------
     def _checkpoint_tree(self) -> dict:
-        """Params and Adam state in the reference's pytree layout."""
-        st = self.opt_state
+        """Params and optimizer state in the reference's pytree layout,
+        under its keys (a NamedTuple field ``f`` flattens to ``.f``):
+        sgd has no state leaf; momentum's is a params-shaped tree;
+        adam's ``.count/.mu/.nu``; adafactor's ``.count/.vr/.vc``, the
+        factored moments already on the reference's axes (a 0-d ``vc``
+        for a leaf under 2-D)."""
+        st, opt = self.opt_state, self.cfg.optimizer
+        if opt == "sgd":
+            state = {}
+        elif opt == "momentum":
+            state = cnn_mod.params_to_numpy(st)
+        elif opt == "adam":
+            state = {".count": np.asarray(st.count, np.int32),
+                     ".mu": cnn_mod.params_to_numpy(st.mu),
+                     ".nu": cnn_mod.params_to_numpy(st.nu)}
+        else:
+            def host(named):
+                return cnn_mod.nest({n: t.cpu().numpy()
+                                     for n, t in named.items()})
+
+            state = {".count": np.asarray(st.count, np.int32),
+                     ".vr": host(st.vr), ".vc": host(st.vc)}
         return {"params": cnn_mod.params_to_numpy(self.params),
-                "opt_state": {".count": np.asarray(st.count, np.int32),
-                              ".mu": cnn_mod.params_to_numpy(st.mu),
-                              ".nu": cnn_mod.params_to_numpy(st.nu)}}
+                "opt_state": state}
+
+    def _named(self, layers: dict) -> Dict[str, torch.Tensor]:
+        """A loaded params-shaped tree in the reference's layout -> this
+        trainer's named tensors on its device."""
+        arrays = {layer: {k: v.numpy() for k, v in leaves.items()}
+                  for layer, leaves in layers.items()}
+        return {n: t.to(self.device)
+                for n, t in cnn_mod.params_from_numpy(arrays).items()}
+
+    def _opt_state_from(self, tree: dict):
+        """The inverse of ``_checkpoint_tree``'s ``opt_state`` (a loaded
+        tree of CPU tensors), on the trainer's device."""
+        opt = self.cfg.optimizer
+        if opt == "sgd":
+            return ()
+        if opt == "momentum":
+            return self._named(tree)
+        if opt == "adam":
+            return optim.AdamState(count=int(tree[".count"]),
+                                   mu=self._named(tree[".mu"]),
+                                   nu=self._named(tree[".nu"]))
+        # adafactor's moments are stored on the reference's axes, as held
+        return optim.AdafactorState(
+            count=int(tree[".count"]),
+            **{f: {n: t.to(self.device)
+                   for n, t in cnn_mod.unnest(tree[f".{f}"]).items()}
+               for f in ("vr", "vc")})
 
     def _checkpoint_dir(self) -> str:
         if not self._res.checkpoint_dir:
@@ -664,7 +775,7 @@ class FEELTrainer:
                         next_round: int = 0) -> str:
         """Atomically persist everything ``resume`` needs to reproduce
         the uninterrupted trajectory bit for bit (on the GPU under
-        ``torch.backends.cudnn.deterministic``): params, Adam state,
+        ``torch.backends.cudnn.deterministic``): params, optimizer state,
         both random streams, the round index, cumulative cost and the
         quarantine bookkeeping.  The reference's ``meta`` keys mean what
         they mean there; ``jax_key`` is null (the port draws h and alpha
@@ -690,7 +801,8 @@ class FEELTrainer:
     def resume(self, path: Optional[str] = None) -> int:
         """Restore a checkpoint and return the round to continue from
         (``run`` picks it up).  Reads the port's checkpoints and the
-        reference's: params, Adam state, the numpy data stream, cost,
+        reference's (of the same optimizer): params, optimizer state,
+        the numpy data stream, cost,
         quarantine state and round.  A reference checkpoint carries a
         JAX key, not this trainer's generator state, so it resumes only
         where the generator draws nothing: with a ``channel_source`` and
@@ -712,20 +824,10 @@ class FEELTrainer:
                 "holds a JAX key, which cannot become one): resume it with "
                 "a channel_source and a scheme that draws nothing else")
         tree = ckpt_mod.load_pytree(path, self._checkpoint_tree())
-
-        def named(layers) -> Dict[str, torch.Tensor]:
-            arrays = {layer: {k: v.numpy() for k, v in leaves.items()}
-                      for layer, leaves in layers.items()}
-            return {n: t.to(self.device)
-                    for n, t in cnn_mod.params_from_numpy(arrays).items()}
-
         with torch.no_grad():
-            for name, value in named(tree["params"]).items():
+            for name, value in self._named(tree["params"]).items():
                 self.params[name].copy_(value)
-        opt = tree["opt_state"]
-        self.opt_state = optim.AdamState(count=int(opt[".count"]),
-                                         mu=named(opt[".mu"]),
-                                         nu=named(opt[".nu"]))
+        self.opt_state = self._opt_state_from(tree["opt_state"])
         self._cum = float(meta["cum_net_cost"])
         rng = np.random.default_rng()
         rng.bit_generator.state = meta["rng_state"]
@@ -754,3 +856,16 @@ class FEELTrainer:
                       f"cum_cost={m.cum_net_cost:.4f} sel={m.n_selected} "
                       f"bad_frac={m.frac_mislabeled_selected:.3f}")
         return out
+
+
+def _build_optimizer(cfg: FEELConfig, params: Dict[str, torch.Tensor]
+                     ) -> optim.GradientTransformation:
+    """``cfg.optimizer`` at ``cfg.lr`` with its defaults, as the
+    reference builds it; adafactor factors each CNN weight on the
+    reference's axes (``cnn.reference_layout``), so its moments and its
+    update are the reference's."""
+    if cfg.optimizer == "adafactor":
+        return optim.adafactor(cfg.lr,
+                               layout=cnn_mod.reference_layout(params))
+    return {"adam": optim.adam, "sgd": optim.sgd,
+            "momentum": optim.momentum}[cfg.optimizer](cfg.lr)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +22,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import full_fp32
+
+#: name -> (to the reference's layout, back)
+Layout = Dict[str, Tuple[Callable[[torch.Tensor], torch.Tensor],
+                         Callable[[torch.Tensor], torch.Tensor]]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,61 +103,95 @@ def accuracy(model: CNN, images: torch.Tensor, labels: torch.Tensor,
     return correct / n
 
 
+#: this module's parameter suffixes -> the reference's leaf names
+_LEAF = {"weight": "w", "bias": "b"}
+_PARAM = {v: k for k, v in _LEAF.items()}
+
+
+def nest(named: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """{"conv1.weight": x} -> {"conv1": {"w": x}}: this module's names
+    as the reference's params pytree keys them (values untouched)."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for name, value in named.items():
+        layer, leaf = name.split(".")
+        out.setdefault(layer, {})[_LEAF[leaf]] = value
+    return out
+
+
+def unnest(tree: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+    """The inverse of ``nest``."""
+    return {f"{layer}.{_PARAM[leaf]}": value
+            for layer, leaves in tree.items()
+            for leaf, value in leaves.items()}
+
+
+def _layout(c: int, s: int) -> Layout:
+    """(to the reference's layout, back) per weight, for a CNN whose
+    second conv has ``c`` channels on an ``s`` x ``s`` pooled map."""
+    def conv_to(w):
+        return w.permute(2, 3, 1, 0)  # OIHW -> HWIO
+
+    def conv_from(w):
+        return w.permute(3, 2, 0, 1)
+
+    def dense_to(w):
+        return w.t()  # (out, in) -> (in, out)
+
+    def fc1_to(w):
+        # (out, in) -> (in, out), the rows (c, h, w) -> (h, w, c)
+        return w.t().reshape(c, s, s, -1).permute(1, 2, 0, 3).reshape(
+            s * s * c, -1)
+
+    def fc1_from(w):
+        return w.reshape(s, s, c, -1).permute(2, 0, 1, 3).reshape(
+            c * s * s, -1).t()
+
+    lay = {f"{n}.weight": (conv_to, conv_from) for n in ("conv1", "conv2")}
+    lay["fc1.weight"] = (fc1_to, fc1_from)
+    for n in ("fc2", "out"):
+        lay[f"{n}.weight"] = (dense_to, dense_to)
+    return lay
+
+
+def reference_layout(params: Dict[str, torch.Tensor]) -> Layout:
+    """Per weight of this module's named tensors, the pair of maps (to the
+    reference's layout, back): conv kernels OIHW <-> HWIO, dense kernels
+    (out, in) <-> (in, out), and the rows of ``fc1``'s kernel (c, h, w)
+    <-> the reference's (h, w, c).  Every map is a permutation, so the
+    values are exact; ``optim.adafactor(layout=...)`` factors each leaf
+    under it, so its moments are the reference's."""
+    c = params["conv2.weight"].shape[0]
+    return _layout(c, math.isqrt(params["fc1.weight"].shape[1] // c))
+
+
 def params_from_numpy(params_np: Dict[str, Dict[str, np.ndarray]]
                       ) -> Dict[str, torch.Tensor]:
     """The reference's params pytree (as numpy arrays) -> this module's
-    ``state_dict``.
-
-    Conv kernels go HWIO -> OIHW and dense kernels (in, out) -> (out, in).
-    The rows of the reference's ``fc1`` weight are ordered (h, w, c), the
-    NHWC flatten; they are reordered to (c, h, w), this module's NCHW
-    flatten, so both compute the same function.
+    ``state_dict``, through ``reference_layout``'s maps back: the rows
+    of the reference's ``fc1`` weight are ordered (h, w, c), the NHWC
+    flatten, and are reordered to (c, h, w), this module's NCHW flatten,
+    so both compute the same function.
     """
-    def t(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
-
-    sd = {}
-    for name in ("conv1", "conv2"):
-        sd[f"{name}.weight"] = t(np.transpose(params_np[name]["w"],
-                                              (3, 2, 0, 1)))
-        sd[f"{name}.bias"] = t(params_np[name]["b"])
-    w1 = np.asarray(params_np["fc1"]["w"])
     c = np.asarray(params_np["conv2"]["w"]).shape[3]
-    s = math.isqrt(w1.shape[0] // c)
-    w1 = w1.reshape(s, s, c, -1).transpose(2, 0, 1, 3).reshape(w1.shape)
-    sd["fc1.weight"] = t(w1.T)
-    sd["fc1.bias"] = t(params_np["fc1"]["b"])
-    for name in ("fc2", "out"):
-        sd[f"{name}.weight"] = t(np.asarray(params_np[name]["w"]).T)
-        sd[f"{name}.bias"] = t(params_np[name]["b"])
+    s = math.isqrt(np.asarray(params_np["fc1"]["w"]).shape[0] // c)
+    lay = _layout(c, s)
+    sd = {}
+    for name, x in unnest(params_np).items():
+        t = torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
+        sd[name] = lay[name][1](t).contiguous() if name in lay else t
     return sd
 
 
 def params_to_numpy(params: Dict[str, torch.Tensor]
                     ) -> Dict[str, Dict[str, np.ndarray]]:
-    """This module's named tensors (its parameters, or Adam moments keyed
-    like them) -> the reference's params pytree as float32 numpy arrays:
-    the inverse of ``params_from_numpy``.
-
-    Conv kernels go OIHW -> HWIO, dense kernels (out, in) -> (in, out),
-    and the rows of ``fc1``'s kernel from (c, h, w) back to the
-    reference's (h, w, c) order.  Every map is a permutation, so the
-    values are exact.
-    """
-    def a(name):
-        return params[name].detach().cpu().numpy()
-
+    """This module's named tensors (its parameters, or optimizer state
+    keyed like them) -> the reference's params pytree as float32 numpy
+    arrays: the inverse of ``params_from_numpy``."""
+    lay = reference_layout(params)
     out = {}
-    for name in ("conv1", "conv2"):
-        out[name] = {"w": np.ascontiguousarray(
-            np.transpose(a(f"{name}.weight"), (2, 3, 1, 0))),
-            "b": a(f"{name}.bias").copy()}
-    w1 = a("fc1.weight").T
-    c = params["conv2.weight"].shape[0]
-    s = math.isqrt(w1.shape[0] // c)
-    w1 = w1.reshape(c, s, s, -1).transpose(1, 2, 0, 3).reshape(w1.shape)
-    out["fc1"] = {"w": np.ascontiguousarray(w1), "b": a("fc1.bias").copy()}
-    for name in ("fc2", "out"):
-        out[name] = {"w": np.ascontiguousarray(a(f"{name}.weight").T),
-                     "b": a(f"{name}.bias").copy()}
-    return out
+    for name, t in params.items():
+        t = t.detach()
+        if name in lay:
+            t = lay[name][0](t)
+        out[name] = np.array(t.cpu().numpy(), order="C")  # a copy
+    return nest(out)

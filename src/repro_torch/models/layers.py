@@ -33,6 +33,9 @@ Tensor = torch.Tensor
 
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _TODO = "not ported yet (ROADMAP.md queue 1, item 10)"
+#: the ``train`` mode of every block kind: training the zoo is its own item
+_TRAIN_TODO = ("not ported yet: the zoo serves only (training the zoo is "
+               "ROADMAP.md queue 1, item 11)")
 
 
 def frozen(t: Tensor) -> nn.Parameter:

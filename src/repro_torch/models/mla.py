@@ -26,8 +26,8 @@ import torch
 from torch import nn
 
 from .config import ArchConfig
-from .layers import (_NEG_INF, _TODO, apply_rope, causal_attend, frozen,
-                     init_dense, rmsnorm)
+from .layers import (_NEG_INF, _TRAIN_TODO, apply_rope, causal_attend,
+                     frozen, init_dense, rmsnorm)
 
 Tensor = torch.Tensor
 
@@ -122,7 +122,7 @@ def mla_attention(cfg: ArchConfig, p: MLA, x: Tensor, positions: Tensor,
         out = causal_attend(q_eff, k_eff, v, scale=scale)
         return out.reshape(B, S, H * vdim) @ p.w_o
     if mode != "decode":
-        raise NotImplementedError(f"mode {mode!r} is {_TODO}")
+        raise NotImplementedError(f"mode {mode!r} is {_TRAIN_TODO}")
 
     cache["ckv"][:, cache_index:cache_index + S] = ckv_new
     cache["kr"][:, cache_index:cache_index + S] = kr_new

@@ -30,7 +30,7 @@ from torch import nn
 
 from ..kernels import ops
 from .config import ArchConfig
-from .layers import _TODO, frozen, init_dense
+from .layers import _TRAIN_TODO, frozen, init_dense
 from .ssm import causal_conv
 
 Tensor = torch.Tensor
@@ -97,7 +97,7 @@ def rglru_mixer(cfg: ArchConfig, p: RGLRU, x: Tensor, mode: str,
     the final state into ``cache``; ``decode`` (S = 1) advances both by
     one step."""
     if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} is {_TODO}")
+        raise NotImplementedError(f"mode {mode!r} is {_TRAIN_TODO}")
     S = x.shape[1]
     k = cfg.ssm_conv or 4
     xs = x @ p.w_x

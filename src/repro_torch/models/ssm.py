@@ -28,7 +28,7 @@ from torch import nn
 
 from ..kernels import ops
 from .config import ArchConfig
-from .layers import _TODO, frozen, init_dense
+from .layers import _TRAIN_TODO, frozen, init_dense
 
 Tensor = torch.Tensor
 
@@ -107,7 +107,7 @@ def mamba_mixer(cfg: ArchConfig, p: Mamba, x: Tensor, mode: str,
     inputs (zero-left-padded when S < k-1) and the final state into
     ``cache``; ``decode`` (S = 1) advances both by one step."""
     if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} is {_TODO}")
+        raise NotImplementedError(f"mode {mode!r} is {_TRAIN_TODO}")
     B, S, _ = x.shape
     di, n, k = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_conv
     A = -torch.exp(p.A_log)  # (di, n)

@@ -28,9 +28,9 @@ or absorbed decode) and ``"rglru"`` blocks, each with a dense or an MoE
 FFN (``moe.py``; the ``first_dense`` head layers keep the dense
 ``d_ff`` one), and ``"mamba"`` blocks (no FFN), text inputs and the
 ``prefill`` and ``decode`` modes are ported.  The MoE aux loss belongs
-to training and is not summed.  Softcapping, M-RoPE, the vlm and audio
-modalities and the ``train`` mode raise ``NotImplementedError``
-(ROADMAP.md queue 1, item 10).
+to training and is not summed.  Softcapping, M-RoPE and the vlm and
+audio modalities raise ``NotImplementedError`` (ROADMAP.md queue 1,
+item 10); so does the ``train`` mode (item 11, training the zoo).
 """
 from __future__ import annotations
 
@@ -40,9 +40,9 @@ import torch
 from torch import nn
 
 from .config import ArchConfig
-from .layers import (MLP, Attention, _TODO, apply_rope, causal_attend,
-                     decode_attend, frozen, init_attention, init_mlp,
-                     local_attend_chunked, mlp, rmsnorm)
+from .layers import (MLP, Attention, _TODO, _TRAIN_TODO, apply_rope,
+                     causal_attend, decode_attend, frozen, init_attention,
+                     init_mlp, local_attend_chunked, mlp, rmsnorm)
 from .mla import MLA, init_mla, mla_attention
 from .moe import MoE, init_moe, moe_ffn
 from .rglru import RGLRU, init_rglru, rglru_mixer
@@ -167,7 +167,7 @@ def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
                             window=cfg.window if local else 0,
                             rolling=local)
     else:
-        raise NotImplementedError(f"mode {mode!r} is {_TODO}")
+        raise NotImplementedError(f"mode {mode!r} is {_TRAIN_TODO}")
     return out.reshape(B, S, H * Dh) @ ap.wo
 
 
@@ -287,7 +287,7 @@ def apply_decoder(cfg: ArchConfig, dec: Decoder, x: Tensor,
     the cache.  ``mla_absorbed`` picks the absorbed decode of ``mla``
     blocks."""
     if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} is {_TODO}")
+        raise NotImplementedError(f"mode {mode!r} is {_TRAIN_TODO}")
     head, n_body, pattern, tail = _layer_plan(cfg)
     if cache is None:
         if mode == "decode":

@@ -1,31 +1,106 @@
-"""Adam as a transformation of named tensors.
+"""Optimizers as transformations of named tensors.
 
-Counterpart of ``repro/optim/optimizers.py::adam`` (no weight decay),
-written out as the reference writes it rather than with
-``torch.optim.Adam``: eps is added outside the square root of the
-bias-corrected second moment, and the bias corrections are float32.
+Counterpart of ``repro/optim/optimizers.py``: sgd, momentum (with
+Nesterov), adam (with decoupled weight decay and a state dtype), adamw,
+adafactor (factored second moment), the combinators chain,
+clip_by_global_norm and scale_by_schedule, and global_norm.  Each is
+written out as the reference writes it rather than with ``torch.optim``
+(e.g. Adam's eps is added outside the square root of the bias-corrected
+second moment), and the scalar arithmetic the reference does in float32
+on its step count is done in float32 here.
 
     opt = adam(1e-3)
     state = opt.init(params)
-    updates, state = opt.update(grads, state)
+    updates, state = opt.update(grads, state, params)
     apply_updates(params, updates)
+
+``params``, ``grads`` and ``updates`` are dicts of tensors keyed by
+parameter name; a state holds tensors keyed the same way (momentum's is
+such a dict, sgd's and clip_by_global_norm's the empty tuple).  A step
+count is a Python int.
+
+Adafactor factors the trailing two axes of every leaf of two or more
+dims, so it is the one optimizer whose function depends on a leaf's
+layout.  ``adafactor(layout=...)`` takes, per parameter name, the pair
+of maps (to the reference's layout, back) under which it computes: the
+CNN's (``models.cnn.reference_layout``) carries its OIHW convs and
+(out, in) dense kernels to the reference's HWIO and (in, out), so the
+factored moments are the reference's, on its axes, and checkpoints hold
+them as it does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 Tensors = Dict[str, torch.Tensor]
+State = Any
+#: name -> (to the reference's layout, back to the port's)
+Layout = Dict[str, Tuple[Callable[[torch.Tensor], torch.Tensor],
+                         Callable[[torch.Tensor], torch.Tensor]]]
 
 
 @dataclasses.dataclass(frozen=True)
 class GradientTransformation:
-    init: Callable[[Tensors], "AdamState"]
-    update: Callable[[Tensors, "AdamState"], Tuple[Tensors, "AdamState"]]
+    init: Callable[[Tensors], State]
+    update: Callable[..., Tuple[Tensors, State]]
 
+
+@torch.no_grad()
+def apply_updates(params: Tensors, updates: Tensors) -> Tensors:
+    """params += updates, in place (the parameters are the model's own
+    tensors, so the module sees the step without a copy); the sum is
+    cast to each parameter's dtype, as the reference's is."""
+    for name, p in params.items():
+        p.add_(updates[name])
+    return params
+
+
+def global_norm(tree: Tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree.values()))
+
+
+def _f32(x: float) -> np.float32:
+    return np.float32(x)
+
+
+# ------------------------------------------------------------------ basic
+
+def sgd(lr: float) -> GradientTransformation:
+    def init(params: Tensors) -> tuple:
+        return ()
+
+    @torch.no_grad()
+    def update(grads: Tensors, state: tuple, params: Optional[Tensors] = None):
+        return {n: -lr * g for n, g in grads.items()}, state
+
+    return GradientTransformation(init, update)
+
+
+def momentum(lr: float, beta: float = 0.9,
+             nesterov: bool = False) -> GradientTransformation:
+    def init(params: Tensors) -> Tensors:
+        return {n: torch.zeros_like(p) for n, p in params.items()}
+
+    @torch.no_grad()
+    def update(grads: Tensors, state: Tensors,
+               params: Optional[Tensors] = None):
+        new_m = {n: beta * state[n] + g for n, g in grads.items()}
+        if nesterov:
+            upd = {n: -lr * (beta * new_m[n] + g) for n, g in grads.items()}
+        else:
+            upd = {n: -lr * m for n, m in new_m.items()}
+        return upd, new_m
+
+    return GradientTransformation(init, update)
+
+
+# ------------------------------------------------------------------- adam
 
 class AdamState(NamedTuple):
     count: int
@@ -33,37 +108,159 @@ class AdamState(NamedTuple):
     nu: Tensors
 
 
-@torch.no_grad()
-def apply_updates(params: Tensors, updates: Tensors) -> Tensors:
-    """params += updates, in place (the parameters are the model's own
-    tensors, so the module sees the step without a copy)."""
-    for name, p in params.items():
-        p.add_(updates[name])
-    return params
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0,
+         state_dtype: torch.dtype = torch.float32) -> GradientTransformation:
+    """Adam / AdamW (decoupled decay when weight_decay > 0)."""
 
-
-def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8) -> GradientTransformation:
     def init(params: Tensors) -> AdamState:
         def zeros():
-            return {n: torch.zeros_like(p, dtype=torch.float32)
+            return {n: torch.zeros_like(p, dtype=state_dtype)
                     for n, p in params.items()}
         return AdamState(count=0, mu=zeros(), nu=zeros())
 
     @torch.no_grad()
-    def update(grads: Tensors, state: AdamState) -> Tuple[Tensors, AdamState]:
+    def update(grads: Tensors, state: AdamState,
+               params: Optional[Tensors] = None):
         count = state.count + 1
-        mu = {n: b1 * state.mu[n] + (1 - b1) * g.float()
+        mu = {n: b1 * state.mu[n] + (1 - b1) * g.to(state_dtype)
               for n, g in grads.items()}
-        nu = {n: b2 * state.nu[n] + (1 - b2) * g.float() ** 2
+        nu = {n: b2 * state.nu[n] + (1 - b2) * g.to(state_dtype) ** 2
               for n, g in grads.items()}
         # float32 bias corrections, 1 - b^count, as the reference's
         # count.astype(float32) computes them
-        one, c = np.float32(1.0), np.float32(count)
-        bc1 = float(one - np.float32(b1) ** c)
-        bc2 = float(one - np.float32(b2) ** c)
-        updates = {n: -lr * (mu[n] / bc1 / (torch.sqrt(nu[n] / bc2) + eps))
-                   for n in grads}
+        c = _f32(count)
+        bc1 = float(_f32(1.0) - _f32(b1) ** c)
+        bc2 = float(_f32(1.0) - _f32(b2) ** c)
+        updates = {}
+        for n in grads:
+            step = mu[n] / bc1 / (torch.sqrt(nu[n] / bc2) + eps)
+            if weight_decay and params is not None:
+                step = step + weight_decay * params[n].to(state_dtype)
+            updates[n] = -lr * step
         return updates, AdamState(count=count, mu=mu, nu=nu)
+
+    return GradientTransformation(init, update)
+
+
+def adamw(lr: float, weight_decay: float = 0.01,
+          **kw) -> GradientTransformation:
+    return adam(lr, weight_decay=weight_decay, **kw)
+
+
+# -------------------------------------------------------------- adafactor
+
+class AdafactorState(NamedTuple):
+    count: int
+    vr: Tensors  # row second moment (or the full v of a leaf under 2-D)
+    vc: Tensors  # column second moment (a 0-d zero for a leaf under 2-D)
+
+
+def adafactor(lr: float, eps: float = 1e-30, clip_threshold: float = 1.0,
+              decay: float = 0.8,
+              layout: Optional[Layout] = None) -> GradientTransformation:
+    """Factored second-moment estimator (Shazeer & Stern, 2018).
+
+    The state of an (.., R, C) leaf is (.., R) + (.., C) floats; a leaf
+    of under two dims keeps its full second moment.  ``layout``: per
+    parameter name, (to_ref, from_ref) maps under which the leaf is
+    factored (see the module docstring); other leaves are factored as
+    they are.
+    """
+    layout = layout or {}
+
+    def ref(name: str, t: torch.Tensor) -> torch.Tensor:
+        return layout[name][0](t) if name in layout else t
+
+    def init(params: Tensors) -> AdafactorState:
+        vr, vc = {}, {}
+        for n, p in params.items():
+            shape = tuple(ref(n, p).shape)
+            if len(shape) >= 2:
+                vr[n] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                    device=p.device)
+                vc[n] = torch.zeros(shape[:-2] + shape[-1:],
+                                    dtype=torch.float32, device=p.device)
+            else:
+                vr[n] = torch.zeros(shape, dtype=torch.float32,
+                                    device=p.device)
+                vc[n] = torch.zeros((), dtype=torch.float32, device=p.device)
+        return AdafactorState(count=0, vr=vr, vc=vc)
+
+    @torch.no_grad()
+    def update(grads: Tensors, state: AdafactorState,
+               params: Optional[Tensors] = None):
+        count = state.count + 1
+        # 1 - count^-decay in float32, as the reference computes it
+        beta = float(_f32(1.0) - _f32(count) ** _f32(-decay))
+        updates, new_vr, new_vc = {}, {}, {}
+        for n, g in grads.items():
+            g = ref(n, g).float()
+            g2 = g * g + eps
+            vr, vc = state.vr[n], state.vc[n]
+            if g.ndim >= 2:
+                vr = beta * vr + (1 - beta) * torch.mean(g2, dim=-1)
+                vc = beta * vc + (1 - beta) * torch.mean(g2, dim=-2)
+                denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+                                    min=eps)
+                v_est = vr[..., :, None] * vc[..., None, :] / denom[..., None]
+                step = g / torch.sqrt(v_est + eps)
+            else:
+                vr = beta * vr + (1 - beta) * g2
+                step = g / torch.sqrt(vr + eps)
+            # update clipping (RMS <= clip_threshold)
+            rms = torch.sqrt(torch.mean(step * step) + eps)
+            step = step / torch.clamp(rms / clip_threshold, min=1.0)
+            step = -lr * step
+            updates[n] = layout[n][1](step) if n in layout else step
+            new_vr[n], new_vc[n] = vr, vc
+        return updates, AdafactorState(count=count, vr=new_vr, vc=new_vc)
+
+    return GradientTransformation(init, update)
+
+
+# ------------------------------------------------------------ combinators
+
+def chain(*transforms: GradientTransformation) -> GradientTransformation:
+    def init(params: Tensors) -> tuple:
+        return tuple(t.init(params) for t in transforms)
+
+    def update(grads: Tensors, state: tuple,
+               params: Optional[Tensors] = None):
+        new_state = []
+        for t, s in zip(transforms, state):
+            grads, s = t.update(grads, s, params)
+            new_state.append(s)
+        return grads, tuple(new_state)
+
+    return GradientTransformation(init, update)
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    def init(params: Tensors) -> tuple:
+        return ()
+
+    @torch.no_grad()
+    def update(grads: Tensors, state: tuple,
+               params: Optional[Tensors] = None):
+        norm = global_norm(grads)
+        scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+        return {n: g * scale for n, g in grads.items()}, state
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_schedule(schedule: Callable[[int], torch.Tensor]
+                      ) -> GradientTransformation:
+    """Multiplies the updates by ``schedule(step)``; the state is the
+    step count."""
+    def init(params: Tensors) -> int:
+        return 0
+
+    @torch.no_grad()
+    def update(grads: Tensors, state: int, params: Optional[Tensors] = None):
+        scale = schedule(state)
+        return {n: g * scale.to(g.device) for n, g in grads.items()}, \
+            state + 1
 
     return GradientTransformation(init, update)
