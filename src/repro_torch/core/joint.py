@@ -139,8 +139,9 @@ def proposed_scheme(sys: SystemParams, state: RoundState,
 
     ``matching_mode`` picks the swap-matching sweep (``"scalar"``,
     ``"batched"`` or ``"auto"``; a CCP evaluator always runs ``"auto"``,
-    as in the reference), ``selection_chunk`` the device-chunked
-    gradient projection (0: the full matrix) and ``gp_step0`` its step
+    as in the reference), ``selection_chunk`` the reference's
+    device-chunked gradient projection (0: the full matrix; the port's
+    iterates are the same for every chunk) and ``gp_step0`` its step
     constant.
 
     ``faults``: an optional ``fed.faults.RoundFaults`` whose

@@ -1,7 +1,8 @@
 """Data selection (paper §V, Problem 4, Algorithms 4-5) + exact oracle.
 
-Counterpart of ``repro/core/selection.py``, with the full-matrix and
-the device-chunked gradient projection.
+Counterpart of ``repro/core/selection.py``.  The reference's
+device-chunked gradient projection iterates the same rows as its
+full-matrix one, so ``device_chunk`` changes nothing here.
 
 1. Alg. 4: gradient projection on the continuous relaxation (36) with a
    diminishing step; the projection (37) onto {0 <= d <= 1, sum_j d >= 1}
@@ -118,31 +119,18 @@ def gradient_projection(sys: SystemParams, sigma: torch.Tensor,
     filter that drops high-sigma outliers; ~5.0 chases the global
     optimum of Problem 4, ~1 sample a device.
 
-    ``device_chunk``: 0 iterates the full (K, J) matrix; a positive
-    value below K runs the reference's chunked variant (``_gp_chunked``
-    there): K is padded to a multiple of the chunk with mask-0 rows
-    (pinned to 0 by the projection, with zero A and q, so they never
-    move the loop), the A weights, which carry the only cross-device
-    term (the |D̂| total), are computed once for all devices, and each
-    block's objective is the selection term restricted to it.  The
-    blocks run as one leading batch axis, (K / chunk, chunk, J), in a
-    single loop, not one loop a block.  The objective is separable per
-    device, so the iterates are the full matrix's device for device.
+    ``device_chunk``: the reference's option (its ``_gp_chunked``: 0
+    iterates the full (K, J) matrix, a positive value below K the
+    devices a block at a time, to bound its peak memory to a block's).
+    Every operation of the iteration works row by row over the last
+    axis, with the A weights, which carry the only cross-device term,
+    computed once for all devices, so the iterates do not depend on
+    the chunk: the port takes the option and always iterates the full
+    matrix.
     """
-    K = sigma.shape[0]
-    A = sys.a_weights()
-    if not device_chunk or device_chunk >= K:
-        return _gp_loop(sys.lam, sigma, mask, A, sys.q, steps, step0)
-    pad = (-K) % device_chunk
-    n_blocks = (K + pad) // device_chunk
-
-    def blocks(x):
-        x = torch.nn.functional.pad(x, (0, 0) * (x.ndim - 1) + (0, pad))
-        return x.reshape((n_blocks, device_chunk) + tuple(x.shape[1:]))
-
-    out = _gp_loop(sys.lam, blocks(sigma), blocks(mask), blocks(A),
-                   blocks(sys.q), steps, step0)
-    return out.reshape(n_blocks * device_chunk, -1)[:K]
+    del device_chunk  # the iterates do not depend on it
+    return _gp_loop(sys.lam, sigma, mask, sys.a_weights(), sys.q, steps,
+                    step0)
 
 
 def binary_recovery(delta_cont: torch.Tensor,

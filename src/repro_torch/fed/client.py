@@ -50,7 +50,7 @@ def per_sample_sigma(model: CNN, images: torch.Tensor, labels: torch.Tensor,
     if method == "last_layer":
         with torch.no_grad(), full_fp32():
             h, d = _head_residuals(model, images, labels)
-        return torch.sum(d * d, dim=-1) * (torch.sum(h * h, dim=-1) + 1.0)
+        return gradnorm_mod.gradnorm_sigma_plain(h, d)
     if method == "full":
         params = {n: p.detach() for n, p in model.named_parameters()}
 
@@ -67,15 +67,32 @@ def per_sample_sigma(model: CNN, images: torch.Tensor, labels: torch.Tensor,
     raise ValueError(f"unknown sigma method: {method}")
 
 
+@torch.no_grad()
+def _flat_head_sigma(model: CNN, images: torch.Tensor, labels: torch.Tensor,
+                     score) -> torch.Tensor:
+    """(K, D̂) "last_layer" sigma from one flat (K*D̂, ...) forward pass,
+    scored by ``score(h, p - y)``."""
+    K, D = labels.shape[:2]
+    flat = images.reshape((K * D,) + tuple(images.shape[2:]))
+    with full_fp32():
+        h, d = _head_residuals(model, flat, labels.reshape(-1))
+    return score(h, d).reshape(K, D)
+
+
 def device_sigma(model: CNN, images: torch.Tensor, labels: torch.Tensor,
                  method: str = "last_layer") -> torch.Tensor:
-    """(K, D̂) sigma, ``per_sample_sigma`` of each device's samples."""
+    """(K, D̂) sigma, ``per_sample_sigma`` of each device's samples:
+    "last_layer" in one flat pass scored by the kernel's plain version;
+    "full" a device at a time, which bounds the per-sample gradients'
+    memory to one device's."""
+    if method == "last_layer":
+        return _flat_head_sigma(model, images, labels,
+                                gradnorm_mod.gradnorm_sigma_plain)
     return torch.stack([per_sample_sigma(model, images[k], labels[k],
                                          method=method)
                         for k in range(labels.shape[0])])
 
 
-@torch.no_grad()
 def batched_sigma(model: CNN, images: torch.Tensor,
                   labels: torch.Tensor) -> torch.Tensor:
     """All-device "last_layer" sigma in one fused pass: (K, D̂).
@@ -83,11 +100,16 @@ def batched_sigma(model: CNN, images: torch.Tensor,
     Flattens the (K, D̂, ...) round batch into one (K*D̂, ...) forward
     pass and scores it with the fused row-norm kernel.
     """
-    K, D = labels.shape[:2]
-    flat = images.reshape((K * D,) + tuple(images.shape[2:]))
-    with full_fp32():
-        h, d = _head_residuals(model, flat, labels.reshape(-1))
-    return gradnorm_mod.gradnorm_sigma(h, d).reshape(K, D)
+    return _flat_head_sigma(model, images, labels,
+                            gradnorm_mod.gradnorm_sigma)
+
+
+def _weighted_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   delta: torch.Tensor) -> torch.Tensor:
+    """eq. (4)'s loss (sum_j delta_j l_j) / (sum_j delta_j)."""
+    losses = F.cross_entropy(logits, labels.long(), reduction="none")
+    return torch.sum(delta * losses) / torch.clamp(torch.sum(delta),
+                                                   min=1e-9)
 
 
 def local_gradient(model: CNN, images: torch.Tensor, labels: torch.Tensor,
@@ -95,11 +117,8 @@ def local_gradient(model: CNN, images: torch.Tensor, labels: torch.Tensor,
     """eq. (4): grad of (sum_j delta_j l_j) / (sum_j delta_j)."""
     names, params = zip(*model.named_parameters())
     with full_fp32():
-        losses = F.cross_entropy(model(images), labels.long(),
-                                 reduction="none")
-        loss = torch.sum(delta * losses) / torch.clamp(torch.sum(delta),
-                                                       min=1e-9)
-        grads = torch.autograd.grad(loss, params)
+        grads = torch.autograd.grad(
+            _weighted_loss(model(images), labels, delta), params)
     return dict(zip(names, grads))
 
 
@@ -121,12 +140,9 @@ def local_delta(model: CNN, images: torch.Tensor, labels: torch.Tensor,
     for _ in range(steps):
         leaves = {n: t.detach().requires_grad_(True) for n, t in p.items()}
         with full_fp32():
-            losses = F.cross_entropy(
-                functional_call(model, leaves, (images,)), labels.long(),
-                reduction="none")
-            loss = torch.sum(delta * losses) / torch.clamp(torch.sum(delta),
-                                                           min=1e-9)
-            grads = torch.autograd.grad(loss, tuple(leaves.values()))
+            grads = torch.autograd.grad(
+                _weighted_loss(functional_call(model, leaves, (images,)),
+                               labels, delta), tuple(leaves.values()))
         p = {n: t.detach() - lr * g
              for (n, t), g in zip(leaves.items(), grads)}
     return {n: (w[n] - p[n]) / lr for n in w}

@@ -122,7 +122,8 @@ class FEELConfig:
     # swap-matching sweep: auto (batched at >= AUTO_BATCH_MIN available
     # devices) | scalar | batched
     matching_mode: str = "auto"
-    # 0 = full-matrix Alg. 4; >0 = device blocks of that size
+    # 0 = full-matrix Alg. 4; >0 = device blocks of that size in the
+    # reference (the port's iterates do not depend on it)
     selection_chunk: int = 0
     optimizer: str = "adam"           # adam | sgd | momentum | adafactor
     lr: float = 1e-3

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,10 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import full_fp32
-
-#: name -> (to the reference's layout, back)
-Layout = Dict[str, Tuple[Callable[[torch.Tensor], torch.Tensor],
-                         Callable[[torch.Tensor], torch.Tensor]]]
+from ..optim.optimizers import Layout
 
 
 @dataclasses.dataclass(frozen=True)
