@@ -36,7 +36,14 @@ exit) if anything in it fails; no failure is caught:
    a 16-byte boundary; a batch of 70000; gates in (0.999, 1) at S =
    2048), every case called twice and bit-identical, and timed at
    mamba's (4, 2048, 131072), recurrentgemma-9b's (4, 2048, 4096) and
-   the same at batch 1, with % of bound and GB/s;
+   the same at batch 1, with % of bound and GB/s; the train shapes:
+   ``gradnorm_sigma`` at llama's train step, (8192, 3072) + (8192,
+   128256), beside ``vector_norm`` of both operands, and the scan at
+   mamba's and recurrentgemma's train steps, (8, 512, 131072) and (8,
+   512, 4096), with its gradient through the kernel
+   (``ops.lru_scan_autograd``) held against autograd through the plain
+   loop on the card and its backward call timed against the bytes
+   bound;
 4. FEEL path: 3 untraced rounds of the paper's §VI-A setup (K=10, N=5,
    Q=2, D̂=200, 28x28 images, faithful selection with 400 GP steps)
    through ``FEELTrainer.run_round``, which scores sigma through the
@@ -173,14 +180,43 @@ exit) if anything in it fails; no failure is caught:
 24. a 256-device round: ``default_system(K=256, N=32, Q=8, D_hat=200)``
    at 28x28, ``selection_chunk=64`` and the batched matching sweep, 3
    rounds with sigma through the kernel at (51200, 84) + (51200, 10),
-   the per-stage ms of rounds 1 and up, round 0 replayed on the CPU.
+   the per-stage ms of rounds 1 and up, round 0 replayed on the CPU;
+25. llama3.2-3b trained at full width and depth through
+   ``repro_torch.launch.train.run``: FEEL on, K = 4 clients, batch 16 x
+   512, bf16, the config's AdamW, 10 steps; each step's ms (the first
+   apart; median, min, max of the rest), tok/s, peak memory, loss,
+   per-example loss, ``selected_frac`` and ``sigma_mean``; each step
+   launches ``gradnorm_sigma`` once and neither flash nor the scan
+   (checked); then one step with a CUDA event at the end of each
+   stage (forward, per-example loss, sigma, selection, backward with
+   the remat recompute, optimizer) and one under ``torch.profiler``;
+26. the other block kinds trained at full width, cut in depth, 3 FEEL
+   steps each at batch 8 x 512: falcon-mamba-7b cut to 4 layers,
+   recurrentgemma-9b to one pattern (rglru, rglru, attn_local) and
+   deepseek-v2-236b to 2 layers (its dense layer and one MoE layer of
+   160 experts, with the config's adafactor); step ms, peak memory, the
+   summed MoE aux loss, and the scan's launches a step, 3 a recurrent
+   layer (the forward, its recompute under remat, the backward;
+   checked); each timed by stage and profiled as in 25;
+27. train replays: llama3.2-3b and falcon-mamba-7b at full width cut to
+   2 layers, fp32 with TF32 off, K = 4, batch 8 x 64: 3 FEEL steps on
+   the card, then 2 more, each replayed on the CPU from the card's
+   params, AdamW state and batch (``launch/replay.py``'s rule: loss,
+   per-example loss and sigma at rtol 1e-4; each client's smallest
+   sigma gap printed, the selections equal where it clears 10x the
+   sigma error, else the card's taken as given and said so; gradients
+   per leaf at rtol 1e-4 with an atol of 1e-4 of the leaf's largest;
+   params at 1e-6 + 1e-5 |w|, or, on AdamW's entries at gradient
+   noise, at the card's own update + lr (1 + wd |w|)); each side's
+   sigma against a float64 recompute; the mamba replay runs the scan's
+   backward on the card.
 
 Every replay (8, 10, 17, 22) draws its weights on the card from a
 seed, runs there, moves them to the host and runs again.  Launch counts
 are zeroed just before each path (4, 7, 9, 11, 12b, 13,
 14, both requests of 15, 16, 18, 19, both requests of 20, 21, the
-card's runs in 8, 10, 17 and 22, each run of 23, and 24) and read just
-after.  It prints one
+card's runs in 8, 10, 17 and 22, each run of 23, 24, 25, each run of
+26 and each replayed step of 27) and read just after.  It prints one
 ``{"kernels": [...]}`` line, with one entry per kernel and serving shape
 (``gradnorm_sigma`` at the §VI-A shape once for each FEEL path with
 that path's own launches: phase 4's (the main path), 11's
@@ -192,7 +228,11 @@ bf16 flash kernel at llama's, gemma3's, stablelm's, command-r's,
 deepseek-v2's and deepseek-v3's, the last two at the one latent
 attention shape, each with the launches of its own path: phase 20's
 naive request and phase 21's; the scan at mamba's and at
-recurrentgemma's at batch 4 and 1), and, last, the ``{"ok": true,
+recurrentgemma's at batch 4 and 1; the train paths with their own
+runs' launches: ``gradnorm_sigma@train-llama3.2-3b`` (phase 25, at its
+train shape), ``lru_scan@train-falcon-mamba-7b`` and
+``lru_scan@train-recurrentgemma-9b`` (phase 26, at their train
+shapes)), and, last, the ``{"ok": true,
 "device": ...}`` line.  Without a GPU, or without the repository's
 ``src/repro_torch`` beside it, it exits non-zero before printing
 either.
@@ -291,6 +331,18 @@ COMMAND_R, COMMAND_R_PARAMS, COMMAND_R_LAYERS = ("command-r-35b",
                                                  32_380_690_432, 40)
 DSV2, DSV2_LAYERS, DSV2_PARAMS = "deepseek-v2-236b", 8, 29_556_294_656
 DSV3, DSV3_LAYERS, DSV3_PARAMS = "deepseek-v3-671b", 4, 15_111_101_440
+# phases 25-27: the zoo trained with FEEL selection.  llama3.2-3b at full
+# width and depth (K clients of the batch, the config's AdamW); the
+# other block kinds at full width cut in depth, (arch, layers, scan
+# layers); the fp32 card-vs-CPU replays at PR 25's shape
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CLIENTS = 16, 512, 10, 4
+SIGMA_TRAIN = (TRAIN_BATCH * TRAIN_SEQ, 3072, 128256)  # llama's h, p - y
+SCAN_TRAIN = ((8, 512, 8192 * 16), (8, 512, 4096))   # mamba, recurrentgemma
+CUT_TRAIN = ((MAMBA, 4, 4), (RGEMMA, 3, 2), (DSV2, 2, 0))
+CUT_BATCH, CUT_SEQ, CUT_STEPS = 8, 512, 3
+REPLAY_TRAIN_ARCHS = (ARCH, MAMBA)
+REPLAY_TRAIN_BATCH, REPLAY_TRAIN_SEQ = 8, 64
+REPLAY_TRAIN_WARM, REPLAY_TRAIN_STEPS = 3, 2
 
 
 def die(msg: str) -> None:
@@ -1752,6 +1804,278 @@ def phase_llm_replay(torch, tm, get_config, full_fp32, arch, kernels,
     return launches
 
 
+# ------------------------------------------------------------ training
+
+def phase_train_kernels(torch, gradnorm, lru, ops, device="cuda"):
+    """Phase 3's train shapes: ``gradnorm_sigma`` at llama's train step
+    (``SIGMA_TRAIN``) against its plain version, timed beside its bound
+    and ``torch.linalg.vector_norm`` of both operands; the scan at the
+    train shapes (``SCAN_TRAIN``) timed, and its gradient through the
+    kernel (``ops.lru_scan_autograd``) against autograd through the plain
+    loop on the card, with the backward call (``lru_scan_backward``: one
+    reversed-scan launch, flips and dL/da) timed against the bytes bound
+    of a and gbar read and g written once (fp32).  Returns (the sigma
+    record, the scan records by shape)."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    n, fh, fd = SIGMA_TRAIN
+    h = torch.randn(n, fh, generator=gen, device=device)
+    d = torch.randn(n, fd, generator=gen, device=device)
+    got = gradnorm.gradnorm_sigma(h, d)
+    want = gradnorm.gradnorm_sigma_plain(h, d)
+    rel = max_rel(got, want)
+    check(rel <= KERNEL_RTOL, f"gradnorm_sigma {SIGMA_TRAIN}: rel err "
+          f"{rel:.3g}")
+    flops, n_bytes = gradnorm.cost(n, fh, fd)
+    b_ms, b_by = bound(n_bytes, flops)
+    sigma_rec = {"max_abs_err": float((got - want).abs().max()),
+                 "ms": device_ms(torch, lambda: gradnorm.gradnorm_sigma(h, d),
+                                 10, 3),
+                 "plain_ms": device_ms(
+                     torch, lambda: gradnorm.gradnorm_sigma_plain(h, d), 2, 2),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    del got, want
+    vn_ms = device_ms(torch, lambda: (torch.linalg.vector_norm(h, dim=-1),
+                                      torch.linalg.vector_norm(d, dim=-1)),
+                      10, 3)
+    print(f"gradnorm_sigma ({n}, {fh})+({n}, {fd}) (llama's train step): "
+          f"max_abs_err {sigma_rec['max_abs_err']:.3g} max_rel_err "
+          f"{rel:.3g} | device ms: kernel {sigma_rec['ms']:.6f} plain "
+          f"{sigma_rec['plain_ms']:.6f} vector_norm of both operands "
+          f"{vn_ms:.6f} bound {b_ms:.6f} ({b_by}, {n_bytes:,.0f} B) | "
+          f"{100 * b_ms / sigma_rec['ms']:.1f} % of bound, "
+          f"{n_bytes / sigma_rec['ms'] / 1e6:.1f} GB/s")
+    del h, d
+
+    scan_recs = {}
+    for shape in SCAN_TRAIN:
+        big = shape[2] > 8192
+        a = torch.rand(shape, generator=gen, device=device)
+        b = torch.randn(shape, generator=gen, device=device)
+        w = torch.randn(shape, generator=gen, device=device)
+        a1, b1 = a.clone().requires_grad_(), b.clone().requires_grad_()
+        h = ops.lru_scan_autograd(a1, b1)
+        got = torch.autograd.grad((h * w).sum(), (a1, b1))
+        del a1, b1, h
+        a2, b2 = a.clone().requires_grad_(), b.clone().requires_grad_()
+        want = torch.autograd.grad((lru.lru_scan_plain(a2, b2) * w).sum(),
+                                   (a2, b2))
+        del a2, b2
+        errs = []
+        for name, g, ref in zip(("a", "b"), got, want):
+            errs.append(float((g - ref).abs().max()))
+            check(bool(torch.allclose(g, ref, rtol=SCAN_TOL, atol=SCAN_TOL)),
+                  f"lru_scan gradient {shape} d/d{name}: max abs err "
+                  f"{errs[-1]:.3g}")
+        del got, want
+        fwd = lru.lru_scan(a, b)
+        b_ms, b_by, n_bytes = scan_bound(shape, 4)
+        rec = {"max_abs_err": max(errs),
+               "ms": device_ms(torch, lambda: lru.lru_scan(a, b),
+                               *((5, 3) if big else (50, 5))),
+               "plain_ms": device_ms(torch, lambda: lru.lru_scan_plain(a, b),
+                                     *((1, 2) if big else (5, 3))),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        bwd_ms = device_ms(torch, lambda: lru.lru_scan_backward(a, fwd, w),
+                           *((2, 2) if big else (20, 3)))
+        print(f"lru_scan {shape} fp32 (a train step's): gradient through "
+              f"the kernel against autograd through the plain loop, max abs "
+              f"err d/da {errs[0]:.3g} d/db {errs[1]:.3g} | device ms: "
+              f"kernel {rec['ms']:.6f} plain {rec['plain_ms']:.6f} bound "
+              f"{b_ms:.6f} ({b_by}), {100 * b_ms / rec['ms']:.1f} % of bound "
+              f"| backward call {bwd_ms:.6f} ms against the same bound "
+              f"({100 * b_ms / bwd_ms:.1f} %: one reversed scan, and the "
+              "flips and dL/da around it)")
+        scan_recs[shape] = rec
+        del a, b, w, fwd
+    torch.cuda.empty_cache()
+    return sigma_rec, scan_recs
+
+
+def profile_train_step(torch, train_mod, cfg, label, batch, seq):
+    """Where a train step's time goes, on a fresh model of ``cfg`` after
+    a warm-up step: one step with a CUDA event at the end of each stage
+    (the train step's ``mark``: forward, per-example loss, sigma,
+    selection, backward with the remat recompute inside it, optimizer),
+    then one step under ``torch.profiler``: device operations, busy time
+    against wall time, GEMMs' share, the kernels that take most device
+    time, and the sigma and scan kernels' time."""
+    from torch.profiler import ProfilerActivity, profile
+    model, _, state, step = train_mod.setup(cfg, 0, "cuda", True,
+                                            TRAIN_CLIENTS)
+    b = train_mod.synth_batch(cfg, torch.Generator(device="cuda")
+                              .manual_seed(0), batch, seq, TRAIN_CLIENTS,
+                              True, device="cuda")
+    held = [model, state]
+
+    def one(mark=None):
+        held[0], held[1], _ = step(held[0], held[1], b,
+                                   **({"mark": mark} if mark else {}))
+
+    one()
+    torch.cuda.synchronize()
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+
+    def mark(name):
+        events.append((name, torch.cuda.Event(enable_timing=True)))
+        events[-1][1].record()
+
+    events[0][1].record()
+    t0 = time.perf_counter()
+    one(mark)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    stages = [(n, events[i][1].elapsed_time(e))
+              for i, (n, e) in enumerate(events[1:])]
+    print(f"{label} train step by stage (CUDA events, ms): "
+          + ", ".join(f"{n} {ms:.3f}" for n, ms in stages)
+          + f"; total {sum(ms for _, ms in stages):.3f} of wall {wall:.3f}"
+          " (backward holds the remat recompute of every pattern repeat)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    gemm = sum(ms for n, ms in by_name.items()
+               if any(k in n for k in ("gemm", "nvjet", "xmma", "cutlass")))
+    mine = {k: [e.time_range.elapsed_us() / 1e3 for e in dev if k in e.name]
+            for k in ("gradnorm_sigma_kernel", "lru_scan_kernel")}
+    print(f"{label} train step under the profiler: {len(dev)} device "
+          f"operations, device busy {busy:.3f} ms of wall {wall:.3f} ms, "
+          f"device idle share {1 - busy / wall:.4f}; GEMMs {gemm:.3f} ms "
+          f"({100 * gemm / busy:.1f} % of busy); top device time: "
+          + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in top)
+          + "".join(f"; {k} {sum(v):.3f} ms in {len(v)} launches"
+                    for k, v in mine.items() if v))
+    del model, state, held, b
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, train_mod, kernels, cfg, batch, seq, steps,
+                per_step, label, device="cuda"):
+    """``steps`` FEEL train steps of ``cfg`` through
+    ``train_mod.run`` (the entry point), every launch count zeroed just
+    before and read just after; each step must make ``per_step``
+    launches and a finite loss.  Prints each step and the run's wall,
+    throughput and peak memory; returns (launches, the result)."""
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() if device == "cuda" else 0
+    for m in kernels:
+        m.reset_launch_counts()
+    res = train_mod.run(cfg, steps=steps, batch=batch, seq=seq,
+                        n_clients=TRAIN_CLIENTS, log_every=steps,
+                        device=device)
+    launches = kernel_launches(kernels)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    for i, got in enumerate(res.launches):
+        check(got == per_step, f"{label} step {i}: launches {got}, "
+              f"expected {per_step}")
+    check(all(math.isfinite(x) for x in res.losses + res.ex_loss),
+          f"{label}: a loss is not finite: {res.losses}")
+    for i in range(steps):
+        print(f"train {label} step {i}: wall {res.step_s[i] * 1e3:.3f} ms | "
+              f"loss {res.losses[i]:.6f} (eq. 19) per-example mean "
+              f"{res.ex_loss[i]:.6f} aux {res.aux_loss[i]:.6g} "
+              f"selected_frac {res.selected_frac[i]:.4f} sigma_mean "
+              f"{res.sigma_mean[i]:.6g}")
+    ms = [t * 1e3 for t in res.step_s]
+    rest = sorted(ms[1:]) or ms
+    tok = batch * seq / (rest[len(rest) // 2] / 1e3)
+    where = torch.cuda.get_device_name(0) if device == "cuda" else device
+    print(f"train {label} ({where}): "
+          f"params {res.n_params:,}, K={TRAIN_CLIENTS}, batch {batch} x seq "
+          f"{seq}, {steps} steps, FEEL on | step ms first {ms[0]:.3f}, "
+          f"steps 1-{steps - 1} median {rest[len(rest) // 2]:.3f} min "
+          f"{rest[0]:.3f} max {rest[-1]:.3f} ({tok:.1f} tok/s) | peak "
+          f"memory {peak / 2**30:.3f} GiB ({before / 2**30:.3f} allocated "
+          f"before the run) | per-example loss {res.ex_loss[0]:.6f} -> "
+          f"{res.ex_loss[-1]:.6f} | summed MoE aux loss per step "
+          f"{[round(a, 6) for a in res.aux_loss]} | launches {launches}, "
+          f"per step {res.launches[0]}")
+    return launches, res
+
+
+def phase_train_replay(torch, train_mod, replay, tm, full_fp32, get_config,
+                       kernels, arch, scan_layers, device="cuda", cfg=None):
+    """``arch`` at full width cut to 2 layers, fp32 with TF32 off: a few
+    FEEL steps on the card, then ``REPLAY_TRAIN_STEPS`` more, each
+    replayed on the CPU from the card's params, AdamW state and batch by
+    ``replay.replay_step`` (the rule of ``launch/replay.py``).  Prints
+    each client's smallest sigma gap, each side's sigma error against a
+    float64 recompute, and whether the card's selection was taken as
+    given.  Returns the card's launches over the replayed steps."""
+    cfg = cfg or get_config(arch).scaled(dtype="float32",
+                                         n_layers=REPLAY_LAYERS)
+    feel = tm.FeelIntegration(n_clients=TRAIN_CLIENTS)
+    t0 = time.perf_counter()
+    launches = {}
+    with full_fp32():
+        model, opt, state, step = train_mod.setup(cfg, 0, device, True,
+                                                  TRAIN_CLIENTS)
+
+        def batch(i):
+            return train_mod.synth_batch(
+                cfg, torch.Generator(device=device).manual_seed(100 + i),
+                REPLAY_TRAIN_BATCH, REPLAY_TRAIN_SEQ, TRAIN_CLIENTS, True,
+                device=device)
+
+        for i in range(REPLAY_TRAIN_WARM):
+            model, state, _ = step(model, state, batch(i))
+        for i in range(REPLAY_TRAIN_STEPS):
+            for m in kernels:
+                m.reset_launch_counts()
+            state, rep = replay.replay_step(cfg, opt, feel, model, state,
+                                            batch(REPLAY_TRAIN_WARM + i),
+                                            cfg.optimizer, 0.01)
+            got = kernel_launches(kernels)
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            check(got["gradnorm_sigma"] == 1
+                  and got["lru_scan"] == 3 * scan_layers
+                  and got["flash_attention"] == 0,
+                  f"{arch} replay step {i}: card launches {got}")
+            p, gaps = rep["params"], rep["gaps"]
+            print(f"{arch} train replay step {i} (full width, "
+                  f"{cfg.n_layers} layers, fp32, TF32 off, K="
+                  f"{TRAIN_CLIENTS}, batch {REPLAY_TRAIN_BATCH} x seq "
+                  f"{REPLAY_TRAIN_SEQ}, after {REPLAY_TRAIN_WARM + i} card "
+                  f"steps): loss card {rep['loss_card']:.7f} cpu "
+                  f"{rep['loss_cpu']:.7f} (rel {rep['loss_rel']:.3g}), "
+                  f"per-example loss rel {rep['ex_loss_rel']:.3g}, sigma rel "
+                  f"{rep['sigma_rel']:.3g} (against float64: card "
+                  f"{rep['sigma64_card']:.3g}, cpu {rep['sigma64_cpu']:.3g}; "
+                  f"sigma {rep['sigma_range'][0]:.6g} to "
+                  f"{rep['sigma_range'][1]:.6g}), smallest relative sigma "
+                  f"gap per client {[float(f'{g:.3g}') for g in gaps]}, "
+                  + ("the card's selection TAKEN AS GIVEN (a client's gap "
+                     f"within {replay.GAP_FACTOR:g} x the sigma error)"
+                     if rep["given"] else "selection equal")
+                  + f" ({rep['selected']} of {rep['examples']} kept), "
+                  f"gradients within the rule (worst {rep['grad_ratio']:.3g} "
+                  f"of its bound, {rep['grad_leaf']}), params max abs err "
+                  f"{p['max_abs_err']:.3g} ({p['decided_max_abs_err']:.3g} "
+                  f"on entries with a gradient above the atol; "
+                  f"{p['noise']:,} of {p['entries']:,} entries at gradient "
+                  f"noise), aux card {rep['aux_card']:.6g} cpu "
+                  f"{rep['aux_cpu']:.6g}; cpu {rep['cpu_s']:.2f} s; card "
+                  f"launches {got}")
+    del model, state
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    print(f"{arch} train replay: {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def _clone_cache(torch, cache):
     """A copy of a decoder cache (nested dicts and lists of tensors)."""
     if torch.is_tensor(cache):
@@ -1779,7 +2103,9 @@ def main() -> None:
     from repro_torch.core import matching, selection
     from repro_torch.device import full_fp32
     from repro_torch.kernels import flash_attention, gradnorm, lru_scan, ops
+    from repro_torch.launch import replay
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
     from repro_torch.models import model as tm
 
     t_start = time.perf_counter()
@@ -1824,6 +2150,8 @@ def main() -> None:
     flash_f32_rec = flash_recs[(FLASH_F32_REPLAY, "float32", "bshd")]
     scan_recs = phase_scan(torch, lru_scan, ops)
     scan_rec = scan_recs[SCAN_SLICE]
+    sigma_train_rec, scan_train_recs = phase_train_kernels(
+        torch, gradnorm, lru_scan, ops)
     done("3 kernels")
 
     # -- 4. the FEEL path -----------------------------------------------
@@ -2110,6 +2438,46 @@ def main() -> None:
     k256_launches = phase_k256(rt, torch, init_sd, kernels, gradnorm)
     done("24 K=256 round")
 
+    # -- 25. llama3.2-3b training at full width and depth ---------------
+    llama = get_config(ARCH)
+    llama_train_launches, res = phase_train(
+        torch, train_mod, kernels, llama, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS,
+        {"gradnorm_sigma": 1, "flash_attention": 0, "lru_scan": 0}, ARCH)
+    check(res.n_params == 3_606_752_256, f"{ARCH}: {res.n_params:,} params")
+    print(f"gradnorm_sigma device time of one step's launch at "
+          f"{SIGMA_TRAIN}: {sigma_train_rec['ms']:.6f} ms (phase 3)")
+    del res
+    profile_train_step(torch, train_mod, llama, ARCH, TRAIN_BATCH, TRAIN_SEQ)
+    done("25 llama train")
+
+    # -- 26. the other block kinds' training at full width, cut in depth
+    cut_launches = {}
+    for arch, layers, scans in CUT_TRAIN:
+        cfg = get_config(arch).scaled(n_layers=layers)
+        cut_launches[arch], res = phase_train(
+            torch, train_mod, kernels, cfg, CUT_BATCH, CUT_SEQ, CUT_STEPS,
+            {"gradnorm_sigma": 1, "flash_attention": 0,
+             "lru_scan": 3 * scans},
+            f"{arch} cut to {layers} layers {list(cfg.layer_pattern)}")
+        print(f"{arch} cut to {layers} layers: {3 * scans} scan launches a "
+              f"step = 3 x {scans} recurrent layers (the forward, its "
+              "recompute under remat, the backward); optimizer "
+              f"{cfg.optimizer}")
+        if cfg.n_experts:
+            check(all(a > 0 for a in res.aux_loss),
+                  f"{arch}: the summed MoE aux loss {res.aux_loss}")
+        del res
+        profile_train_step(torch, train_mod, cfg, f"{arch} cut to {layers}",
+                           CUT_BATCH, CUT_SEQ)
+    done("26 cut-depth train")
+
+    # -- 27. train steps replayed on the CPU ---------------------------
+    for arch in REPLAY_TRAIN_ARCHS:
+        phase_train_replay(torch, train_mod, replay, tm, full_fp32,
+                           get_config, kernels, arch,
+                           REPLAY_LAYERS if arch == MAMBA else 0)
+    done("27 train replays")
+
     # -- results --------------------------------------------------------
     def entry(name, source, replaces, launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -2172,7 +2540,19 @@ def main() -> None:
         entry(f"flash_attention@{DSV2}", sm90_src, flash_src,
               dsv2_launches["flash_attention"], flash_mla_rec),
         entry(f"flash_attention@{DSV3}", sm90_src, flash_src,
-              dsv3_launches["flash_attention"], flash_dsv3_rec)]}))
+              dsv3_launches["flash_attention"], flash_dsv3_rec),
+        # the train paths, each with its own run's launches
+        entry(f"gradnorm_sigma@train-{ARCH}", gn_src, gn_ref,
+              llama_train_launches["gradnorm_sigma"], sigma_train_rec),
+        entry(f"lru_scan@train-{MAMBA}",
+              "src/repro_torch/kernels/csrc/lru_scan.cu",
+              "src/repro/kernels/lru_scan.py:70",
+              cut_launches[MAMBA]["lru_scan"], scan_train_recs[SCAN_TRAIN[0]]),
+        entry(f"lru_scan@train-{RGEMMA}",
+              "src/repro_torch/kernels/csrc/lru_scan.cu",
+              "src/repro/kernels/lru_scan.py:70",
+              cut_launches[RGEMMA]["lru_scan"],
+              scan_train_recs[SCAN_TRAIN[1]])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

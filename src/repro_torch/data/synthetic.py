@@ -1,15 +1,18 @@
-"""Offline synthetic MNIST-shaped dataset (paper-validation data).
+"""Offline synthetic MNIST-shaped dataset (paper-validation data), and
+the power-law token batches of the zoo's training driver.
 
-Counterpart of ``repro/data/synthetic.py`` (``SyntheticImages``); numpy,
-so the same seed gives the same images bit for bit.  Each class has a
-fixed smooth prototype plus per-sample shift and pixel noise, so a small
-CNN separates the classes and mislabeled samples carry larger gradients.
+Counterpart of ``repro/data/synthetic.py``.  ``SyntheticImages`` is
+numpy, so the same seed gives the same images bit for bit: each class
+has a fixed smooth prototype plus per-sample shift and pixel noise, so a
+small CNN separates the classes and mislabeled samples carry larger
+gradients.  ``synthetic_lm_batch`` draws with a ``torch.Generator``.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 
 def _class_prototypes(num_classes: int, side: int,
@@ -61,3 +64,18 @@ class SyntheticImages:
 
     def __len__(self) -> int:
         return self.images.shape[0]
+
+
+def synthetic_lm_batch(generator: torch.Generator, batch: int, seq: int,
+                       vocab: int, device=None) -> dict:
+    """Power-law token batch for LM training examples: seq + 1 tokens a
+    row drawn i.i.d. from the softmax over -1.1 log(rank) (the
+    reference's zipf-ish categorical), from ``generator`` on ``device``
+    (the generator's device); tokens are the first seq, labels the last
+    seq (int64).  The reference draws with ``jax.random``, so the same
+    seed gives other tokens from the same distribution."""
+    ranks = torch.arange(1, vocab + 1, dtype=torch.float32, device=device)
+    probs = torch.softmax(-1.1 * torch.log(ranks), dim=0)
+    tokens = torch.multinomial(probs, batch * (seq + 1), replacement=True,
+                               generator=generator).view(batch, seq + 1)
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}

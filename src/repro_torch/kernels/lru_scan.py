@@ -16,6 +16,16 @@ and a contiguous view at any offset.  Any other device, a dtype other
 than float32 or bfloat16, a rank other than 3, a non-contiguous tensor,
 or mismatched shapes, dtypes or devices raise: there is no silent
 fallback.
+
+``LRUScan`` (``lru_scan_autograd``) is the scan with its gradient, for
+the mixers' train mode.  The gradient is the adjoint recurrence
+g_t = gbar_t + a_{t+1} g_{t+1} (a_S = 0), itself a linear recurrence run
+backwards in time: the backward pass launches the same kernel on
+time-reversed contiguous copies of gbar and of a shifted by one step,
+then grad_b = g and grad_a_t = g_t h_{t-1} (h_{-1} = 0).  That is the
+gradient JAX's autodiff takes of the reference's associative scan.  A
+train step with remat launches the kernel three times a scan layer: the
+forward, its recompute and the backward.
 """
 from __future__ import annotations
 
@@ -136,3 +146,47 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                              B, S, C, stream), "lru_scan")
         LAUNCHES["lru_scan"] += 1
     return out
+
+
+# ------------------------------------------------------------- gradient
+
+def lru_scan_backward(a: torch.Tensor, h: torch.Tensor, gbar: torch.Tensor
+                      ) -> tuple:
+    """(dL/da, dL/db) in fp32 of h = lru_scan(a, b), given h and the
+    incoming gradient gbar = dL/dh: the adjoint g_t = gbar_t + a_{t+1}
+    g_{t+1} (a_S = 0) is ``lru_scan`` on time-reversed contiguous copies
+    of gbar and of a shifted by one step (one kernel launch on CUDA
+    tensors), then dL/db = g and dL/da_t = g_t h_{t-1} (h_{-1} = 0)."""
+    S = a.shape[1]
+    # reversed step i is step S-1-i: its gate is a_{S-i} (none at i = 0)
+    a_rev = torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+    a_rev[:, 1:] = a[:, 1:].flip(1)
+    g = lru_scan(a_rev, gbar.float().flip(1)).flip(1)
+    del a_rev
+    grad_a = torch.zeros_like(g)
+    grad_a[:, 1:] = g[:, 1:] * h[:, :S - 1]
+    return grad_a, g
+
+
+class LRUScan(torch.autograd.Function):
+    """h = lru_scan(a, b) with its gradient through the same kernel
+    (``lru_scan_backward``).  Saves a and h; CPU tensors take the plain
+    version in both directions, as ``lru_scan`` routes them."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        h = lru_scan(a, b)
+        ctx.save_for_backward(a, h)
+        ctx.dtypes = (a.dtype, b.dtype)
+        return h
+
+    @staticmethod
+    def backward(ctx, gbar: torch.Tensor):
+        a, h = ctx.saved_tensors
+        grad_a, grad_b = lru_scan_backward(a, h, gbar)
+        return grad_a.to(ctx.dtypes[0]), grad_b.to(ctx.dtypes[1])
+
+
+def lru_scan_autograd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``lru_scan`` that autograd can differentiate (``LRUScan``)."""
+    return LRUScan.apply(a, b)

@@ -1,0 +1,19 @@
+"""The optimizer factory of the launchers (counterpart of
+``repro/launch/shapes.py``'s ``make_optimizer``).  The rest of the
+reference's module, the dry-run shapes and abstract input specs, comes
+with mesh and sharding (ROADMAP.md queue 1, item 12)."""
+from __future__ import annotations
+
+import functools
+
+from .. import optim
+from ..models.config import ArchConfig
+
+
+def make_optimizer(cfg: ArchConfig) -> optim.GradientTransformation:
+    """``cfg.optimizer`` at ``cfg.learning_rate``; adamw with weight decay
+    0.01, as the reference builds it."""
+    builder = {"adamw": functools.partial(optim.adamw, weight_decay=0.01),
+               "adam": optim.adam, "adafactor": optim.adafactor,
+               "sgd": optim.sgd, "momentum": optim.momentum}[cfg.optimizer]
+    return builder(cfg.learning_rate)

@@ -1,21 +1,26 @@
 """Shared neural-net layers: RMSNorm, 1-D RoPE, gated MLP, and GQA
-attention with the global causal (prefill), sliding-window (prefill) and
-cached-decode (full or rolling) paths.
+attention with the global causal (prefill and train), sliding-window
+(prefill and train) and cached-decode (full or rolling) paths.
 
 Counterpart of ``repro/models/layers.py`` for what the port's serving
-path runs.  Parameters live in ``nn.Module`` containers whose attribute
-names are the reference's dict keys; dense weights keep the reference's
-(d_in, d_out) layout and are applied as ``x @ w``.  The apply functions
-are plain tensor functions that take those modules, as the reference's
-take dict pytrees.
+and training paths run.  Parameters live in ``nn.Module`` containers
+whose attribute names are the reference's dict keys; dense weights keep
+the reference's (d_in, d_out) layout and are applied as ``x @ w``.  The
+apply functions are plain tensor functions that take those modules, as
+the reference's take dict pytrees.  Serving's parameters are frozen
+(``frozen``); the train driver turns their gradients on.
 
 Global prefill attention goes through the hand-written flash-attention
 kernel (``kernels.ops.flash_attention_bhsd``), the route the reference
-keeps for hot paths on its chip.  Sliding-window prefill
-(``local_attend_chunked``) and decode attention stay plain torch, as the
-reference computes them with einsums outside any kernel (its Pallas
-flash kernel takes no window).  Logit softcapping and M-RoPE are not
-ported yet (ROADMAP.md queue 1, item 10) and raise.
+keeps for hot paths on its chip.  Global attention in train mode
+(``causal_attend_chunked``) is the reference's q-chunked jnp
+``causal_attend`` in plain torch, which autograd differentiates: the
+flash kernel has no backward, and the reference's train path never
+reaches its Pallas kernel either.  Sliding-window attention
+(``local_attend_chunked``, prefill and train) and decode attention stay
+plain torch, as the reference computes them with einsums outside any
+kernel (its Pallas flash kernel takes no window).  Logit softcapping and
+M-RoPE are not ported yet (ROADMAP.md queue 1, item 10) and raise.
 """
 from __future__ import annotations
 
@@ -33,13 +38,11 @@ Tensor = torch.Tensor
 
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _TODO = "not ported yet (ROADMAP.md queue 1, item 10)"
-#: the ``train`` mode of every block kind: training the zoo is its own item
-_TRAIN_TODO = ("not ported yet: the zoo serves only (training the zoo is "
-               "ROADMAP.md queue 1, item 11)")
 
 
 def frozen(t: Tensor) -> nn.Parameter:
-    """A parameter of the inference port: no gradient is tracked."""
+    """A parameter with no gradient tracked, as serving holds it; the
+    train driver turns gradients on (``model.trainable``)."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -218,6 +221,30 @@ def causal_attend(q: Tensor, k: Tensor, v: Tensor, q_offset: int = 0,
     return ops.flash_attention_bhsd(q, k, v, causal=True, scale=scale)
 
 
+def causal_attend_chunked(q: Tensor, k: Tensor, v: Tensor,
+                          scale: Optional[float] = None, softcap: float = 0.0,
+                          q_chunk: int = 1024) -> Tensor:
+    """Causal GQA attention over a whole sequence in plain torch, with
+    q-chunking: the train mode's global attention (the reference's jnp
+    ``causal_attend``), which autograd differentiates.  q: (B,S,H,Dh);
+    k: (B,S,Hk,Dh); v: (B,S,Hk,Dv) (MLA hands a narrower v); positions
+    0..S-1.  Queries go in chunks of ``q_chunk`` against every key, so a
+    chunk's fp32 logits are (B, Hk, G, q_chunk, S), as in the
+    reference."""
+    if softcap:
+        raise NotImplementedError(f"softcapped attention is {_TODO}")
+    S, Hk = q.shape[1], k.shape[2]
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    qg = _gqa_split(q, Hk)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    outs = []
+    for s0 in range(0, S, q_chunk):
+        qpos = torch.arange(s0, min(s0 + q_chunk, S), device=q.device)
+        outs.append(_softmax_attend(qg[:, s0:s0 + q_chunk], k, v,
+                                    qpos[:, None] >= kpos[None, :], scale))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
 def local_attend_chunked(q: Tensor, k: Tensor, v: Tensor, window: int,
                          scale: Optional[float] = None,
                          softcap: float = 0.0) -> Tensor:
@@ -229,7 +256,10 @@ def local_attend_chunked(q: Tensor, k: Tensor, v: Tensor, window: int,
     end); chunk i attends to chunks (i-1, i) under the banded (W, 2W)
     mask, and chunk 0 also masks its (zero) previous chunk.  Logits and
     softmax in fp32, the probabilities cast to v's dtype before the
-    product with v, as the reference does."""
+    product with v, as the reference does.  The in-place scale and mask
+    act on the logits GEMM's output, which no backward reads (the
+    softmax saves its own output), so autograd runs through it in the
+    train mode."""
     if softcap:
         raise NotImplementedError(f"softcapped attention is {_TODO}")
     B, S, H, Dh = q.shape

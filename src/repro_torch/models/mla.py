@@ -11,7 +11,10 @@ Prefill expands k and v from the latent and runs causal attention over
 q = [q_nope, q_rope] and k = [k_nope, k_rope broadcast over the heads]
 (width qk_nope + qk_rope) with v of width v_head_dim, through the flash
 kernel (``layers.causal_attend``), as the reference folds the rotary key
-in as extra head dims.  Decode has the reference's two paths, in plain
+in as extra head dims.  The ``train`` mode builds the same q and k and
+runs them through the differentiable q-chunked attention
+(``layers.causal_attend_chunked``) at the same scale, and keeps no
+cache.  Decode has the reference's two paths, in plain
 torch with fp32 scores (its ``preferred_element_type=f32`` einsums):
 
   * naive: expand k and v from the cached latent every step;
@@ -26,8 +29,8 @@ import torch
 from torch import nn
 
 from .config import ArchConfig
-from .layers import (_NEG_INF, _TRAIN_TODO, apply_rope, causal_attend,
-                     frozen, init_dense, rmsnorm)
+from .layers import (_NEG_INF, apply_rope, causal_attend,
+                     causal_attend_chunked, frozen, init_dense, rmsnorm)
 
 Tensor = torch.Tensor
 
@@ -102,8 +105,9 @@ def _latents(cfg: ArchConfig, p: MLA, x: Tensor,
 def mla_attention(cfg: ArchConfig, p: MLA, x: Tensor, positions: Tensor,
                   mode: str, cache: dict, cache_index: Union[int, Tensor],
                   absorbed: bool = False) -> Tensor:
-    """x (B, S, d) -> attention output (B, S, d); writes this layer's
-    latent and rotary key into ``cache``."""
+    """x (B, S, d) -> attention output (B, S, d); in prefill and decode
+    it writes this layer's latent and rotary key into ``cache`` (train
+    keeps none: pass None)."""
     B, S, _ = x.shape
     H, nope, rope_d, vdim = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
                              cfg.v_head_dim)
@@ -111,18 +115,20 @@ def mla_attention(cfg: ArchConfig, p: MLA, x: Tensor, positions: Tensor,
     q_nope, q_rope = _queries(cfg, p, x, positions)
     ckv_new, kr_new = _latents(cfg, p, x, positions)
 
-    if mode == "prefill":
-        cache["ckv"][:, :S] = ckv_new
-        cache["kr"][:, :S] = kr_new
+    if mode in ("train", "prefill"):
+        if mode == "prefill":
+            cache["ckv"][:, :S] = ckv_new
+            cache["kr"][:, :S] = kr_new
         k_nope = (ckv_new @ p.w_uk).reshape(B, S, H, nope)
         v = (ckv_new @ p.w_uv).reshape(B, S, H, vdim)
         q_eff = torch.cat([q_nope, q_rope], dim=-1)
         k_eff = torch.cat([k_nope, kr_new[:, :, None, :].expand(
             B, S, H, rope_d)], dim=-1)
-        out = causal_attend(q_eff, k_eff, v, scale=scale)
+        attend = causal_attend_chunked if mode == "train" else causal_attend
+        out = attend(q_eff, k_eff, v, scale=scale)
         return out.reshape(B, S, H * vdim) @ p.w_o
     if mode != "decode":
-        raise NotImplementedError(f"mode {mode!r} is {_TRAIN_TODO}")
+        raise ValueError(f"unknown mode {mode!r}")
 
     cache["ckv"][:, cache_index:cache_index + S] = ckv_new
     cache["kr"][:, cache_index:cache_index + S] = kr_new

@@ -13,16 +13,17 @@ the output projection.  Prefill runs the diagonal recurrence over
 (B, S, w) fp32 through the hand-written scan kernel
 (``kernels.ops.lru_scan``) where the reference runs
 ``jax.lax.associative_scan``, as the Mamba mixer does (``ssm.py``);
-decode is the single-step recurrence in eager torch and launches no
-kernel of the port.
+the ``train`` mode runs it through the scan with its gradient
+(``kernels.ops.lru_scan_autograd``) and keeps no cache; decode is the
+single-step recurrence in eager torch and launches no kernel of the
+port.
 
 Cache: {"conv": (B, k-1, w) in the activation dtype, "h": (B, w) fp32},
-written in place (``copy_``) as ``ssm.mamba_mixer`` writes its own.  The
-``train`` mode is not ported yet and raises.
+written in place (``copy_``) as ``ssm.mamba_mixer`` writes its own.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,7 +31,7 @@ from torch import nn
 
 from ..kernels import ops
 from .config import ArchConfig
-from .layers import _TRAIN_TODO, frozen, init_dense
+from .layers import frozen, init_dense
 from .ssm import causal_conv
 
 Tensor = torch.Tensor
@@ -91,28 +92,30 @@ def _gates(p: RGLRU, s: Tensor) -> Tuple[Tensor, Tensor]:
 
 
 def rglru_mixer(cfg: ArchConfig, p: RGLRU, x: Tensor, mode: str,
-                cache: dict) -> Tensor:
-    """x (B, S, d) -> y (B, S, d).  ``prefill`` writes the last k-1
-    inputs of the recurrent branch (zero-left-padded when S < k-1) and
-    the final state into ``cache``; ``decode`` (S = 1) advances both by
-    one step."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} is {_TRAIN_TODO}")
+                cache: Optional[dict]) -> Tensor:
+    """x (B, S, d) -> y (B, S, d).  ``train`` keeps no cache (pass
+    None); ``prefill`` writes the last k-1 inputs of the recurrent
+    branch (zero-left-padded when S < k-1) and the final state into
+    ``cache``; ``decode`` (S = 1) advances both by one step."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     S = x.shape[1]
     k = cfg.ssm_conv or 4
     xs = x @ p.w_x
     # jax.nn.gelu defaults to the tanh approximation
     gate = F.gelu((x @ p.w_y).float(), approximate="tanh")
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         conv = causal_conv(p, xs, k)
         a, bx_scale = _gates(p, conv)
         bx = bx_scale * conv.float()
-        h = ops.lru_scan(a, bx)                       # (B, S, w) fp32
+        scan = ops.lru_scan_autograd if mode == "train" else ops.lru_scan
+        h = scan(a, bx)                               # (B, S, w) fp32
         del a, bx
-        xp = F.pad(xs, (0, 0, max(k - 1 - S, 0), 0))
-        cache["conv"].copy_(xp[:, xp.shape[1] - (k - 1):, :])
-        cache["h"].copy_(h[:, -1])
+        if mode == "prefill":
+            xp = F.pad(xs, (0, 0, max(k - 1 - S, 0), 0))
+            cache["conv"].copy_(xp[:, xp.shape[1] - (k - 1):, :])
+            cache["h"].copy_(h[:, -1])
     else:
         conv_buf = torch.cat([cache["conv"], xs.to(cache["conv"].dtype)],
                              dim=1)

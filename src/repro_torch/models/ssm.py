@@ -7,20 +7,23 @@ and dBx = dt B x over the (B, S, d_inner, n) plane in fp32, as the
 reference does, and runs the recurrence through the hand-written scan
 kernel (``kernels.ops.lru_scan``, with the (d_inner, n) plane flattened
 into channels) where the reference runs ``jax.lax.associative_scan``;
-the two compute the same h.  Decode is the single-step recurrence on the
-carried (conv_state, ssm_state) in eager torch, and launches no kernel
-of the port.
+the two compute the same h.  The ``train`` mode builds the same planes
+out of place (prefill's in-place ``exp_`` and ``mul_`` would overwrite
+what autograd saves) and runs the recurrence through the scan with its
+gradient (``kernels.ops.lru_scan_autograd``: the backward pass is the
+same kernel run backwards in time); it keeps no cache.  Decode is the
+single-step recurrence on the carried (conv_state, ssm_state) in eager
+torch, and launches no kernel of the port.
 
 Cache layout: {"conv": (B, k-1, d_inner) in the activation dtype,
 "h": (B, d_inner, n) fp32}.  The mixer writes both in place
 (``copy_``), so the views of a stacked cache that ``apply_decoder``
-hands each layer are updated.  The ``train`` mode is not ported yet and
-raises.
+hands each layer are updated.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +31,7 @@ from torch import nn
 
 from ..kernels import ops
 from .config import ArchConfig
-from .layers import _TRAIN_TODO, frozen, init_dense
+from .layers import frozen, init_dense
 
 Tensor = torch.Tensor
 
@@ -102,18 +105,29 @@ def causal_conv(p: nn.Module, x: Tensor, k: int) -> Tensor:
 
 
 def mamba_mixer(cfg: ArchConfig, p: Mamba, x: Tensor, mode: str,
-                cache: dict) -> Tensor:
-    """x (B, S, d) -> y (B, S, d).  ``prefill`` writes the last k-1
-    inputs (zero-left-padded when S < k-1) and the final state into
-    ``cache``; ``decode`` (S = 1) advances both by one step."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} is {_TRAIN_TODO}")
+                cache: Optional[dict]) -> Tensor:
+    """x (B, S, d) -> y (B, S, d).  ``train`` keeps no cache (pass None);
+    ``prefill`` writes the last k-1 inputs (zero-left-padded when
+    S < k-1) and the final state into ``cache``; ``decode`` (S = 1)
+    advances both by one step."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     B, S, _ = x.shape
     di, n, k = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_conv
     A = -torch.exp(p.A_log)  # (di, n)
     xs, z = (x @ p.in_proj).chunk(2, dim=-1)
 
-    if mode == "prefill":
+    if mode == "train":
+        s = F.silu(causal_conv(p, xs, k))
+        dt, Bmat, Cmat = _ssm_params(cfg, p, s)
+        sf = s.float()
+        dA = torch.exp(dt[..., None] * A)                     # (B,S,di,n)
+        dBx = dt[..., None] * Bmat[:, :, None, :] * sf[..., None]
+        h = ops.lru_scan_autograd(dA.reshape(B, S, di * n),
+                                  dBx.reshape(B, S, di * n))
+        y = torch.einsum("bsdn,bsn->bsd", h.view(B, S, di, n), Cmat) \
+            + p.D * sf
+    elif mode == "prefill":
         s = F.silu(causal_conv(p, xs, k))
         dt, Bmat, Cmat = _ssm_params(cfg, p, s)
         sf = s.float()

@@ -27,10 +27,17 @@ theta where the config sets them), ``"mla"`` blocks (``mla.py``, naive
 or absorbed decode) and ``"rglru"`` blocks, each with a dense or an MoE
 FFN (``moe.py``; the ``first_dense`` head layers keep the dense
 ``d_ff`` one), and ``"mamba"`` blocks (no FFN), text inputs and the
-``prefill`` and ``decode`` modes are ported.  The MoE aux loss belongs
-to training and is not summed.  Softcapping, M-RoPE and the vlm and
-audio modalities raise ``NotImplementedError`` (ROADMAP.md queue 1,
-item 10); so does the ``train`` mode (item 11, training the zoo).
+``train``, ``prefill`` and ``decode`` modes are ported.  The ``train``
+mode allocates no cache; global attention there is the differentiable
+q-chunked ``layers.causal_attend_chunked`` (the flash kernel has no
+backward), and with ``cfg.remat`` (the default) each repeat of the
+layer pattern runs under ``torch.utils.checkpoint`` (non-reentrant), as
+the reference wraps its scan step in ``jax.checkpoint``: only the
+repeat's input is kept, and its blocks run again in the backward pass.
+Head and tail layers are not rematerialised, as in the reference.  The
+MoE aux loss is summed over head, body and tail in every mode.
+Softcapping, M-RoPE and the vlm and audio modalities raise
+``NotImplementedError`` (ROADMAP.md queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -38,11 +45,13 @@ from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ArchConfig
-from .layers import (MLP, Attention, _TODO, _TRAIN_TODO, apply_rope,
-                     causal_attend, decode_attend, frozen, init_attention,
-                     init_mlp, local_attend_chunked, mlp, rmsnorm)
+from .layers import (MLP, Attention, _TODO, apply_rope, causal_attend,
+                     causal_attend_chunked, decode_attend, frozen,
+                     init_attention, init_mlp, local_attend_chunked, mlp,
+                     rmsnorm)
 from .mla import MLA, init_mla, mla_attention
 from .moe import MoE, init_moe, moe_ffn
 from .rglru import RGLRU, init_rglru, rglru_mixer
@@ -127,8 +136,9 @@ def init_block(generator: torch.Generator, cfg: ArchConfig, kind: str,
 def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
                 positions: Tensor, mode: str, cache: Cache,
                 cache_index: Union[int, Tensor]) -> Tensor:
-    """Attention sublayer; writes this layer's k and v into ``cache``
-    (a rolling window-sized buffer for ``attn_local``)."""
+    """Attention sublayer; in prefill and decode it writes this layer's
+    k and v into ``cache`` (a rolling window-sized buffer for
+    ``attn_local``); train keeps no cache."""
     B, S, _ = x.shape
     H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     ap = p.attn
@@ -143,7 +153,10 @@ def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
         k = rmsnorm(k, ap.k_norm)
     q = apply_rope(q, positions, theta, cfg.rope_fraction)
     k = apply_rope(k, positions, theta, cfg.rope_fraction)
-    if mode == "prefill" and local:
+    if mode == "train":
+        out = (local_attend_chunked(q, k, v, cfg.window) if local else
+               causal_attend_chunked(q, k, v))
+    elif mode == "prefill" and local:
         W = cfg.window
         out = local_attend_chunked(q, k, v, W)
         # the rolling cache holds the last W positions p at slot p % W;
@@ -167,22 +180,23 @@ def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
                             window=cfg.window if local else 0,
                             rolling=local)
     else:
-        raise NotImplementedError(f"mode {mode!r} is {_TRAIN_TODO}")
+        raise ValueError(f"unknown mode {mode!r}")
     return out.reshape(B, S, H * Dh) @ ap.wo
 
 
 def apply_block(cfg: ArchConfig, kind: str, use_moe: bool,
                 p: Union[Block, MambaBlock, RGLRUBlock], x: Tensor,
-                positions: Tensor, mode: str, cache: Cache,
+                positions: Tensor, mode: str, cache: Optional[Cache],
                 cache_index: Union[int, Tensor],
-                mla_absorbed: bool = False) -> Tensor:
-    """Pre-norm residual block. Returns the new x (the MoE aux loss,
-    which the reference also returns, belongs to training)."""
+                mla_absorbed: bool = False
+                ) -> Tuple[Tensor, Optional[Tensor]]:
+    """Pre-norm residual block. Returns (x, the MoE aux loss, or None
+    for a block without an MoE FFN)."""
     if kind not in KINDS:
         raise NotImplementedError(f"{kind!r} blocks are {_TODO}")
     h = rmsnorm(x, p.ln1)
     if kind == "mamba":
-        return x + mamba_mixer(cfg, p.mixer, h, mode, cache)
+        return x + mamba_mixer(cfg, p.mixer, h, mode, cache), None
     if kind == "rglru":
         x = x + rglru_mixer(cfg, p.mixer, h, mode, cache)
     elif kind == "mla":
@@ -192,8 +206,10 @@ def apply_block(cfg: ArchConfig, kind: str, use_moe: bool,
         x = x + _attn_apply(cfg, kind, p, h, positions, mode, cache,
                             cache_index)
     h = rmsnorm(x, p.ln2)
-    return x + (moe_ffn(cfg, p.ffn, h)[0] if use_moe else
-                mlp(p.ffn, h, cfg.act))
+    if use_moe:
+        f, aux = moe_ffn(cfg, p.ffn, h)
+        return x + f, aux
+    return x + mlp(p.ffn, h, cfg.act), None
 
 
 # ----------------------------------------------------------- decoder stack
@@ -281,32 +297,60 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def apply_decoder(cfg: ArchConfig, dec: Decoder, x: Tensor,
                   positions: Tensor, mode: str, cache: Optional[Cache] = None,
                   cache_index: Union[int, Tensor] = 0,
-                  mla_absorbed: bool = False) -> Tuple[Tensor, Cache]:
-    """Returns (hidden (B,S,d), cache).  ``prefill`` without a cache
-    allocates one of S slots, as the reference returns; ``decode`` needs
-    the cache.  ``mla_absorbed`` picks the absorbed decode of ``mla``
-    blocks."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} is {_TRAIN_TODO}")
+                  mla_absorbed: bool = False
+                  ) -> Tuple[Tensor, Optional[Cache], Tensor]:
+    """Returns (hidden (B,S,d), cache, the MoE aux loss summed over
+    layers as a 0-d fp32 tensor).  ``train`` takes and returns no cache;
+    ``prefill`` without a cache allocates one of S slots, as the
+    reference returns; ``decode`` needs the cache.  ``mla_absorbed``
+    picks the absorbed decode of ``mla`` blocks."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     head, n_body, pattern, tail = _layer_plan(cfg)
-    if cache is None:
+    train = mode == "train"
+    if train:
+        if cache is not None:
+            raise ValueError("the train mode keeps no cache")
+    elif cache is None:
         if mode == "decode":
             raise ValueError("decode needs the cache that prefill filled")
         cache = init_cache(cfg, x.shape[0], x.shape[1], x.dtype, x.device)
 
     moe = _uses_moe(cfg)
+    P = len(pattern)
 
     def run(kind, use_moe, block, c, x):
         return apply_block(cfg, kind, use_moe, block, x, positions, mode, c,
                            cache_index, mla_absorbed)
 
-    for i, kind in enumerate(head):  # dense FFN even in MoE configs
-        x = run(kind, False, dec.head[i], cache["head"][i], x)
-    P = len(pattern)
-    for r in range(n_body):
+    def repeat(x, r):
+        """Repeat r of the pattern: (x, its summed aux loss or None)."""
+        aux = None
         for p, kind in enumerate(pattern):
-            c = {n: t[r] for n, t in cache["body"][f"pos{p}"].items()}
-            x = run(kind, moe, dec.body[r * P + p], c, x)
+            c = (None if train else
+                 {n: t[r] for n, t in cache["body"][f"pos{p}"].items()})
+            x, a = run(kind, moe, dec.body[r * P + p], c, x)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
+
+    auxs = []
+    for i, kind in enumerate(head):  # dense FFN even in MoE configs
+        x, a = run(kind, False, dec.head[i],
+                   None if train else cache["head"][i], x)
+        auxs.append(a)
+    for r in range(n_body):
+        if train and cfg.remat:
+            x, a = checkpoint(repeat, x, r, use_reentrant=False)
+        else:
+            x, a = repeat(x, r)
+        auxs.append(a)
     for i, kind in enumerate(tail):
-        x = run(kind, moe, dec.tail[i], cache["tail"][i], x)
-    return rmsnorm(x, dec.final_norm), cache
+        x, a = run(kind, moe, dec.tail[i],
+                   None if train else cache["tail"][i], x)
+        auxs.append(a)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in auxs:
+        if a is not None:
+            aux_total = aux_total + a
+    return rmsnorm(x, dec.final_norm), (None if train else cache), aux_total

@@ -47,6 +47,11 @@ Layout = Dict[str, Tuple[Callable[[torch.Tensor], torch.Tensor],
 class GradientTransformation:
     init: Callable[[Tensors], State]
     update: Callable[..., Tuple[Tensors, State]]
+    #: each leaf's update reads only that leaf's gradient, state and
+    #: parameter (sgd, momentum, adam, adafactor; not a chain or a clip
+    #: by global norm), so it can be applied one leaf at a time
+    #: (``models.model.apply_optimizer``)
+    per_leaf: bool = False
 
 
 @torch.no_grad()
@@ -79,7 +84,7 @@ def sgd(lr: float) -> GradientTransformation:
     def update(grads: Tensors, state: tuple, params: Optional[Tensors] = None):
         return {n: -lr * g for n, g in grads.items()}, state
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, per_leaf=True)
 
 
 def momentum(lr: float, beta: float = 0.9,
@@ -97,7 +102,7 @@ def momentum(lr: float, beta: float = 0.9,
             upd = {n: -lr * m for n, m in new_m.items()}
         return upd, new_m
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, per_leaf=True)
 
 
 # ------------------------------------------------------------------- adam
@@ -140,7 +145,7 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             updates[n] = -lr * step
         return updates, AdamState(count=count, mu=mu, nu=nu)
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, per_leaf=True)
 
 
 def adamw(lr: float, weight_decay: float = 0.01,
@@ -216,7 +221,7 @@ def adafactor(lr: float, eps: float = 1e-30, clip_threshold: float = 1.0,
             new_vr[n], new_vc[n] = vr, vc
         return updates, AdafactorState(count=count, vr=new_vr, vc=new_vc)
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, per_leaf=True)
 
 
 # ------------------------------------------------------------ combinators

@@ -12,7 +12,11 @@ bf16, the reference's kernel tolerances (tests/test_kernels.py); the
 linear-recurrence scan at atol/rtol 1e-5 (the kernel's fused
 multiply-add against the plain version's multiply, then add), the
 reference's scan tolerance, and so the RG-LRU mixer through it against
-the same mixer on the CPU.
+the same mixer on the CPU; the scan's gradient (the same kernel run
+backwards in time) at atol/rtol 1e-5 against autograd through the plain
+loop on the card; whole FEEL train steps of the llama and mamba smoke
+decoders in fp32 against the same steps on the CPU by the replay rule
+(``repro_torch/launch/replay.py``).
 """
 import ctypes
 
@@ -530,3 +534,64 @@ def test_cuda_lru_scan_rejects_what_the_kernel_does_not_take(cuda):
     empty = torch.empty((2, 0, 32), device=cuda)
     assert lru_scan.lru_scan(empty, empty).shape == (2, 0, 32)
     assert lru_scan.LAUNCHES == {"lru_scan": 0}
+
+
+# ------------------------------------------------------------ training
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,gates", [((2, 1, 5), "uniform"),
+                                         ((2, 37, 6), "uniform"),
+                                         ((3, 300, 130), "uniform"),
+                                         ((2, 2048, 256), "near1")])
+def test_cuda_scan_gradient_matches_plain(cuda, shape, gates):
+    """``ops.lru_scan_autograd`` on the card (forward and backward through
+    the kernel, one launch each) against autograd through the plain loop
+    on the card; gates in (0.999, 1) held as the forward is."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    lo = 0.999 if gates == "near1" else 0.0
+    a = (lo + (1 - lo) * torch.rand(shape, generator=gen, device=cuda))
+    b = torch.randn(shape, generator=gen, device=cuda)
+    w = torch.randn(shape, generator=gen, device=cuda)
+    a1, b1 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    lru_scan.reset_launch_counts()
+    h = ops.lru_scan_autograd(a1, b1)
+    ga, gb = torch.autograd.grad((h * w).sum(), (a1, b1))
+    torch.cuda.synchronize()
+    assert lru_scan.LAUNCHES == {"lru_scan": 2}
+    a2, b2 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    want = torch.autograd.grad((lru_scan.lru_scan_plain(a2, b2) * w).sum(),
+                               (a2, b2))
+    for got, ref in ((ga, want[0]), (gb, want[1])):
+        atol = 1e-5 * (float(ref.abs().max()) if gates == "near1" else 1.0)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "falcon-mamba-7b"])
+def test_cuda_feel_train_steps_match_the_cpu(cuda, arch):
+    """3 FEEL train steps of the smoke decoder in fp32 on the card, each
+    replayed on the CPU from the card's params, AdamW state and batch
+    (``replay.replay_step``): loss, per-example loss and sigma at rtol
+    1e-4, the selection equal or, within 10x the sigma error of a tie,
+    taken from the card, gradients and params by the replay rule.  Each
+    card step launches the sigma kernel once, and the scan three times a
+    mamba layer (forward, its recompute under remat, backward)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.device import full_fp32
+    from repro_torch.launch import replay, train
+    from repro_torch.models import model as tm
+    cfg = smoke_config(arch).scaled(dtype="float32")
+    feel = tm.FeelIntegration(n_clients=4)
+    with full_fp32():
+        model, opt, state, _ = train.setup(cfg, 0, cuda, True, 4)
+        for i in range(3):
+            b = train.synth_batch(cfg, torch.Generator(cuda).manual_seed(i),
+                                  8, 24, 4, True, device=cuda)
+            gradnorm.reset_launch_counts()
+            lru_scan.reset_launch_counts()
+            state, rep = replay.replay_step(cfg, opt, feel, model, state, b,
+                                            "adamw", 0.01)
+            assert gradnorm.LAUNCHES["gradnorm_sigma"] == 1
+            n_scan = cfg.n_layers if arch == "falcon-mamba-7b" else 0
+            assert lru_scan.LAUNCHES == {"lru_scan": 3 * n_scan}
+            assert rep["selection_equal"] or rep["given"]

@@ -146,11 +146,36 @@ def test_mla_init_draws_the_reference_shapes():
         assert tuple(w.shape) == p_j[n].shape and w.dtype == torch.bfloat16
         assert not w.requires_grad
     assert bool((p_t.kv_norm == 1).all())
-    with pytest.raises(NotImplementedError, match="train"):
-        tmla.mla_attention(cfg, p_t, torch.zeros(1, 2, cfg.d_model,
-                                                 dtype=torch.bfloat16),
-                           torch.zeros(1, 2, dtype=torch.long), "train",
-                           None, 0)
+    # the train mode (it raised before training was ported): in fp32 the
+    # output and the gradients of sum(y * w) with respect to x and every
+    # weight match jax.grad of the reference's, the output at 1e-4 and
+    # each gradient by the replay rule (rtol 1e-4, atol 1e-4 max |g|)
+    from repro_torch.launch import replay
+    cfg_j, p_j, cfg, p_t = _pair(None)
+    x, w = _normal(40, (B, S, cfg.d_model)), _normal(41, (B, S, cfg.d_model))
+    pos = _positions(0, S)
+
+    def loss_j(params, xj):
+        y, cache = jmla.mla_attention(cfg_j, params, xj, jnp.asarray(pos),
+                                      "train", None, 0)
+        assert cache is None
+        return jnp.sum(y * w), y
+
+    (_, y_j), (g_j, gx_j) = jax.value_and_grad(loss_j, argnums=(0, 1),
+                                               has_aux=True)(p_j,
+                                                             jnp.asarray(x))
+    p_t.requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_()
+    y = tmla.mla_attention(cfg, p_t, xt, torch.from_numpy(pos.copy()),
+                           "train", None, 0)
+    _close(y.detach(), y_j, 1e-4)
+    names = list(tmla.leaves(cfg))
+    grads = torch.autograd.grad((y * torch.from_numpy(w)).sum(),
+                                [xt] + [getattr(p_t, n) for n in names])
+    replay.check_grads(dict(zip(["x"] + names, grads)),
+                       {"x": torch.from_numpy(np.array(gx_j)),
+                        **{n: torch.from_numpy(np.array(g_j[n]))
+                           for n in names}})
 
 
 # ---------------------------------- flash attention with a narrower v

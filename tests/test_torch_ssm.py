@@ -212,11 +212,34 @@ def test_mamba_mixer_decode_matches_reference(dtype):
 
 
 def test_mamba_mixer_train_mode_is_not_ported():
-    cfg = smoke_config(ARCH)
-    p = ssm.init_mamba(torch.Generator().manual_seed(0), cfg, cfg.act_dtype)
-    with pytest.raises(NotImplementedError):
-        ssm.mamba_mixer(cfg, p, torch.zeros((1, 3, cfg.d_model),
-                                            dtype=cfg.act_dtype), "train", {})
+    """(Kept name.) The train mode is ported: in fp32 the output and the
+    gradients of sum(y * w) with respect to x and every mixer weight
+    match ``jax.grad`` of the reference's train-mode mixer, the output
+    at atol/rtol 1e-4 and each gradient by the replay rule (rtol 1e-4,
+    atol 1e-4 times the leaf's largest |g|); no cache is kept."""
+    from repro_torch.launch import replay
+    cfg_j, p = _j_mixer_params("float32")
+    cfg = smoke_config(ARCH).scaled(dtype="float32")
+    x, w = _normal(30, (2, 9, cfg.d_model)), _normal(31, (2, 9, cfg.d_model))
+
+    def loss_j(params, xj):
+        y, cache = jssm.mamba_mixer(cfg_j, params, xj, "train", None)
+        assert cache is None
+        return jnp.sum(y * w), y
+
+    (_, y_j), (g_j, gx_j) = jax.value_and_grad(loss_j, argnums=(0, 1),
+                                               has_aux=True)(p, jnp.asarray(x))
+    mixer = _t_mixer(p, "float32").requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_()
+    y = ssm.mamba_mixer(cfg, mixer, xt, "train", None)
+    _close(y.detach(), y_j, "float32")
+    names = list(ssm.Mamba.LEAVES)
+    grads = torch.autograd.grad((y * torch.from_numpy(w)).sum(),
+                                [xt] + [getattr(mixer, n) for n in names])
+    replay.check_grads(dict(zip(["x"] + names, grads)),
+                       {"x": torch.from_numpy(np.array(gx_j, np.float32)),
+                        **{n: torch.from_numpy(np.array(g_j[n], np.float32))
+                           for n in names}})
 
 
 # --------------------------------------------------------------- decoder
