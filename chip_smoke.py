@@ -43,7 +43,12 @@ exit) if anything in it fails; no failure is caught:
    512, 4096), with its gradient through the kernel
    (``ops.lru_scan_autograd``) held against autograd through the plain
    loop on the card and its backward call timed against the bytes
-   bound;
+   bound; ``gradnorm_sigma`` also at qwen2-vl-2b's and musicgen-medium's
+   train steps, (8192, 1536) + (8192, 151936) and (8192, 1536) +
+   (8192, 8192), each operand's ``einsum("nd,nd->n")`` timed beside it;
+   bf16 flash at qwen2-vl-2b's (12:2 GQA, d = 128) and
+   musicgen-medium's (24:24 MHA, d = 64) prefill shapes, and fp32 flash
+   at their replays';
 4. FEEL path: 3 untraced rounds of the paper's §VI-A setup (K=10, N=5,
    Q=2, D̂=200, 28x28 images, faithful selection with 400 GP steps)
    through ``FEELTrainer.run_round``, which scores sigma through the
@@ -209,14 +214,45 @@ exit) if anything in it fails; no failure is caught:
    params at 1e-6 + 1e-5 |w|, or, on AdamW's entries at gradient
    noise, at the card's own update + lr (1 + wd |w|)); each side's
    sigma against a float64 recompute; the mamba replay runs the scan's
-   backward on the card.
+   backward on the card;
+28. qwen2-vl-2b served at full width and depth (28 layers,
+   1,543,656,960 parameters; embeddings in, M-RoPE), the reference's
+   request: 4 x 2048 random embeddings with their (4, 3, 2048)
+   positions after a warm-up request, then 32 greedy steps from zero
+   embeddings at text positions; each layer's prefill attention
+   through the bf16 flash kernel at its 12:2 GQA (a group of 6), 28
+   launches per prefill and none in decode; profiled;
+29. musicgen-medium served at full width and depth (48 layers,
+   1,837,254,144 parameters), 4 x 4 codebooks x 2048 tokens, greedy
+   per codebook; prefill attention through the bf16 flash kernel at
+   24:24 MHA and d = 64 (its d <= 64 instance), 48 launches per
+   prefill and none in decode; profiled;
+30. modality replays: both archs at full width cut to 2 layers, fp32
+   with TF32 off, card against CPU as phase 8 (prefill logits, the KV
+   caches, 8 greedy steps); the vlm prompt's three M-RoPE rows differ
+   (a (t, h, w) image grid between two runs of text), its decode at
+   the text positions after it; the audio prompt a (1, 4, 256) grid,
+   its greedy tokens per codebook;
+31. both archs trained at full width and depth through
+   ``repro_torch.launch.train.run``: FEEL on, K = 4, batch 16 x 512,
+   the configs' AdamW, 10 steps, each step's ms, tok/s and peak memory
+   as phase 25; one sigma launch a step (qwen2-vl's p - y (8192,
+   151936), musicgen's codebooks folded into (8192, 4 x 2048) rows),
+   none of flash or the scan (checked); each timed by stage and
+   profiled;
+32. train replays by phase 27's rule: 2 FEEL steps of each arch at full
+   width cut to 2 layers, fp32, after 3 warm-up steps; and 2 adafactor
+   steps of deepseek-v2's smoke decoder cut to 3 layers (a dense head
+   layer and two body repeats: adafactor steps each stacked body group
+   at once, as the reference's on its stacked tree).
 
-Every replay (8, 10, 17, 22) draws its weights on the card from a
+Every replay (8, 10, 17, 22, 30) draws its weights on the card from a
 seed, runs there, moves them to the host and runs again.  Launch counts
 are zeroed just before each path (4, 7, 9, 11, 12b, 13,
 14, both requests of 15, 16, 18, 19, both requests of 20, 21, the
 card's runs in 8, 10, 17 and 22, each run of 23, 24, 25, each run of
-26 and each replayed step of 27) and read just after.  It prints one
+26, each replayed step of 27, 28, 29, the card's runs in 30, each run
+of 31 and each replayed step of 32) and read just after.  It prints one
 ``{"kernels": [...]}`` line, with one entry per kernel and serving shape
 (``gradnorm_sigma`` at the §VI-A shape once for each FEEL path with
 that path's own launches: phase 4's (the main path), 11's
@@ -232,7 +268,12 @@ recurrentgemma's at batch 4 and 1; the train paths with their own
 runs' launches: ``gradnorm_sigma@train-llama3.2-3b`` (phase 25, at its
 train shape), ``lru_scan@train-falcon-mamba-7b`` and
 ``lru_scan@train-recurrentgemma-9b`` (phase 26, at their train
-shapes)), and, last, the ``{"ok": true,
+shapes); the vlm and audio paths with their own runs' launches:
+``flash_attention@serve-qwen2-vl-2b`` (phase 28),
+``flash_attention@serve-musicgen-medium`` (29),
+``gradnorm_sigma@train-qwen2-vl-2b`` and
+``gradnorm_sigma@train-musicgen-medium`` (31), each at its own shape),
+and, last, the ``{"ok": true,
 "device": ...}`` line.  Without a GPU, or without the repository's
 ``src/repro_torch`` beside it, it exits non-zero before printing
 either.
@@ -287,7 +328,10 @@ FLASH_MLA = (4, 2048, 128, 128, 192, 128)
 # the same heads at d = dv = 128: the columns a kernel with a value
 # width of its own would still read for q k^T at MLA's shape, less 64
 FLASH_MLA_D128 = (4, 2048, 128, 128, 128)
-FLASH_F32_ZOO = [(1, 256, 32, 8, 160), (1, 256, 128, 128, 192, 128)]
+FLASH_QWEN = (4, 2048, 12, 2, 128)       # qwen2-vl-2b: a GQA group of 6
+FLASH_MUSICGEN = (4, 2048, 24, 24, 64)   # musicgen-medium: d = 64, MHA
+FLASH_F32_ZOO = [(1, 256, 32, 8, 160), (1, 256, 128, 128, 192, 128),
+                 (1, 256, 12, 2, 128), (1, 256, 24, 24, 64)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ARCH, SERVE_BATCH, PROMPT, NEW_TOKENS = "llama3.2-3b", 4, 2048, 32
 REPLAY_LAYERS, REPLAY_PROMPT, REPLAY_STEPS = 2, 256, 8
@@ -343,6 +387,17 @@ CUT_BATCH, CUT_SEQ, CUT_STEPS = 8, 512, 3
 REPLAY_TRAIN_ARCHS = (ARCH, MAMBA)
 REPLAY_TRAIN_BATCH, REPLAY_TRAIN_SEQ = 8, 64
 REPLAY_TRAIN_WARM, REPLAY_TRAIN_STEPS = 3, 2
+# phases 28-32: the vlm and audio modalities at full width and depth,
+# (arch, parameters, layers, vocab); their train steps' sigma shapes
+# (h, p - y), musicgen's codebooks folded into one row; the vlm
+# replay's image grid (t, h, w) after REPLAY_GRID_AT text tokens; the
+# adafactor replay's cut (deepseek-v2's smoke decoder, 3 layers)
+QWEN = ("qwen2-vl-2b", 1_543_656_960, 28, 151936)
+MUSICGEN = ("musicgen-medium", 1_837_254_144, 48, 2048)
+SIGMA_TRAIN_QWEN = (TRAIN_BATCH * TRAIN_SEQ, 1536, 151936)
+SIGMA_TRAIN_MUSICGEN = (TRAIN_BATCH * TRAIN_SEQ, 1536, 4 * 2048)
+REPLAY_GRID, REPLAY_GRID_AT = (2, 8, 8), 16
+ADAFACTOR_REPLAY_LAYERS = 3
 
 
 def die(msg: str) -> None:
@@ -464,9 +519,13 @@ def phase_kernels(torch, gradnorm):
                "plain_ms": device_ms(
                    torch, lambda: gradnorm.gradnorm_sigma_plain(h, d)),
                "bound_ms": b_ms, "bound_by": b_by}
+        es_ms = [device_ms(torch, lambda x=x: torch.einsum("nd,nd->n", x, x))
+                 for x in (h, d)]
         print(f"gradnorm_sigma ({n}, {f})+({n}, 10): max_abs_err "
               f"{rec['max_abs_err']:.3g} max_rel_err {rel:.3g} | device ms: "
-              f"kernel {rec['ms']:.6f} plain {rec['plain_ms']:.6f} bound "
+              f"kernel {rec['ms']:.6f} plain {rec['plain_ms']:.6f} "
+              f"einsum('nd,nd->n') of h {es_ms[0]:.6f} of p - y "
+              f"{es_ms[1]:.6f} (both {sum(es_ms):.6f}) bound "
               f"{b_ms:.6f} ({b_by}) | eager call ms: kernel "
               f"{call_ms(torch, lambda: gradnorm.gradnorm_sigma(h, d)):.6f} "
               f"plain {call_ms(torch, lambda: gradnorm.gradnorm_sigma_plain(h, d)):.6f}")
@@ -520,7 +579,9 @@ def phase_flash(torch, fa, ops):
               (FLASH_STABLELM, "bfloat16", True, "bshd"),
               (FLASH_COMMAND_R, "bfloat16", True, "bshd"),
               (FLASH_MLA, "bfloat16", True, "bshd"),
-              (FLASH_MLA_D128, "bfloat16", True, "bshd")]
+              (FLASH_MLA_D128, "bfloat16", True, "bshd"),
+              (FLASH_QWEN, "bfloat16", True, "bshd"),
+              (FLASH_MUSICGEN, "bfloat16", True, "bshd")]
     cases += [(shape, "float32", True, "bshd") for shape in FLASH_F32_ZOO]
     recs = {}
     for shape, dt, causal, layout in cases:
@@ -1594,7 +1655,8 @@ def phase_serve(torch, serve_mod, kernels, arch, expected, vocab,
             total[k] += v
     check(launches == total, f"launches on the {name} path {launches}, "
           f"expected {total}")
-    check(tuple(res.tokens.shape) == (batch, NEW_TOKENS + 1),
+    check(tuple(res.tokens.shape[:2]) == (batch, NEW_TOKENS + 1)
+          and res.tokens.dim() in (2, 3),  # audio: a token per codebook
           f"tokens shape {tuple(res.tokens.shape)}")
     check(bool(((res.tokens >= 0) & (res.tokens < vocab)).all()),
           "tokens out of the vocabulary")
@@ -1625,12 +1687,13 @@ def phase_serve_profile(torch, tm, get_config, arch):
     device time, and the scan and flash kernels' device time where the
     step runs them."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve as serve_mod
     cfg = get_config(arch) if isinstance(arch, str) else arch
     arch = cfg.name
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = tm.init_model(cfg, gen, "cuda")
-    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, PROMPT),
-                            generator=gen, device="cuda")
+    request = serve_mod.prefill_batch(cfg, SERVE_BATCH, PROMPT, gen, "cuda")
     prefill, decode = tm.make_prefill_step(cfg), tm.make_decode_step(cfg)
     cache = tm.make_cache(cfg, SERVE_BATCH, PROMPT + 2, device="cuda")
 
@@ -1665,10 +1728,12 @@ def phase_serve_profile(torch, tm, get_config, arch):
               + (f"; the flash kernel {sum(flash):.3f} ms in {len(flash)} "
                  "launches" if flash else ""))
 
-    step("prefill", lambda: prefill(model, {"tokens": prompts}, cache))
-    tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.long, device="cuda")
-    step("decode step", lambda: decode(model, cache, {
-        "tokens": tok, "cache_index": PROMPT}))
+    step("prefill", lambda: prefill(model, request, cache))
+    tok = torch.zeros((SERVE_BATCH,) + ((cfg.n_codebooks,) if
+                                        cfg.modality == "audio" else ()),
+                      dtype=torch.long, device="cuda")
+    step("decode step", lambda: decode(
+        model, cache, serve_mod.decode_batch(cfg, tok, PROMPT)))
     del model, cache
     torch.cuda.empty_cache()
 
@@ -1696,8 +1761,7 @@ def phase_llm_replay(torch, tm, get_config, full_fp32, arch, kernels,
     model = tm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
                           "cuda")
     moes = [m for m in model.modules() if isinstance(m, MoE)]
-    prompt = torch.randint(0, cfg.vocab, (1, REPLAY_PROMPT),
-                           generator=torch.Generator().manual_seed(1))
+    prompt, step_batch = replay_request(torch, cfg)
     prefill = tm.make_prefill_step(cfg)
     decodes = {"naive": tm.make_decode_step(cfg)}
     if absorbed:
@@ -1716,13 +1780,12 @@ def phase_llm_replay(torch, tm, get_config, full_fp32, arch, kernels,
 
     def greedy(decode, cache, logits):
         tok = torch.argmax(logits[:, -1], -1)
-        toks, steps = [int(tok)], []
+        toks, steps = [tok.tolist()], []
         for i in range(REPLAY_STEPS):
-            logits, cache = decode(model, cache, {
-                "tokens": tok[:, None], "cache_index": REPLAY_PROMPT + i})
+            logits, cache = decode(model, cache, step_batch(tok, i))
             steps.append(logits.cpu())
             tok = torch.argmax(logits[:, -1], -1)
-            toks.append(int(tok))
+            toks.append(tok.tolist())
         return toks, steps
 
     def run(device):
@@ -1732,8 +1795,8 @@ def phase_llm_replay(torch, tm, get_config, full_fp32, arch, kernels,
                                   device=device)
             for m in moes:
                 m.routing_log = []
-            logits, cache = prefill(model, {"tokens": prompt.to(device)},
-                                    cache)
+            logits, cache = prefill(
+                model, {k: v.to(device) for k, v in prompt.items()}, cache)
             routing = [{"top_idx": r["top_idx"].cpu(),
                         "w_ec": r["w_ec"].cpu(), "idx_ec": r["idx_ec"].cpu(),
                         "C": r["w_ec"].shape[1], "dropped": int(dropped(r)),
@@ -1796,7 +1859,8 @@ def phase_llm_replay(torch, tm, get_config, full_fp32, arch, kernels,
                       f"tokens equal {gpu[path][0]}")
     print(f"{arch} replay (full width, {cfg.n_layers} layers "
           f"{list(cfg.layer_pattern)}, window {cfg.window}, fp32, TF32 "
-          f"off, prompt {REPLAY_PROMPT}, {REPLAY_STEPS} greedy steps): "
+          f"off, {cfg.modality} prompt {REPLAY_PROMPT}, {REPLAY_STEPS} "
+          f"greedy steps): "
           f"prefill logits max abs err {err:.3g} (max |logit| "
           f"{float(ref.abs().max()):.3g}){held_msg}{paths_msg}; cpu "
           f"{cpu['s']:.2f} s, card {gpu['s']:.2f} s; card launches "
@@ -1804,47 +1868,97 @@ def phase_llm_replay(torch, tm, get_config, full_fp32, arch, kernels,
     return launches
 
 
+def replay_request(torch, cfg):
+    """The replays' prompt (batch 1, ``REPLAY_PROMPT`` long, on the CPU)
+    for ``cfg``'s modality and decode step i's batch, ``step(tok, i)``:
+    text tokens, or an audio (1, C, S) grid, from a generator seeded with
+    1; vlm standard-normal embeds with M-RoPE positions whose three rows
+    differ (``REPLAY_GRID_AT`` text tokens, a ``REPLAY_GRID`` (t, h, w)
+    image grid at their end + (t, h, w), then text from there + max(t,
+    h, w)), decoded from zero embeds at the text positions after it."""
+    from repro_torch.launch import serve as serve_mod
+    gen = torch.Generator().manual_seed(1)
+    if cfg.modality != "vlm":
+        shape = ((1, cfg.n_codebooks, REPLAY_PROMPT)
+                 if cfg.modality == "audio" else (1, REPLAY_PROMPT))
+        return ({"tokens": torch.randint(0, cfg.vocab, shape,
+                                         generator=gen)},
+                lambda tok, i: serve_mod.decode_batch(cfg, tok,
+                                                      REPLAY_PROMPT + i))
+    t, h, w = REPLAY_GRID
+    grid = torch.stack(torch.meshgrid(torch.arange(t), torch.arange(h),
+                                      torch.arange(w), indexing="ij")
+                       ).reshape(3, -1)
+    start = REPLAY_GRID_AT + max(REPLAY_GRID)
+    n_text = REPLAY_PROMPT - REPLAY_GRID_AT - grid.shape[1]
+    pos = torch.cat([torch.arange(REPLAY_GRID_AT).expand(3, -1),
+                     REPLAY_GRID_AT + grid,
+                     (start + torch.arange(n_text)).expand(3, -1)], dim=1)
+    check(bool((pos[0] != pos[1]).any() and (pos[1] != pos[2]).any()),
+          "the vlm replay's M-RoPE rows must differ")
+    nxt = start + n_text
+    return ({"embeds": torch.randn(1, REPLAY_PROMPT, cfg.d_model,
+                                   generator=gen),
+             "positions": pos[None].contiguous()},
+            lambda tok, i: serve_mod.decode_batch(cfg, tok,
+                                                  REPLAY_PROMPT + i, nxt + i))
+
+
 # ------------------------------------------------------------ training
 
 def phase_train_kernels(torch, gradnorm, lru, ops, device="cuda"):
-    """Phase 3's train shapes: ``gradnorm_sigma`` at llama's train step
-    (``SIGMA_TRAIN``) against its plain version, timed beside its bound
-    and ``torch.linalg.vector_norm`` of both operands; the scan at the
-    train shapes (``SCAN_TRAIN``) timed, and its gradient through the
-    kernel (``ops.lru_scan_autograd``) against autograd through the plain
-    loop on the card, with the backward call (``lru_scan_backward``: one
-    reversed-scan launch, flips and dL/da) timed against the bytes bound
-    of a and gbar read and g written once (fp32).  Returns (the sigma
-    record, the scan records by shape)."""
+    """Phase 3's train shapes: ``gradnorm_sigma`` at the train steps'
+    (``SIGMA_TRAIN``: llama's; ``SIGMA_TRAIN_QWEN``, ``_MUSICGEN``)
+    against its plain version, timed beside its bound,
+    ``torch.linalg.vector_norm`` of both operands and each operand's
+    ``einsum("nd,nd->n")`` (``rownorm2``'s function in one call); the
+    scan at the train shapes (``SCAN_TRAIN``) timed, and its gradient
+    through the kernel (``ops.lru_scan_autograd``) against autograd
+    through the plain loop on the card, with the backward call
+    (``lru_scan_backward``: one reversed-scan launch, flips and dL/da)
+    timed against the bytes bound of a and gbar read and g written once
+    (fp32).  Returns (the sigma records by shape, the scan records by
+    shape)."""
     gen = torch.Generator(device=device).manual_seed(7)
-    n, fh, fd = SIGMA_TRAIN
-    h = torch.randn(n, fh, generator=gen, device=device)
-    d = torch.randn(n, fd, generator=gen, device=device)
-    got = gradnorm.gradnorm_sigma(h, d)
-    want = gradnorm.gradnorm_sigma_plain(h, d)
-    rel = max_rel(got, want)
-    check(rel <= KERNEL_RTOL, f"gradnorm_sigma {SIGMA_TRAIN}: rel err "
-          f"{rel:.3g}")
-    flops, n_bytes = gradnorm.cost(n, fh, fd)
-    b_ms, b_by = bound(n_bytes, flops)
-    sigma_rec = {"max_abs_err": float((got - want).abs().max()),
-                 "ms": device_ms(torch, lambda: gradnorm.gradnorm_sigma(h, d),
-                                 10, 3),
-                 "plain_ms": device_ms(
-                     torch, lambda: gradnorm.gradnorm_sigma_plain(h, d), 2, 2),
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    del got, want
-    vn_ms = device_ms(torch, lambda: (torch.linalg.vector_norm(h, dim=-1),
-                                      torch.linalg.vector_norm(d, dim=-1)),
-                      10, 3)
-    print(f"gradnorm_sigma ({n}, {fh})+({n}, {fd}) (llama's train step): "
-          f"max_abs_err {sigma_rec['max_abs_err']:.3g} max_rel_err "
-          f"{rel:.3g} | device ms: kernel {sigma_rec['ms']:.6f} plain "
-          f"{sigma_rec['plain_ms']:.6f} vector_norm of both operands "
-          f"{vn_ms:.6f} bound {b_ms:.6f} ({b_by}, {n_bytes:,.0f} B) | "
-          f"{100 * b_ms / sigma_rec['ms']:.1f} % of bound, "
-          f"{n_bytes / sigma_rec['ms'] / 1e6:.1f} GB/s")
-    del h, d
+    sigma_recs = {}
+    for shape, label in ((SIGMA_TRAIN, "llama3.2-3b"),
+                         (SIGMA_TRAIN_QWEN, "qwen2-vl-2b"),
+                         (SIGMA_TRAIN_MUSICGEN, "musicgen-medium, 4 "
+                                                "codebooks folded")):
+        n, fh, fd = shape
+        h = torch.randn(n, fh, generator=gen, device=device)
+        d = torch.randn(n, fd, generator=gen, device=device)
+        got = gradnorm.gradnorm_sigma(h, d)
+        want = gradnorm.gradnorm_sigma_plain(h, d)
+        rel = max_rel(got, want)
+        check(rel <= KERNEL_RTOL, f"gradnorm_sigma {shape}: rel err "
+              f"{rel:.3g}")
+        flops, n_bytes = gradnorm.cost(n, fh, fd)
+        b_ms, b_by = bound(n_bytes, flops)
+        rec = {"max_abs_err": float((got - want).abs().max()),
+               "ms": device_ms(torch, lambda: gradnorm.gradnorm_sigma(h, d),
+                               10, 3),
+               "plain_ms": device_ms(
+                   torch, lambda: gradnorm.gradnorm_sigma_plain(h, d), 2, 2),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        del got, want
+        vn_ms = device_ms(torch, lambda: (torch.linalg.vector_norm(h, dim=-1),
+                                          torch.linalg.vector_norm(d, dim=-1)),
+                          10, 3)
+        es_ms = [device_ms(torch, lambda x=x: torch.einsum("nd,nd->n", x, x),
+                           10, 3) for x in (h, d)]
+        print(f"gradnorm_sigma ({n}, {fh})+({n}, {fd}) ({label}'s train "
+              f"step): max_abs_err {rec['max_abs_err']:.3g} max_rel_err "
+              f"{rel:.3g} | device ms: kernel {rec['ms']:.6f} plain "
+              f"{rec['plain_ms']:.6f} vector_norm of both operands "
+              f"{vn_ms:.6f} einsum('nd,nd->n') of h {es_ms[0]:.6f} of p - y "
+              f"{es_ms[1]:.6f} (both {sum(es_ms):.6f}) bound {b_ms:.6f} "
+              f"({b_by}, {n_bytes:,.0f} B) | "
+              f"{100 * b_ms / rec['ms']:.1f} % of bound, "
+              f"{n_bytes / rec['ms'] / 1e6:.1f} GB/s")
+        sigma_recs[shape] = rec
+        del h, d
+        torch.cuda.empty_cache()
 
     scan_recs = {}
     for shape in SCAN_TRAIN:
@@ -1888,7 +2002,7 @@ def phase_train_kernels(torch, gradnorm, lru, ops, device="cuda"):
         scan_recs[shape] = rec
         del a, b, w, fwd
     torch.cuda.empty_cache()
-    return sigma_rec, scan_recs
+    return sigma_recs, scan_recs
 
 
 def profile_train_step(torch, train_mod, cfg, label, batch, seq):
@@ -2007,9 +2121,10 @@ def phase_train(torch, train_mod, kernels, cfg, batch, seq, steps,
 
 def phase_train_replay(torch, train_mod, replay, tm, full_fp32, get_config,
                        kernels, arch, scan_layers, device="cuda", cfg=None):
-    """``arch`` at full width cut to 2 layers, fp32 with TF32 off: a few
-    FEEL steps on the card, then ``REPLAY_TRAIN_STEPS`` more, each
-    replayed on the CPU from the card's params, AdamW state and batch by
+    """``arch`` at full width cut to 2 layers (or ``cfg``), fp32 with TF32
+    off: a few FEEL steps on the card, then ``REPLAY_TRAIN_STEPS`` more,
+    each replayed on the CPU from the card's params, optimizer state and
+    batch by
     ``replay.replay_step`` (the rule of ``launch/replay.py``).  Prints
     each client's smallest sigma gap, each side's sigma error against a
     float64 recompute, and whether the card's selection was taken as
@@ -2045,8 +2160,9 @@ def phase_train_replay(torch, train_mod, replay, tm, full_fp32, get_config,
                   and got["flash_attention"] == 0,
                   f"{arch} replay step {i}: card launches {got}")
             p, gaps = rep["params"], rep["gaps"]
-            print(f"{arch} train replay step {i} (full width, "
-                  f"{cfg.n_layers} layers, fp32, TF32 off, K="
+            print(f"{arch} train replay step {i} (d_model "
+                  f"{cfg.d_model}, {cfg.n_layers} layers, fp32, TF32 off, "
+                  f"{cfg.optimizer}, K="
                   f"{TRAIN_CLIENTS}, batch {REPLAY_TRAIN_BATCH} x seq "
                   f"{REPLAY_TRAIN_SEQ}, after {REPLAY_TRAIN_WARM + i} card "
                   f"steps): loss card {rep['loss_card']:.7f} cpu "
@@ -2099,7 +2215,7 @@ def main() -> None:
     import repro_torch.fed  # noqa: F401
     import repro_torch.models  # noqa: F401
     import repro_torch.obs  # noqa: F401
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, smoke_config
     from repro_torch.core import matching, selection
     from repro_torch.device import full_fp32
     from repro_torch.kernels import flash_attention, gradnorm, lru_scan, ops
@@ -2150,8 +2266,9 @@ def main() -> None:
     flash_f32_rec = flash_recs[(FLASH_F32_REPLAY, "float32", "bshd")]
     scan_recs = phase_scan(torch, lru_scan, ops)
     scan_rec = scan_recs[SCAN_SLICE]
-    sigma_train_rec, scan_train_recs = phase_train_kernels(
+    sigma_train_recs, scan_train_recs = phase_train_kernels(
         torch, gradnorm, lru_scan, ops)
+    sigma_train_rec = sigma_train_recs[SIGMA_TRAIN]
     done("3 kernels")
 
     # -- 4. the FEEL path -----------------------------------------------
@@ -2478,6 +2595,64 @@ def main() -> None:
                            REPLAY_LAYERS if arch == MAMBA else 0)
     done("27 train replays")
 
+    # -- 28-29. the vlm and audio serving paths at full width and depth --
+    modality_serve = {}
+    for (arch, n_params, layers, vocab), shape in ((QWEN, FLASH_QWEN),
+                                                   (MUSICGEN,
+                                                    FLASH_MUSICGEN)):
+        torch.cuda.empty_cache()
+        modality_serve[arch], served = phase_serve(
+            torch, serve_mod, kernels, arch, prefill_flash(layers), vocab)
+        check(served.n_params == n_params, f"{arch}: {served.n_params:,} "
+              f"parameters, expected {n_params:,}")
+        flash_time(arch, layers, shape)
+        del served
+        torch.cuda.empty_cache()
+        phase_serve_profile(torch, tm, get_config, arch)
+        done(f"{28 if arch == QWEN[0] else 29} {arch} serve")
+
+    # -- 30. modality replays on the CPU ---------------------------------
+    for arch, *_ in (QWEN, MUSICGEN):
+        torch.cuda.empty_cache()
+        got = phase_llm_replay(torch, tm, get_config, full_fp32, arch,
+                               kernels, caches=("k", "v"))
+        want = {"flash_attention": REPLAY_LAYERS, "lru_scan": 0}
+        check({k: got[k] for k in want} == want,
+              f"{arch} replay: launches {got}, expected {want}")
+    done("30 modality replays")
+
+    # -- 31. the vlm and audio archs trained at full width and depth ----
+    modality_train = {}
+    for arch, n_params, *_ in (QWEN, MUSICGEN):
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        modality_train[arch], res = phase_train(
+            torch, train_mod, kernels, cfg, TRAIN_BATCH, TRAIN_SEQ,
+            TRAIN_STEPS, {"gradnorm_sigma": 1, "flash_attention": 0,
+                          "lru_scan": 0}, arch)
+        check(res.n_params == n_params, f"{arch}: {res.n_params:,} params")
+        del res
+        profile_train_step(torch, train_mod, cfg, arch, TRAIN_BATCH,
+                           TRAIN_SEQ)
+    done("31 modality train")
+
+    # -- 32. train replays: the modalities, and adafactor's stacked body
+    for arch, *_ in (QWEN, MUSICGEN):
+        phase_train_replay(torch, train_mod, replay, tm, full_fp32,
+                           get_config, kernels, arch, 0)
+    dsv2_cut = smoke_config(DSV2).scaled(dtype="float32",
+                                         n_layers=ADAFACTOR_REPLAY_LAYERS)
+    groups = train_mod.make_optimizer(dsv2_cut).groups
+    check(dsv2_cut.optimizer == "adafactor" and groups
+          and all(len(m) == 2 for m in groups.values()),
+          f"{DSV2} cut to {ADAFACTOR_REPLAY_LAYERS} layers: adafactor "
+          f"groups {groups}")
+    print(f"{DSV2} smoke decoder cut to {ADAFACTOR_REPLAY_LAYERS} layers: "
+          f"adafactor steps {len(groups)} stacked body groups of 2 repeats")
+    phase_train_replay(torch, train_mod, replay, tm, full_fp32, get_config,
+                       kernels, DSV2, 0, cfg=dsv2_cut)
+    done("32 modality and adafactor train replays")
+
     # -- results --------------------------------------------------------
     def entry(name, source, replaces, launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -2552,7 +2727,20 @@ def main() -> None:
               "src/repro_torch/kernels/csrc/lru_scan.cu",
               "src/repro/kernels/lru_scan.py:70",
               cut_launches[RGEMMA]["lru_scan"],
-              scan_train_recs[SCAN_TRAIN[1]])]}))
+              scan_train_recs[SCAN_TRAIN[1]]),
+        # the vlm and audio paths, each with its own run's launches
+        entry(f"flash_attention@serve-{QWEN[0]}", sm90_src, flash_src,
+              modality_serve[QWEN[0]]["flash_attention"],
+              flash_recs[(FLASH_QWEN, "bfloat16", "bshd")]),
+        entry(f"flash_attention@serve-{MUSICGEN[0]}", sm90_src, flash_src,
+              modality_serve[MUSICGEN[0]]["flash_attention"],
+              flash_recs[(FLASH_MUSICGEN, "bfloat16", "bshd")]),
+        entry(f"gradnorm_sigma@train-{QWEN[0]}", gn_src, gn_ref,
+              modality_train[QWEN[0]]["gradnorm_sigma"],
+              sigma_train_recs[SIGMA_TRAIN_QWEN]),
+        entry(f"gradnorm_sigma@train-{MUSICGEN[0]}", gn_src, gn_ref,
+              modality_train[MUSICGEN[0]]["gradnorm_sigma"],
+              sigma_train_recs[SIGMA_TRAIN_MUSICGEN])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,9 @@
 """Architecture registry of the port: ``get_config(name)`` / ``ARCHS``.
 
-Counterpart of ``repro/configs``.  ``ARCHS`` lists only the
-architectures the port runs so far; the others of the reference are
-queued in ROADMAP.md.  ``smoke_config(name)`` returns the reduced
-same-family variant (a few layers, narrow widths) the CPU tests use.
+Counterpart of ``repro/configs``.  ``ARCHS`` lists the architectures
+the port runs: all ten of the reference's.  ``smoke_config(name)``
+returns the reduced same-family variant (a few layers, narrow widths)
+the CPU tests use.
 """
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ ARCHS: List[str] = [
     "command-r-35b",
     "deepseek-v2-236b",
     "deepseek-v3-671b",
+    "qwen2-vl-2b",
+    "musicgen-medium",
 ]
 
 ALIASES = {"llama3.2-3b": "llama3_2-3b"}

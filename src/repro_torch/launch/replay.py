@@ -176,18 +176,28 @@ def _state_to(state, device):
 @torch.no_grad()
 def sigma64(cfg, model, batch) -> Tensor:
     """sigma of ``batch`` recomputed in float64 from ``model``'s final
-    hidden state (its own forward) and its LM head: the yardstick for
+    hidden state (its own forward) and its LM head (for audio its C
+    codebook heads, summed over the valid codebooks and divided by
+    codebook 0's valid count, as ``sigma_scores``): the yardstick for
     each side's fp32 sigma."""
     _, hidden, _ = tm.make_forward(cfg)(model, batch)
     h = hidden.double()
-    head = (model.embed.double().T if cfg.tie_embeddings
+    head = (model.embed.double().T
+            if cfg.modality == "text" and cfg.tie_embeddings
             else model.lm_head.double())
-    p = torch.softmax(h @ head, dim=-1)
+    logits = h @ head
     labels = batch["labels"]
+    if cfg.modality == "audio":
+        logits = logits.view(*h.shape[:-1], cfg.n_codebooks, cfg.vocab)
+        labels = labels.transpose(1, 2)
+    p = torch.softmax(logits, dim=-1)
     p.scatter_add_(-1, labels.clamp_min(0)[..., None],
                    torch.full(labels.shape + (1,), -1.0, dtype=p.dtype))
     valid = (labels >= 0).double()
-    tok = (h.square().sum(-1) + 1.0) * p.square().sum(-1) * valid
+    dn2 = (p.square().sum(-1) * valid)
+    if cfg.modality == "audio":
+        dn2, valid = dn2.sum(-1), valid[..., 0]
+    tok = (h.square().sum(-1) + 1.0) * dn2
     return tok.sum(-1) / valid.sum(-1).clamp_min(1.0)
 
 

@@ -4,10 +4,14 @@ buffer for sliding-window attention, the compressed latent and rotary
 key for latent attention, conv and recurrent state for mamba and
 RG-LRU).
 
-Counterpart of ``repro/launch/serve.py`` for text decoders
+Counterpart of ``repro/launch/serve.py`` for every arch of the zoo
 (``llama3.2-3b``, ``falcon-mamba-7b``, ``recurrentgemma-9b``,
 ``gemma3-12b``, ``stablelm-12b``, ``command-r-35b``,
-``deepseek-v2-236b``, ``deepseek-v3-671b``).  ``--mla-absorbed`` takes
+``deepseek-v2-236b``, ``deepseek-v3-671b``, ``qwen2-vl-2b``,
+``musicgen-medium``), with the reference's requests per modality
+(``prefill_batch``, ``decode_batch``): text prompts; vlm embeddings with
+M-RoPE positions, decoded from zero embeddings at text positions; audio
+codebook grids, decoded greedily per codebook.  ``--mla-absorbed`` takes
 the absorbed decode of the DeepSeek configs' latent attention, as the
 reference's flag does.  Runs on the GPU unless ``--device cpu`` is
 given; without a GPU and without it, it raises.
@@ -42,7 +46,9 @@ from ..models.moe import MoE, dropped
 
 @dataclasses.dataclass
 class ServeResult:
-    tokens: torch.Tensor      # (batch, new_tokens + 1): prefill's, then each step's
+    # (batch, new_tokens + 1), audio (batch, new_tokens + 1, codebooks):
+    # prefill's, then each step's
+    tokens: torch.Tensor
     prefill_s: float          # prefill wall time, device synchronized
     decode_s: List[float]     # wall time of each decode step
     launches: Dict[str, Dict[str, int]]  # per phase, per kernel
@@ -61,6 +67,42 @@ def _diff(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
     return {k: after[k] - before[k] for k in after}
 
 
+def prefill_batch(cfg: ArchConfig, batch: int, prompt_len: int,
+                  generator: torch.Generator, device=None
+                  ) -> Dict[str, torch.Tensor]:
+    """The reference's request: text "tokens" (batch, prompt_len); vlm
+    standard-normal "embeds" (batch, prompt_len, d) in the activation
+    dtype with "positions" (batch, 3, prompt_len), the text positions
+    0..prompt_len-1 on all three M-RoPE rows; audio "tokens" (batch, C,
+    prompt_len).  Drawn from ``generator``."""
+    if cfg.modality == "vlm":
+        pos = torch.arange(prompt_len, device=device)
+        return {"embeds": torch.randn(
+                    (batch, prompt_len, cfg.d_model), generator=generator,
+                    device=device).to(cfg.act_dtype),
+                "positions": pos.expand(batch, 3, prompt_len)}
+    shape = ((batch, cfg.n_codebooks, prompt_len) if cfg.modality == "audio"
+             else (batch, prompt_len))
+    return {"tokens": torch.randint(0, cfg.vocab, shape, generator=generator,
+                                    device=device)}
+
+
+def decode_batch(cfg: ArchConfig, tok: torch.Tensor, index: int,
+                 position: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """One decode step's batch, the reference's: the greedy tokens ``tok``
+    ((batch,), audio (batch, C)) into cache slot ``index``.  A vlm
+    continuation has no patch embedding: zero embeds at the text
+    position ``position`` (default ``index``) on all three rows."""
+    if cfg.modality == "vlm":
+        B = tok.shape[0]
+        return {"embeds": torch.zeros((B, 1, cfg.d_model),
+                                      dtype=cfg.act_dtype, device=tok.device),
+                "positions": torch.full((B, 3, 1), index if position is None
+                                        else position, device=tok.device),
+                "cache_index": index}
+    return {"tokens": tok[..., None], "cache_index": index}
+
+
 def serve(arch: Union[str, ArchConfig] = "llama3.2-3b", batch: int = 4,
           prompt_len: int = 32, new_tokens: int = 16, smoke: bool = True,
           seed: int = 0, device: DeviceLike = None,
@@ -69,11 +111,14 @@ def serve(arch: Union[str, ArchConfig] = "llama3.2-3b", batch: int = 4,
     ``new_tokens`` greedy steps.  ``arch`` is a name (its smoke config,
     or with ``smoke=False`` its full one) or an ``ArchConfig``, taken as
     it is.  Weights and prompts are drawn from a ``torch.Generator``
-    seeded with ``seed`` on the device.  The cache holds ``prompt_len +
-    new_tokens`` slots; prefill fills [0, prompt_len) and step i writes
-    slot prompt_len + i (a sliding-window layer's rolling buffer holds
-    ``window`` slots and writes position p at slot p % window).
-    ``mla_absorbed`` picks the absorbed decode of latent attention."""
+    seeded with ``seed`` on the device; the request is the reference's
+    for the config's modality (``prefill_batch``, ``decode_batch``).
+    The cache holds ``prompt_len + new_tokens`` slots; prefill fills [0,
+    prompt_len) and step i writes slot prompt_len + i (a sliding-window
+    layer's rolling buffer holds ``window`` slots and writes position p
+    at slot p % window).  Greedy decoding takes the argmax per sequence,
+    for audio per codebook.  ``mla_absorbed`` picks the absorbed decode
+    of latent attention."""
     dev = resolve_device(device)
     if isinstance(arch, ArchConfig):
         cfg = arch
@@ -84,8 +129,7 @@ def serve(arch: Union[str, ArchConfig] = "llama3.2-3b", batch: int = 4,
     model = init_model(cfg, gen, dev)
     n_params = param_count(model)
     print(f"arch={cfg.name} params={n_params:,} device={dev}")
-    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
-                            generator=gen, device=dev)
+    request = prefill_batch(cfg, batch, prompt_len, gen, dev)
     cache = make_cache(cfg, batch, prompt_len + new_tokens, device=dev)
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg, mla_absorbed=mla_absorbed)
@@ -96,7 +140,7 @@ def serve(arch: Union[str, ArchConfig] = "llama3.2-3b", batch: int = 4,
     synchronize(dev)
     n0 = _launch_counts()
     t0 = time.perf_counter()
-    logits, cache = prefill(model, {"tokens": prompts}, cache)
+    logits, cache = prefill(model, request, cache)
     tok = torch.argmax(logits[:, -1], dim=-1)  # greedy
     synchronize(dev)
     t_prefill = time.perf_counter() - t0
@@ -111,8 +155,8 @@ def serve(arch: Union[str, ArchConfig] = "llama3.2-3b", batch: int = 4,
     toks, steps = [tok], []
     for i in range(new_tokens):
         t0 = time.perf_counter()
-        logits, cache = decode(model, cache, {"tokens": tok[:, None],
-                                              "cache_index": prompt_len + i})
+        logits, cache = decode(model, cache,
+                               decode_batch(cfg, tok, prompt_len + i))
         tok = torch.argmax(logits[:, -1], dim=-1)
         synchronize(dev)
         steps.append(time.perf_counter() - t0)

@@ -8,12 +8,19 @@ import functools
 
 from .. import optim
 from ..models.config import ArchConfig
+from ..models.model import stacked_groups
 
 
 def make_optimizer(cfg: ArchConfig) -> optim.GradientTransformation:
     """``cfg.optimizer`` at ``cfg.learning_rate``; adamw with weight decay
-    0.01, as the reference builds it."""
+    0.01, as the reference builds it.  Adafactor steps each of the
+    reference's stacked body leaves as one (``stacked_groups``), as the
+    reference's adafactor sees them; the other optimizers are
+    elementwise and step leaf by leaf."""
+    if cfg.optimizer == "adafactor":
+        return optim.adafactor(cfg.learning_rate,
+                               groups=stacked_groups(cfg))
     builder = {"adamw": functools.partial(optim.adamw, weight_decay=0.01),
-               "adam": optim.adam, "adafactor": optim.adafactor,
-               "sgd": optim.sgd, "momentum": optim.momentum}[cfg.optimizer]
+               "adam": optim.adam, "sgd": optim.sgd,
+               "momentum": optim.momentum}[cfg.optimizer]
     return builder(cfg.learning_rate)

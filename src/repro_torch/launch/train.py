@@ -37,7 +37,6 @@ from ..device import DeviceLike, resolve_device, synchronize
 from ..kernels import flash_attention, gradnorm, lru_scan
 from ..models import (ArchConfig, FeelIntegration, init_model,
                       make_train_step, param_count, trainable)
-from ..models.layers import _TODO
 from .shapes import make_optimizer
 
 #: ``examples/train_llm_feel.py --full-100m``: a ~100M-parameter
@@ -68,12 +67,28 @@ def launch_counts() -> Dict[str, int]:
 def synth_batch(cfg: ArchConfig, generator: torch.Generator, batch: int,
                 seq: int, n_clients: int, feel: bool, eps: float = 0.8,
                 device=None) -> Dict[str, torch.Tensor]:
-    """A power-law token batch; with ``feel`` also "alpha" (n_clients,),
-    each client available with probability ``eps``."""
-    if cfg.modality != "text":
-        raise NotImplementedError(f"training the {cfg.modality!r} modality "
-                                  f"is {_TODO}")
-    b = synthetic_lm_batch(generator, batch, seq, cfg.vocab, device)
+    """The reference's batch for the config's modality: text a power-law
+    token batch (``synthetic_lm_batch``); vlm standard-normal "embeds"
+    (batch, seq, d) in the activation dtype, "positions" (batch, 3, seq)
+    with the text positions on all three M-RoPE rows, and uniform
+    "labels" (batch, seq); audio a uniform (batch, C, seq + 1) codebook
+    grid, "tokens" its first seq columns and "labels" its last seq.  With
+    ``feel`` also "alpha" (n_clients,), each client available with
+    probability ``eps``.  Drawn from ``generator``."""
+    if cfg.modality == "vlm":
+        b = {"embeds": torch.randn((batch, seq, cfg.d_model),
+                                   generator=generator,
+                                   device=device).to(cfg.act_dtype),
+             "positions": torch.arange(seq, device=device).expand(
+                 batch, 3, seq),
+             "labels": torch.randint(0, cfg.vocab, (batch, seq),
+                                     generator=generator, device=device)}
+    elif cfg.modality == "audio":
+        t = torch.randint(0, cfg.vocab, (batch, cfg.n_codebooks, seq + 1),
+                          generator=generator, device=device)
+        b = {"tokens": t[..., :-1], "labels": t[..., 1:]}
+    else:
+        b = synthetic_lm_batch(generator, batch, seq, cfg.vocab, device)
     if feel:
         b["alpha"] = (torch.rand(n_clients, generator=generator,
                                  device=device) < eps).float()

@@ -1,6 +1,7 @@
-"""Shared neural-net layers: RMSNorm, 1-D RoPE, gated MLP, and GQA
-attention with the global causal (prefill and train), sliding-window
-(prefill and train) and cached-decode (full or rolling) paths.
+"""Shared neural-net layers: RMSNorm, RoPE (1-D and M-RoPE), gated MLP,
+and GQA attention with the global causal (prefill and train),
+sliding-window (prefill and train) and cached-decode (full or rolling)
+paths.
 
 Counterpart of ``repro/models/layers.py`` for what the port's serving
 and training paths run.  Parameters live in ``nn.Module`` containers
@@ -19,8 +20,8 @@ flash kernel has no backward, and the reference's train path never
 reaches its Pallas kernel either.  Sliding-window attention
 (``local_attend_chunked``, prefill and train) and decode attention stay
 plain torch, as the reference computes them with einsums outside any
-kernel (its Pallas flash kernel takes no window).  Logit softcapping and
-M-RoPE are not ported yet (ROADMAP.md queue 1, item 10) and raise.
+kernel (its Pallas flash kernel takes no window).  Logit softcapping is
+not ported yet (ROADMAP.md queue 1, item 10) and raises.
 """
 from __future__ import annotations
 
@@ -85,25 +86,44 @@ def init_dense(generator: torch.Generator, d_in: int, d_out: int,
 def _rope_cos_sin(positions: Tensor, n_pairs: int, theta: float,
                   mrope_sections: Tuple[int, ...] = ()
                   ) -> Tuple[Tensor, Tensor]:
-    """cos/sin tables for positions (B, S): (B, S, n_pairs) float32.
+    """cos/sin tables for positions (B, S), or (B, 3, S) for M-RoPE:
+    (B, S, n_pairs) float32.
 
     The frequencies theta^(-i/n_pairs) are raised in float64 and rounded
     to float32, so every device gets the same table; the angles and
-    their cos/sin are float32, as in the reference."""
-    if positions.dim() != 2 or mrope_sections:
-        raise NotImplementedError(f"M-RoPE is {_TODO}")
+    their cos/sin are float32, as in the reference.  Under M-RoPE
+    (Qwen2-VL) pair i takes its position from the (temporal, height,
+    width) row of the section it belongs to: the first
+    ``mrope_sections[0]`` pairs from row 0, the next
+    ``mrope_sections[1]`` from row 1, the rest from row 2."""
     expo = -torch.arange(n_pairs, dtype=torch.float32,
                          device=positions.device) / n_pairs
     freqs = torch.pow(float(theta), expo.double()).float()
-    ang = positions[..., None].float() * freqs
+    if positions.dim() == 2:
+        pos = positions[..., None]
+    elif positions.dim() == 3 and positions.shape[1] == len(
+            mrope_sections) and sum(mrope_sections) == n_pairs:
+        # row r repeated over its section's pairs: views and one copy, no
+        # index tensor from the host (a decode step would wait for it)
+        pos = torch.cat([positions[:, r, None, :].expand(-1, n, -1)
+                         for r, n in enumerate(mrope_sections)],
+                        dim=1).transpose(1, 2)  # (B, S, n_pairs)
+    else:
+        raise ValueError(f"M-RoPE takes (B, {len(mrope_sections)}, S) "
+                         f"positions and sections {mrope_sections} summing "
+                         f"to {n_pairs} pairs, got positions of shape "
+                         f"{tuple(positions.shape)}")
+    ang = pos.float() * freqs
     return torch.cos(ang), torch.sin(ang)
 
 
 def apply_rope(x: Tensor, positions: Tensor, theta: float,
                fraction: float = 1.0,
                mrope_sections: Tuple[int, ...] = ()) -> Tensor:
-    """x: (B, S, H, Dh). Rotates the first ``fraction * Dh`` dims, the
-    first half of them against the second half (rotate-half pairing)."""
+    """x: (B, S, H, Dh); positions (B, S), or (B, 3, S) with
+    ``mrope_sections`` for M-RoPE.  Rotates the first ``fraction * Dh``
+    dims, the first half of them against the second half (rotate-half
+    pairing)."""
     d = x.shape[-1]
     d_rot = int(d * fraction)
     d_rot -= d_rot % 2

@@ -1,12 +1,20 @@
-"""Model-level API for text decoders: embeddings, the LM head, losses,
-and the train / prefill / decode step functions the drivers call.
+"""Model-level API: embeddings and heads per modality, the losses, and
+the train / prefill / decode step functions the launchers call.
 
-Counterpart of ``repro/models/model.py`` for the text modality
-(attention, sliding-window attention, latent attention, mamba and
-RG-LRU decoders, dense or MoE FFNs).  The model is an ``nn.Module``
-(``Model``) holding the decoder, the embedding table and the LM head.
-Serving holds it frozen and runs its steps under ``torch.no_grad``;
-training turns its gradients on (``trainable``).
+Counterpart of ``repro/models/model.py``.  Modalities, as the
+reference's:
+  text   tokens (B, S) -> the embedding table (vocab, d)
+  vlm    precomputed patch/text embeddings (B, S, d) with M-RoPE
+         positions (B, 3, S) (the ViT frontend is the reference's stub);
+         no embedding table
+  audio  a codebook token grid (B, C, S) -> the sum of C per-codebook
+         embeddings (C, vocab, d); C parallel heads, one (d, C vocab)
+         matrix, logits (B, S, C, vocab)
+over every decoder the port runs (attention, sliding-window attention,
+latent attention, mamba and RG-LRU, dense or MoE FFNs).  The model is an
+``nn.Module`` (``Model``) holding the decoder, the embedding table and
+the LM head.  Serving holds it frozen and runs its steps under
+``torch.no_grad``; training turns its gradients on (``trainable``).
 
 The FEEL integration (``make_train_step(..., feel=...)``) is the
 paper's technique inside the train step, as in the reference: each
@@ -16,9 +24,9 @@ the exact Problem-4 selection per client (``core.selection.
 exact_selection``), and the eq.-(19) inverse-propensity weights with
 Bernoulli availability; the batch's ``n_clients`` equal slices play the
 K federated devices.  The optimizer step is applied leaf by leaf in
-place (``apply_optimizer``), the port's counterpart of the reference
-driver's buffer donation.  The vlm/audio modalities are not ported yet
-(ROADMAP.md queue 1, item 10).
+place (``apply_optimizer``; adafactor steps each stacked body group of
+``stacked_groups`` at once), the port's counterpart of the buffer
+donation of the reference's training loop.
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ from ..kernels import ops
 from ..optim import GradientTransformation, apply_updates
 from .config import ArchConfig
 from . import mla, moe, rglru, ssm
-from .layers import MLP, Attention, _TODO, frozen, init_dense, init_normal
+from .layers import MLP, Attention, frozen, init_dense, init_normal
 from .transformer import (Block, Cache, Decoder, MambaBlock, RGLRUBlock,
                           _layer_plan, _uses_moe, apply_decoder,
                           check_supported, init_cache, init_decoder)
@@ -44,15 +52,16 @@ Tensor = torch.Tensor
 
 
 class Model(nn.Module):
-    """decoder, embed (vocab, d) and lm_head (d, vocab; absent when the
-    embeddings are tied).  Built frozen (``layers.frozen``); ``trainable``
-    turns the gradients on."""
+    """decoder, embed and lm_head, by modality: text (vocab, d) and (d,
+    vocab), the head absent when the embeddings are tied; vlm no embed
+    and (d, vocab); audio (C, vocab, d) and (d, C vocab).  Built frozen
+    (``layers.frozen``); ``trainable`` turns the gradients on."""
 
-    def __init__(self, decoder: Decoder, embed: Tensor,
+    def __init__(self, decoder: Decoder, embed: Optional[Tensor] = None,
                  lm_head: Optional[Tensor] = None):
         super().__init__()
         self.decoder = decoder
-        self.embed = frozen(embed)
+        self.embed = None if embed is None else frozen(embed)
         self.lm_head = None if lm_head is None else frozen(lm_head)
 
 
@@ -66,12 +75,20 @@ def init_model(cfg: ArchConfig, generator: torch.Generator,
     through the host.  On the ``meta`` device it allocates nothing (parameter
     counts of configs that fit no card)."""
     check_supported(cfg)
-    dtype = cfg.act_dtype
+    dtype, d = cfg.act_dtype, cfg.d_model
     decoder = init_decoder(cfg, generator, device)
-    embed = init_normal(generator, (cfg.vocab, cfg.d_model),
-                        cfg.d_model ** -0.5, dtype, device)
+    if cfg.modality == "vlm":
+        return Model(decoder, None,
+                     init_dense(generator, d, cfg.vocab, dtype, device))
+    if cfg.modality == "audio":
+        C = cfg.n_codebooks
+        embed = init_normal(generator, (C, cfg.vocab, d), d ** -0.5, dtype,
+                            device)
+        return Model(decoder, embed, init_dense(generator, d, C * cfg.vocab,
+                                                dtype, device))
+    embed = init_normal(generator, (cfg.vocab, d), d ** -0.5, dtype, device)
     lm_head = (None if cfg.tie_embeddings else
-               init_dense(generator, cfg.d_model, cfg.vocab, dtype, device))
+               init_dense(generator, d, cfg.vocab, dtype, device))
     return Model(decoder, embed, lm_head)
 
 
@@ -104,7 +121,8 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping,
     ``cfg.act_dtype``, except the float32 leaves (``ssm.FP32_LEAVES``,
     ``rglru.FP32_LEAVES``, the MoE router ``moe.FP32_LEAVES``), which
     stay float32 as in the reference.  An MoE FFN keeps its ``shared``
-    MLP.
+    MLP.  The vlm tree has no ``embed``; the audio tree's is stacked
+    over codebooks, (C, vocab, d), as the reference's.
     """
     check_supported(cfg)
     dtype = cfg.act_dtype
@@ -156,8 +174,25 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping,
                       [block(k, p, use_moe)
                        for k, p in zip(tail, dec["tail"])],
                       t(dec["final_norm"]))
-    return Model(decoder, t(tree["embed"]),
-                 None if cfg.tie_embeddings else t(tree["lm_head"]))
+    return Model(decoder, t(tree["embed"]) if "embed" in tree else None,
+                 t(tree["lm_head"]) if "lm_head" in tree else None)
+
+
+def stacked_groups(cfg: ArchConfig) -> Dict[str, Tuple[str, ...]]:
+    """The reference's stacked body leaves by the port's parameter names:
+    ``decoder.body.pos{p}.<path>`` (the reference's tree path, dotted) ->
+    the names of that leaf in repeats 0..n_body-1,
+    ``decoder.body.{r * P + p}.<path>``.  Head and tail layers are not
+    stacked in the reference and are in no group.  Taken from a model of
+    ``cfg`` on the ``meta`` device (nothing is allocated)."""
+    P = len(_layer_plan(cfg)[2])
+    groups: Dict[str, list] = {}
+    for name, _ in init_model(cfg, None, "meta").named_parameters():
+        parts = name.split(".", 3)
+        if parts[:2] == ["decoder", "body"]:
+            key = f"decoder.body.pos{int(parts[2]) % P}.{parts[3]}"
+            groups.setdefault(key, []).append(name)
+    return {g: tuple(ms) for g, ms in groups.items()}
 
 
 def _index(tree, r: int):
@@ -171,39 +206,65 @@ def _index(tree, r: int):
 
 def embed_input(cfg: ArchConfig, model: Model,
                 batch: Dict[str, Tensor]) -> Tensor:
-    if cfg.modality != "text":
-        raise NotImplementedError(f"the {cfg.modality!r} modality is {_TODO}")
-    return model.embed[batch["tokens"]].to(cfg.act_dtype)
+    """(B, S, d) in the activation dtype: text tokens' embeddings, vlm
+    ``embeds`` as given, or the sum of the audio tokens' (B, C, S)
+    per-codebook embeddings, codebook 0 first, as the reference adds
+    them."""
+    if cfg.modality == "vlm":
+        return batch["embeds"].to(cfg.act_dtype)
+    toks = batch["tokens"]
+    if cfg.modality == "audio":
+        x = model.embed[0][toks[:, 0]]
+        for c in range(1, cfg.n_codebooks):
+            x = x + model.embed[c][toks[:, c]]
+        return x.to(cfg.act_dtype)
+    return model.embed[toks].to(cfg.act_dtype)
 
 
-def _positions(cfg: ArchConfig, B: int, S: int, offset: int = 0,
-               device=None) -> Tensor:
+def _positions(cfg: ArchConfig, batch: Dict[str, Tensor], B: int, S: int,
+               offset: int = 0, device=None) -> Tensor:
+    """RoPE positions: the vlm batch's own (B, 3, S) M-RoPE ids, else
+    offset + 0..S-1 for every sequence, (B, S)."""
+    if cfg.modality == "vlm":
+        return batch["positions"]
     pos = offset + torch.arange(S, device=device)
     return pos[None, :].expand(B, S)
 
 
 def unembed(cfg: ArchConfig, model: Model, hidden: Tensor) -> Tensor:
-    """Logits in fp32.  The untied head multiplies in the activation
-    dtype and casts afterwards, as the reference does (greedy ties
-    depend on it)."""
-    if cfg.tie_embeddings:
+    """Logits in fp32: (B, S, vocab), or (B, S, C, vocab) for audio.  The
+    untied head multiplies in the activation dtype and casts afterwards,
+    as the reference does (greedy ties depend on it)."""
+    if cfg.modality == "text" and cfg.tie_embeddings:
         return hidden.float() @ model.embed.float().T
-    return (hidden @ model.lm_head).float()
+    logits = (hidden @ model.lm_head).float()
+    if cfg.modality == "audio":
+        logits = logits.view(*hidden.shape[:-1], cfg.n_codebooks, cfg.vocab)
+    return logits
 
 
 # ------------------------------------------------------------------ loss
 
+def _labels(cfg: ArchConfig, batch: Dict[str, Tensor]) -> Tensor:
+    """The labels aligned with the logits: (B, S), or for audio the
+    batch's (B, C, S) swapped to (B, S, C)."""
+    labels = batch["labels"]
+    return labels.transpose(1, 2) if cfg.modality == "audio" else labels
+
+
 def per_example_loss(cfg: ArchConfig, logits: Tensor,
                      batch: Dict[str, Tensor]) -> Tuple[Tensor, Tensor]:
     """Mean cross-entropy per example over its valid tokens (labels
-    >= 0): ((B,), valid-token counts (B,), at least 1)."""
-    labels = batch["labels"]
+    >= 0; for audio every valid (position, codebook) pair): ((B,),
+    valid counts (B,), at least 1)."""
+    labels = _labels(cfg, batch)
     valid = labels >= 0
     logp = torch.log_softmax(logits, dim=-1)
     tok_ll = logp.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
     tok_loss = -tok_ll * valid
-    n = valid.sum(dim=-1).clamp_min(1)
-    return tok_loss.sum(dim=-1) / n, n
+    dims = tuple(range(1, tok_loss.dim()))
+    n = valid.sum(dim=dims).clamp_min(1)
+    return tok_loss.sum(dim=dims) / n, n
 
 
 @torch.no_grad()
@@ -212,16 +273,31 @@ def sigma_scores(cfg: ArchConfig, hidden: Tensor, logits: Tensor,
     """Per-example last-layer gradient-norm^2 proxy (GraNd-style): the
     mean over valid tokens of ||softmax - onehot||^2 * (||h_t||^2 + 1),
     exact per token (the reference drops the cross-token terms of the
-    full-sequence norm, O(S) not O(S^2)).  Tokens go through
-    ``ops.sigma_from_head``: the row-norm kernel on CUDA tensors, its
-    plain version on CPU ones.  No gradient."""
-    labels = batch["labels"]
-    B, S = labels.shape
-    valid = (labels >= 0).float()
-    tok = ops.sigma_from_head(hidden.reshape(B * S, -1).float(),
-                              logits.reshape(B * S, -1),
-                              labels.clamp_min(0).reshape(-1))
-    return (tok.view(B, S) * valid).sum(-1) / valid.sum(-1).clamp_min(1.0)
+    full-sequence norm, O(S) not O(S^2)).  For audio a position's term
+    sums ||p_c - y_c||^2 over its valid codebooks c, and the mean
+    divides by codebook 0's valid count, as the reference's does.
+    Tokens go through ``ops.gradnorm_sigma`` in one call, the row-norm
+    kernel on CUDA tensors (one launch), its plain version on CPU ones:
+    text through ``ops.sigma_from_head``; audio with p - y formed in
+    place on the fp32 softmax (1 taken off at each label, no one-hot),
+    the rows of invalid codebooks zeroed, and the codebooks folded into
+    one (B S, C vocab) row each.  No gradient."""
+    labels = _labels(cfg, batch)
+    B, S = labels.shape[:2]
+    valid = labels >= 0
+    h = hidden.reshape(B * S, -1).float()
+    if cfg.modality != "audio":
+        tok = ops.sigma_from_head(h, logits.reshape(B * S, -1),
+                                  labels.clamp_min(0).reshape(-1))
+        return ((tok.view(B, S) * valid).sum(-1)
+                / valid.sum(-1).clamp_min(1.0))
+    p = torch.softmax(logits.float(), dim=-1)
+    rows = p.view(-1, p.shape[-1])
+    rows[torch.arange(rows.shape[0], device=p.device),
+         labels.clamp_min(0).reshape(-1).long()] -= 1.0
+    p.masked_fill_(~valid[..., None], 0.0)
+    tok = ops.gradnorm_sigma(h, p.view(B * S, -1))
+    return tok.view(B, S).sum(-1) / valid[..., 0].sum(-1).clamp_min(1.0)
 
 
 # ----------------------------------------------------------- FEEL wiring
@@ -257,14 +333,15 @@ def _no_mark(stage: str) -> None:
 
 
 def make_forward(cfg: ArchConfig) -> Callable:
-    """forward(model, batch) -> (logits (B, S, V) fp32, hidden (B, S, d),
-    the summed MoE aux loss): the decoder in train mode."""
+    """forward(model, batch) -> (logits (B, S, V) fp32, or (B, S, C, V)
+    for audio; hidden (B, S, d); the summed MoE aux loss): the decoder in
+    train mode."""
 
     def forward(model: Model, batch: Dict[str, Tensor]
                 ) -> Tuple[Tensor, Tensor, Tensor]:
         x = embed_input(cfg, model, batch)
         B, S = x.shape[:2]
-        pos = _positions(cfg, B, S, device=x.device)
+        pos = _positions(cfg, batch, B, S, device=x.device)
         hidden, _, aux = apply_decoder(cfg, model.decoder, x, pos,
                                        mode="train")
         return unembed(cfg, model, hidden), hidden, aux
@@ -355,9 +432,10 @@ def grads_of(loss_fn: Callable, model: Model, batch: Dict[str, Tensor],
 
 
 def _leaf_state(state, name: str):
-    """The part of an optimizer state that belongs to leaf ``name``: the
-    leaf's entry of every dict field (and the shared fields, the step
-    count) of a NamedTuple state, or of a dict state; () as it is."""
+    """The part of an optimizer state that belongs to leaf (or group)
+    ``name``: its entry of every dict field (and the shared fields, the
+    step count) of a NamedTuple state, or of a dict state; () as it
+    is."""
     if isinstance(state, dict):
         return {name: state[name]}
     if hasattr(state, "_fields"):
@@ -388,26 +466,33 @@ def _store_leaf(state, name: str, leaf):
 def apply_optimizer(opt: GradientTransformation, grads: Dict[str, Tensor],
                     state, params: Dict[str, Tensor]):
     """One step of a per-leaf optimizer (``opt.per_leaf``), taken leaf by
-    leaf: each leaf's update is computed, added to the parameter in place
-    and its state written into ``state``'s own dicts before the next
-    leaf's, and each gradient is dropped from ``grads`` once used.  The
-    values are those of ``opt.update`` on the whole dict then
-    ``apply_updates``; only one leaf's update and new moments are alive
-    at a time.  ``state`` and ``grads`` are donated (the reference's
-    driver donates params and state to its jitted step): read only the
+    leaf, or group by group for the leaves of one of ``opt.groups``
+    (adafactor on the reference's stacked body): each leaf's or group's
+    update is computed, added to the parameters in place and its state
+    written into ``state``'s own dicts before the next one's, and each
+    gradient is dropped from ``grads`` once used.  The values are those
+    of ``opt.update`` on the whole dict then ``apply_updates``; only one
+    leaf's or group's update and new moments are alive at a time.
+    ``state`` and ``grads`` are donated (the reference's training loop
+    donates params and state to its jitted step): read only the
     returned state afterwards."""
     if not opt.per_leaf:
         raise ValueError("apply_optimizer takes an optimizer that updates "
                          "each leaf alone (sgd, momentum, adam, adamw, "
                          "adafactor)")
+    group_of = {m: g for g, ms in opt.groups.items() for m in ms}
     old = state  # its step count; its dicts are the ones written below
     for name in list(grads):
-        g = grads.pop(name)
-        upd, leaf = opt.update({name: g}, _leaf_state(old, name),
-                               {name: params[name]})
+        if name not in grads:  # stepped with its group
+            continue
+        key = group_of.get(name, name)
+        members = opt.groups.get(key, (name,))
+        g = {m: grads.pop(m) for m in members}
+        p = {m: params[m] for m in members}
+        upd, leaf = opt.update(g, _leaf_state(old, key), p)
         del g
-        apply_updates({name: params[name]}, upd)
-        state = _store_leaf(state, name, leaf)
+        apply_updates(p, upd)
+        state = _store_leaf(state, key, leaf)
     return state
 
 
@@ -437,16 +522,18 @@ def make_train_step(cfg: ArchConfig, opt: GradientTransformation,
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     """prefill_step(model, batch, cache=None) -> (last-position logits
-    (B, 1, V), cache).  With a cache (of at least S slots) prefill fills
-    its slots [0, S) in place; without one it returns a new S-slot
-    cache, as the reference does."""
+    (B, 1, V), or (B, 1, C, V) for audio; cache).  ``batch`` is the
+    reference's: "tokens" (B, S), vlm "embeds" (B, S, d) and "positions"
+    (B, 3, S), audio "tokens" (B, C, S).  With a cache (of at least S
+    slots) prefill fills its slots [0, S) in place; without one it
+    returns a new S-slot cache, as the reference does."""
 
     @torch.no_grad()
     def prefill_step(model: Model, batch: Dict[str, Tensor],
                      cache: Optional[Cache] = None) -> Tuple[Tensor, Cache]:
         x = embed_input(cfg, model, batch)
         B, S = x.shape[:2]
-        pos = _positions(cfg, B, S, device=x.device)
+        pos = _positions(cfg, batch, B, S, device=x.device)
         hidden, cache, _ = apply_decoder(cfg, model.decoder, x, pos,
                                          mode="prefill", cache=cache)
         return unembed(cfg, model, hidden[:, -1:]), cache
@@ -456,17 +543,21 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
 
 def make_decode_step(cfg: ArchConfig, mla_absorbed: bool = False
                      ) -> Callable:
-    """decode_step(model, cache, batch) -> (logits (B, 1, V), cache): one
-    new token per sequence at position ``batch["cache_index"]`` (an int),
-    written into the cache in place.  ``mla_absorbed``: the absorbed
-    decode path of ``mla`` blocks (``mla.py``)."""
+    """decode_step(model, cache, batch) -> (logits (B, 1, V), or (B, 1, C,
+    V) for audio; cache): one new token per sequence into cache slot
+    ``batch["cache_index"]`` (an int), written in place.  ``batch`` is
+    the reference's: "tokens" (B, 1), vlm "embeds" (B, 1, d) and
+    "positions" (B, 3, 1) (RoPE reads these, not the slot), audio
+    "tokens" (B, C, 1).  ``mla_absorbed``: the absorbed decode path of
+    ``mla`` blocks (``mla.py``)."""
 
     @torch.no_grad()
     def decode_step(model: Model, cache: Cache,
                     batch: Dict[str, Tensor]) -> Tuple[Tensor, Cache]:
         x = embed_input(cfg, model, batch)
         idx = int(batch["cache_index"])
-        pos = _positions(cfg, x.shape[0], 1, offset=idx, device=x.device)
+        pos = _positions(cfg, batch, x.shape[0], 1, offset=idx,
+                         device=x.device)
         hidden, cache, _ = apply_decoder(cfg, model.decoder, x, pos,
                                          mode="decode", cache=cache,
                                          cache_index=idx,

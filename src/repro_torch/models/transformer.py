@@ -26,9 +26,10 @@ whole request, where the reference builds new arrays each step.
 theta where the config sets them), ``"mla"`` blocks (``mla.py``, naive
 or absorbed decode) and ``"rglru"`` blocks, each with a dense or an MoE
 FFN (``moe.py``; the ``first_dense`` head layers keep the dense
-``d_ff`` one), and ``"mamba"`` blocks (no FFN), text inputs and the
-``train``, ``prefill`` and ``decode`` modes are ported.  The ``train``
-mode allocates no cache; global attention there is the differentiable
+``d_ff`` one), and ``"mamba"`` blocks (no FFN), every modality (the
+vlm's M-RoPE positions (B, 3, S) reach RoPE in every attention path)
+and the ``train``, ``prefill`` and ``decode`` modes are ported.  The
+``train`` mode allocates no cache; global attention there is the differentiable
 q-chunked ``layers.causal_attend_chunked`` (the flash kernel has no
 backward), and with ``cfg.remat`` (the default) each repeat of the
 layer pattern runs under ``torch.utils.checkpoint`` (non-reentrant), as
@@ -36,8 +37,8 @@ the reference wraps its scan step in ``jax.checkpoint``: only the
 repeat's input is kept, and its blocks run again in the backward pass.
 Head and tail layers are not rematerialised, as in the reference.  The
 MoE aux loss is summed over head, body and tail in every mode.
-Softcapping, M-RoPE and the vlm and audio modalities raise
-``NotImplementedError`` (ROADMAP.md queue 1, item 10).
+Softcapping raises ``NotImplementedError`` (ROADMAP.md queue 1, item
+10).
 """
 from __future__ import annotations
 
@@ -69,11 +70,10 @@ def check_supported(cfg: ArchConfig) -> None:
         if kind not in KINDS:
             raise NotImplementedError(f"{cfg.name}: {kind!r} blocks are "
                                       f"{_TODO}")
-    if cfg.modality != "text":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.modality!r} "
-                                  f"modality is {_TODO}")
-    if cfg.attn_logit_softcap or cfg.mrope_sections:
-        raise NotImplementedError(f"{cfg.name}: softcap and M-RoPE are "
+    if cfg.modality not in ("text", "vlm", "audio"):
+        raise ValueError(f"{cfg.name}: unknown modality {cfg.modality!r}")
+    if cfg.attn_logit_softcap:
+        raise NotImplementedError(f"{cfg.name}: softcapped attention is "
                                   f"{_TODO}")
 
 
@@ -151,8 +151,10 @@ def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
     if cfg.qk_norm:
         q = rmsnorm(q, ap.q_norm)
         k = rmsnorm(k, ap.k_norm)
-    q = apply_rope(q, positions, theta, cfg.rope_fraction)
-    k = apply_rope(k, positions, theta, cfg.rope_fraction)
+    q = apply_rope(q, positions, theta, cfg.rope_fraction,
+                   cfg.mrope_sections)
+    k = apply_rope(k, positions, theta, cfg.rope_fraction,
+                   cfg.mrope_sections)
     if mode == "train":
         out = (local_attend_chunked(q, k, v, cfg.window) if local else
                causal_attend_chunked(q, k, v))

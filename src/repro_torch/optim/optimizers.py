@@ -20,18 +20,25 @@ such a dict, sgd's and clip_by_global_norm's the empty tuple).  A step
 count is a Python int.
 
 Adafactor factors the trailing two axes of every leaf of two or more
-dims, so it is the one optimizer whose function depends on a leaf's
-layout.  ``adafactor(layout=...)`` takes, per parameter name, the pair
-of maps (to the reference's layout, back) under which it computes: the
-CNN's (``models.cnn.reference_layout``) carries its OIHW convs and
-(out, in) dense kernels to the reference's HWIO and (in, out), so the
-factored moments are the reference's, on its axes, and checkpoints hold
-them as it does.
+dims and clips each leaf's step by its RMS, so it is the one optimizer
+whose function depends on a leaf's layout.  ``adafactor(layout=...)``
+takes, per parameter name, the pair of maps (to the reference's layout,
+back) under which it computes: the CNN's (``models.cnn.reference_layout``)
+carries its OIHW convs and (out, in) dense kernels to the reference's
+HWIO and (in, out), so the factored moments are the reference's, on its
+axes, and checkpoints hold them as it does.  ``adafactor(groups=...)``
+steps leaves the reference stacks into one: the zoo's reference keeps
+each pattern position's repeats as one (n_body, ...) leaf, where the
+port keeps one leaf per layer (``models.model.stacked_groups``), so each
+group is stepped as the stack of its members, clipped by the RMS over
+the whole stack, a 1-D member factored jointly as (n_body, d), and its
+state has the reference's stacked shape, keyed by the group's name.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, Mapping, NamedTuple,
+                    Optional, Tuple)
 
 import numpy as np
 import torch
@@ -41,6 +48,8 @@ State = Any
 #: name -> (to the reference's layout, back to the port's)
 Layout = Dict[str, Tuple[Callable[[torch.Tensor], torch.Tensor],
                          Callable[[torch.Tensor], torch.Tensor]]]
+#: group name -> its members' parameter names, in stacking order
+Groups = Mapping[str, Tuple[str, ...]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +61,10 @@ class GradientTransformation:
     #: by global norm), so it can be applied one leaf at a time
     #: (``models.model.apply_optimizer``)
     per_leaf: bool = False
+    #: leaves stepped together, as one stacked leaf (adafactor's
+    #: ``groups``): ``apply_optimizer`` hands a group's members to
+    #: ``update`` at once, and the state holds the group under its name
+    groups: Groups = dataclasses.field(default_factory=dict)
 
 
 @torch.no_grad()
@@ -162,34 +175,68 @@ class AdafactorState(NamedTuple):
 
 
 def adafactor(lr: float, eps: float = 1e-30, clip_threshold: float = 1.0,
-              decay: float = 0.8,
-              layout: Optional[Layout] = None) -> GradientTransformation:
+              decay: float = 0.8, layout: Optional[Layout] = None,
+              groups: Optional[Groups] = None) -> GradientTransformation:
     """Factored second-moment estimator (Shazeer & Stern, 2018).
 
     The state of an (.., R, C) leaf is (.., R) + (.., C) floats; a leaf
     of under two dims keeps its full second moment.  ``layout``: per
     parameter name, (to_ref, from_ref) maps under which the leaf is
     factored (see the module docstring); other leaves are factored as
-    they are.
+    they are.  ``groups``: per group name, the names of the leaves
+    stepped as one stacked leaf (the module docstring); ``init`` and
+    ``update`` take all of a group's members or none of them.
     """
     layout = layout or {}
+    groups = {g: tuple(ms) for g, ms in (groups or {}).items()}
+    group_of = {m: g for g, ms in groups.items() for m in ms}
 
     def ref(name: str, t: torch.Tensor) -> torch.Tensor:
         return layout[name][0](t) if name in layout else t
 
+    def units(tensors: Tensors) -> Iterator[Tuple[str, Tuple[str, ...]]]:
+        """(state key, member names) of each leaf or group in
+        ``tensors``: a leaf alone, or a whole group at its first
+        member."""
+        for n in tensors:
+            g = group_of.get(n)
+            if g is None:
+                yield n, (n,)
+            elif n == groups[g][0]:
+                missing = [m for m in groups[g] if m not in tensors]
+                if missing:
+                    raise ValueError(f"adafactor group {g!r} misses "
+                                     f"{missing}")
+                yield g, groups[g]
+            elif groups[g][0] not in tensors:
+                raise ValueError(f"adafactor group {g!r} misses "
+                                 f"{groups[g][0]!r}")
+
+    def stacked(key: str, members: Tuple[str, ...],
+                tensors: Tensors) -> torch.Tensor:
+        """The leaf, or the group's members stacked on a new axis 0."""
+        ts = [ref(m, tensors[m]) for m in members]
+        if key not in groups:
+            return ts[0]
+        return ts[0][None] if len(ts) == 1 else torch.stack(ts)
+
     def init(params: Tensors) -> AdafactorState:
         vr, vc = {}, {}
-        for n, p in params.items():
-            shape = tuple(ref(n, p).shape)
+        for key, members in units(params):
+            p = params[members[0]]
+            shape = tuple(ref(members[0], p).shape)
+            if key in groups:
+                shape = (len(members),) + shape
             if len(shape) >= 2:
-                vr[n] = torch.zeros(shape[:-1], dtype=torch.float32,
-                                    device=p.device)
-                vc[n] = torch.zeros(shape[:-2] + shape[-1:],
-                                    dtype=torch.float32, device=p.device)
+                vr[key] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=p.device)
+                vc[key] = torch.zeros(shape[:-2] + shape[-1:],
+                                      dtype=torch.float32, device=p.device)
             else:
-                vr[n] = torch.zeros(shape, dtype=torch.float32,
-                                    device=p.device)
-                vc[n] = torch.zeros((), dtype=torch.float32, device=p.device)
+                vr[key] = torch.zeros(shape, dtype=torch.float32,
+                                      device=p.device)
+                vc[key] = torch.zeros((), dtype=torch.float32,
+                                      device=p.device)
         return AdafactorState(count=0, vr=vr, vc=vc)
 
     @torch.no_grad()
@@ -199,10 +246,10 @@ def adafactor(lr: float, eps: float = 1e-30, clip_threshold: float = 1.0,
         # 1 - count^-decay in float32, as the reference computes it
         beta = float(_f32(1.0) - _f32(count) ** _f32(-decay))
         updates, new_vr, new_vc = {}, {}, {}
-        for n, g in grads.items():
-            g = ref(n, g).float()
+        for key, members in units(grads):
+            g = stacked(key, members, grads).float()
             g2 = g * g + eps
-            vr, vc = state.vr[n], state.vc[n]
+            vr, vc = state.vr[key], state.vc[key]
             if g.ndim >= 2:
                 vr = beta * vr + (1 - beta) * torch.mean(g2, dim=-1)
                 vc = beta * vc + (1 - beta) * torch.mean(g2, dim=-2)
@@ -213,15 +260,19 @@ def adafactor(lr: float, eps: float = 1e-30, clip_threshold: float = 1.0,
             else:
                 vr = beta * vr + (1 - beta) * g2
                 step = g / torch.sqrt(vr + eps)
-            # update clipping (RMS <= clip_threshold)
+            del g, g2
+            # update clipping (RMS <= clip_threshold), over the whole
+            # stack of a group
             rms = torch.sqrt(torch.mean(step * step) + eps)
             step = step / torch.clamp(rms / clip_threshold, min=1.0)
             step = -lr * step
-            updates[n] = layout[n][1](step) if n in layout else step
-            new_vr[n], new_vc[n] = vr, vc
+            for i, m in enumerate(members):
+                s = step[i] if key in groups else step
+                updates[m] = layout[m][1](s) if m in layout else s
+            new_vr[key], new_vc[key] = vr, vc
         return updates, AdafactorState(count=count, vr=new_vr, vc=new_vc)
 
-    return GradientTransformation(init, update, per_leaf=True)
+    return GradientTransformation(init, update, per_leaf=True, groups=groups)
 
 
 # ------------------------------------------------------------ combinators

@@ -14,9 +14,11 @@ multiply-add against the plain version's multiply, then add), the
 reference's scan tolerance, and so the RG-LRU mixer through it against
 the same mixer on the CPU; the scan's gradient (the same kernel run
 backwards in time) at atol/rtol 1e-5 against autograd through the plain
-loop on the card; whole FEEL train steps of the llama and mamba smoke
-decoders in fp32 against the same steps on the CPU by the replay rule
-(``repro_torch/launch/replay.py``).
+loop on the card; whole FEEL train steps of the llama, mamba, qwen2-vl
+and musicgen smoke decoders in fp32 against the same steps on the CPU
+by the replay rule (``repro_torch/launch/replay.py``); the vlm and
+audio smoke decoders' prefill and decode in fp32 against the CPU at the
+replays' rtol 1e-4.
 """
 import ctypes
 
@@ -223,6 +225,81 @@ def test_cuda_flash_at_the_stablelm_and_mla_serving_shapes(cuda, shape):
         q, k, v, scale=shape[0][3] ** -0.5)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [((4, 2048, 12, 128), (4, 2048, 2, 128)),
+                                   ((4, 2048, 24, 64), (4, 2048, 24, 64))])
+def test_cuda_flash_at_the_qwen2vl_and_musicgen_serving_shapes(cuda, shape):
+    """bf16 at the vlm and audio requests' prefill shapes: qwen2-vl-2b's
+    12:2 GQA (a group of 6) at d = 128, and musicgen-medium's 24:24 MHA
+    at d = 64, the kernel's d <= 64 instance."""
+    q = _normal(0, shape[0], cuda).bfloat16()
+    k, v = (_normal(i, shape[1], cuda).bfloat16() for i in (1, 2))
+    flash_attention.reset_launch_counts()
+    got = ops.flash_attention_bhsd(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash_attention": 1}
+    want = flash_attention.flash_attention_bhsd_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-medium"])
+def test_cuda_modality_smoke_decoders_match_the_cpu(cuda, arch):
+    """The vlm (M-RoPE positions whose three rows differ) and audio (a
+    grid of codebook tokens) smoke decoders in fp32 with TF32 off on the
+    card, prefill through the fp32 flash kernel, against the same
+    weights on the CPU: prefill logits and 4 decode steps at rtol 1e-4
+    with an atol of 1e-4 of the largest (the replays' tolerance,
+    chip_smoke.py), and the greedy tokens equal."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.device import full_fp32
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as tm
+    cfg = smoke_config(arch).scaled(dtype="float32")
+    model = tm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    S = 40
+    if arch == "qwen2-vl-2b":  # 4 text tokens, a (2, 3, 4) grid, text
+        grid = torch.stack(torch.meshgrid(
+            torch.arange(2), torch.arange(3), torch.arange(4),
+            indexing="ij")).reshape(3, -1)
+        pos = torch.cat([torch.arange(4).expand(3, -1), 4 + grid,
+                         (8 + torch.arange(S - 28)).expand(3, -1)], dim=1)
+        prompt = {"embeds": torch.randn(2, S, cfg.d_model, generator=gen),
+                  "positions": pos[None].expand(2, 3, S)}
+        nxt = 8 + S - 28
+    else:
+        prompt = {"tokens": torch.randint(0, cfg.vocab,
+                                          (2, cfg.n_codebooks, S),
+                                          generator=gen)}
+        nxt = S
+    out = {}
+    for dev in ("cpu", cuda):
+        model.to(dev)
+        flash_attention.reset_launch_counts()
+        with full_fp32():
+            cache = tm.make_cache(cfg, 2, S + 4, device=dev)
+            logits, cache = tm.make_prefill_step(cfg)(
+                model, {k: v.to(dev) for k, v in prompt.items()}, cache)
+            steps, toks = [logits.cpu()], []
+            decode = tm.make_decode_step(cfg)
+            for i in range(4):
+                tok = torch.argmax(logits[:, -1], -1)
+                toks.append(tok.cpu())
+                logits, cache = decode(model, cache, serve_mod.decode_batch(
+                    cfg, tok, S + i, nxt + i))
+                steps.append(logits.cpu())
+        out[str(dev)] = (steps, toks, dict(flash_attention.LAUNCHES))
+    assert out["cpu"][2] == {"flash_attention": 0}
+    assert out["cuda"][2] == {"flash_attention": cfg.n_layers}
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -567,7 +644,8 @@ def test_cuda_scan_gradient_matches_plain(cuda, shape, gates):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "falcon-mamba-7b",
+                                  "qwen2-vl-2b", "musicgen-medium"])
 def test_cuda_feel_train_steps_match_the_cpu(cuda, arch):
     """3 FEEL train steps of the smoke decoder in fp32 on the card, each
     replayed on the CPU from the card's params, AdamW state and batch

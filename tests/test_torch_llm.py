@@ -105,8 +105,10 @@ def test_decode_attend_matches_reference(index):
 
 
 def test_unported_attention_paths_raise():
-    """Softcapping, M-RoPE and the vlm modality are not ported; the
-    flash path takes no window (local layers have their own path)."""
+    """Softcapping is not ported: each of the three attention paths
+    raises on it, and so does a config that sets it, text or vlm (M-RoPE
+    and the vlm modality are ported); the flash path takes no window
+    (local layers have their own path)."""
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(NotImplementedError, match="local_attend_chunked"):
         tl.causal_attend(q, q, q, window=2)
@@ -117,11 +119,13 @@ def test_unported_attention_paths_raise():
         with pytest.raises(NotImplementedError, match="softcap"):
             call()
     cfg = smoke_config(ARCH)
-    for bad in (cfg.scaled(modality="vlm", mrope_sections=(6, 5, 5)),
-                cfg.scaled(mrope_sections=(6, 5, 5)),
-                cfg.scaled(attn_logit_softcap=50.0)):
-        with pytest.raises(NotImplementedError):
+    for bad in (cfg.scaled(attn_logit_softcap=50.0),
+                smoke_config("qwen2-vl-2b").scaled(attn_logit_softcap=30.0)):
+        with pytest.raises(NotImplementedError, match="softcap"):
+            tt.check_supported(bad)
+        with pytest.raises(NotImplementedError, match="softcap"):
             tt.init_decoder(bad, torch.Generator().manual_seed(0))
+    tt.check_supported(smoke_config("qwen2-vl-2b"))
 
 
 # ------------------------------------------------------------ configs

@@ -53,9 +53,13 @@ def test_main_runs_on_cpu_when_asked(capsys):
 
 
 def test_main_raises_without_a_gpu_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.configs import smoke_config
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve_mod.main(["--batch", "1", "--prompt-len", "4",
                         "--new-tokens", "1"])
     with pytest.raises(ValueError, match="not yet ported"):
-        serve_mod.serve("qwen2-vl-2b", device="cpu")
+        serve_mod.serve("no-such-arch", device="cpu")
+    with pytest.raises(NotImplementedError, match="softcap"):
+        serve_mod.serve(smoke_config("qwen2-vl-2b").scaled(
+            attn_logit_softcap=50.0), device="cpu")

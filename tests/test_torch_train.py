@@ -65,7 +65,12 @@ from repro_torch.optim import AdafactorState, AdamState  # noqa: E402
 torch.set_num_threads(2)
 
 ARCHS = ["llama3.2-3b", "gemma3-12b", "falcon-mamba-7b",
-         "recurrentgemma-9b", "deepseek-v2-236b"]
+         "recurrentgemma-9b", "deepseek-v2-236b", "qwen2-vl-2b",
+         "musicgen-medium"]
+#: smoke configs cut otherwise, by a name of their own: deepseek-v2's
+#: cut to 3 layers (a dense head layer and two body repeats, so
+#: adafactor steps a stacked body of two)
+CUTS = {"deepseek-v2-236b@3": ("deepseek-v2-236b", {"n_layers": 3})}
 K = 4
 B, S = 8, 24
 ALPHA = np.array([1.0, 0.0, 1.0, 1.0], np.float32)
@@ -86,32 +91,66 @@ def _np(t):
 
 @functools.lru_cache(maxsize=None)
 def _reference(arch, dtype="float32"):
-    cfg_j = j_smoke_config(arch).scaled(dtype=dtype)
+    base, cut = CUTS.get(arch, (arch, {}))
+    cfg_j = j_smoke_config(base).scaled(dtype=dtype, **cut)
     tree = j_init_model(jax.random.PRNGKey(0), cfg_j)
     return cfg_j, tree
+
+
+def _config(arch, dtype="float32", **cut):
+    base, own = CUTS.get(arch, (arch, {}))
+    return smoke_config(base).scaled(dtype=dtype, **own, **cut)
 
 
 def _port(arch, dtype="float32", tree=None, **cut):
     """The port's model on the CPU with the reference's weights (``tree``,
     or the reference's initial ones), gradients on."""
-    cfg = smoke_config(arch).scaled(dtype=dtype, **cut)
+    cfg = _config(arch, dtype, **cut)
     tree = _reference(arch, dtype)[1] if tree is None else tree
     return cfg, tm.trainable(tm.params_from_numpy(
         cfg, jax.tree.map(np.asarray, tree), "cpu"))
 
 
-def _batch(vocab, seed=0, alpha=ALPHA):
-    """numpy tokens and labels (B, S), some labels -1; alpha (K,)."""
+def _batch(cfg, seed=0, alpha=ALPHA):
+    """A numpy batch of ``cfg``'s modality handed to both sides: text
+    tokens and labels (B, S); vlm embeds (B, S, d), (B, 3, S) positions
+    whose three rows differ (a (2, 2, 3) image grid between two runs of
+    text) and labels; audio tokens and labels (B, C, S), the -1s in one
+    codebook.  Some labels -1; alpha (K,)."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, vocab, (B, S + 1))
-    labels = toks[:, 1:].copy()
-    labels[0, :5] = -1
-    labels[3, -2:] = -1
-    b = {"tokens": toks[:, :-1].astype(np.int32),
-         "labels": labels.astype(np.int32), "alpha": alpha}
-    return ({k: jnp.asarray(v) for k, v in b.items()},
-            {k: torch.from_numpy(v).long() if k != "alpha"
-             else torch.from_numpy(v.copy()) for k, v in b.items()})
+    if cfg.modality == "audio":
+        toks = rng.integers(0, cfg.vocab, (B, cfg.n_codebooks, S + 1))
+        labels = toks[..., 1:].copy()
+        labels[0, 0, :5] = -1
+        labels[3, -1, -2:] = -1
+        b = {"tokens": toks[..., :-1], "labels": labels}
+    else:
+        toks = rng.integers(0, cfg.vocab, (B, S + 1))
+        labels = toks[:, 1:].copy()
+        labels[0, :5] = -1
+        labels[3, -2:] = -1
+        b = {"tokens": toks[:, :-1], "labels": labels}
+    if cfg.modality == "vlm":
+        grid = np.stack(np.meshgrid(np.arange(2), np.arange(2), np.arange(3),
+                                    indexing="ij")).reshape(3, -1)
+        n_img = grid.shape[1]
+        pos = np.concatenate([np.tile(np.arange(4), (3, 1)), 4 + grid,
+                              np.tile(7 + np.arange(S - 4 - n_img), (3, 1))],
+                             axis=1)
+        b = {"embeds": rng.standard_normal((B, S, cfg.d_model)),
+             "positions": np.broadcast_to(pos, (B, 3, S)),
+             "labels": labels}
+    b = {k: np.ascontiguousarray(v, np.float32 if k == "embeds"
+                                 else np.int32) for k, v in b.items()}
+    bj = {k: jnp.asarray(v) for k, v in b.items()}
+    bj["alpha"] = jnp.asarray(alpha)
+    dtype = getattr(torch, cfg.dtype)
+    bt = {k: torch.from_numpy(v).long() if k != "embeds"
+          else torch.from_numpy(v).to(dtype) for k, v in b.items()}
+    bt["alpha"] = torch.from_numpy(alpha.copy())
+    if "embeds" in bj:
+        bj["embeds"] = bj["embeds"].astype(jnp.dtype(cfg.dtype))
+    return bj, bt
 
 
 def _leaves(cfg, tree):
@@ -285,7 +324,7 @@ def test_sigma_from_head_forms_p_minus_y_without_a_one_hot(monkeypatch):
 def test_train_forward_matches_reference(arch, dtype):
     cfg_j, tree = _reference(arch, dtype)
     cfg, model = _port(arch, dtype)
-    bj, bt = _batch(cfg.vocab)
+    bj, bt = _batch(cfg)
     logits_j, hidden_j, aux_j = _ref_forward(arch, dtype)(tree, bj)
     logits, hidden, aux = tm.make_forward(cfg)(model, bt)
     assert logits.dtype == torch.float32 and hidden.dtype == cfg.act_dtype
@@ -308,7 +347,7 @@ def test_gradients_match_reference(arch, feel):
     with the selection by the replay rule."""
     cfg_j, tree = _reference(arch)
     cfg, model = _port(arch)
-    bj, bt = _batch(cfg.vocab, seed=1)
+    bj, bt = _batch(cfg, seed=1)
     grads_j, metrics_j = _ref_grads(arch, tree, bj, feel)
     loss_fn = tm.make_loss_fn(cfg, tm.FeelIntegration(n_clients=K)
                               if feel else None)
@@ -329,7 +368,7 @@ def test_gradients_match_reference(arch, feel):
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "recurrentgemma-9b",
                                   "deepseek-v2-236b"])
 def test_remat_on_and_off_give_equal_gradients(arch):
-    bt = _batch(smoke_config(arch).vocab, seed=2)[1]
+    bt = _batch(_config(arch), seed=2)[1]
     out = []
     for remat in (True, False):
         cfg, model = _port(arch, remat=remat)
@@ -354,7 +393,7 @@ def _ref_train(arch, steps):
     state = opt.init(tree)
     states = []
     for t in range(steps):
-        bj, _ = _batch(cfg_j.vocab, seed=10 + t,
+        bj, _ = _batch(cfg_j, seed=10 + t,
                        alpha=np.array([1.0, 1.0, 0.0, 1.0], np.float32))
         grads, _ = _ref_grads(arch, tree, bj)
         states.append((tree, state, grads, bj))
@@ -362,33 +401,26 @@ def _ref_train(arch, steps):
     return states, tree
 
 
-def _port_state(cfg, kind, state_j, params):
-    """The reference's optimizer state as the port's, by parameter name
-    (body leaves unstacked).  Adafactor: a 1-D leaf of a one-repeat body
-    is a (1, d) matrix in the reference, factored into (1,) rows and
-    (d,) columns, whose estimate v = vr vc / mean(vr) is its column
-    moment; the port keeps that leaf's full moment."""
+def _port_state(cfg, kind, state_j, opt):
+    """The reference's optimizer state as the port's: Adam's moments by
+    parameter name (body leaves unstacked); adafactor's as they are,
+    each stacked body leaf under its group's name (``stacked_groups``)
+    and each head and tail leaf under its parameter name."""
     count = int(state_j.count)
     if kind in ("adam", "adamw"):
         return AdamState(count=count, mu=_flat(cfg, state_j.mu),
                          nu=_flat(cfg, state_j.nu))
-    vr, vc = {}, {}
-    rows, cols = _leaves(cfg, state_j.vr), _leaves(cfg, state_j.vc)
-    for name, p in params.items():
-        (r_leaf, r), (c_leaf, _) = rows[name], cols[name]
-        r_leaf, c_leaf = np.asarray(r_leaf), np.asarray(c_leaf)
-        if r is None:
-            vr[name], vc[name] = r_leaf, c_leaf
-        elif p.dim() >= 2:
-            vr[name], vc[name] = r_leaf[r], c_leaf[r]
-        else:
-            assert r_leaf.shape == (1,), "one repeat of the body"
-            vr[name], vc[name] = c_leaf, np.zeros((), np.float32)
-    def as_t(d):
-        return {n: torch.from_numpy(np.array(a, np.float32))
-                for n, a in d.items()}
 
-    return AdafactorState(count=count, vr=as_t(vr), vc=as_t(vc))
+    def by_name(tree):
+        out = {}
+        for name, (leaf, r) in _leaves(cfg, tree).items():
+            key = next((g for g, ms in opt.groups.items() if name in ms),
+                       None) if r is not None else name
+            out[key] = torch.from_numpy(np.array(leaf, np.float32))
+        return out
+
+    return AdafactorState(count=count, vr=by_name(state_j.vr),
+                          vc=by_name(state_j.vc))
 
 
 @pytest.mark.parametrize("steps", [1, 3])
@@ -398,19 +430,30 @@ def test_train_steps_match_reference(arch, steps):
     """``steps`` train steps with FEEL and the config's optimizer (adamw
     for llama and mamba, adafactor for deepseek), each started from the
     reference's params and state before it, held by the replay rule."""
+    _check_train_steps(arch, steps)
+
+
+def test_train_steps_of_a_stacked_adafactor_body_match_reference():
+    """2 train steps of deepseek-v2's smoke decoder cut to 3 layers, two
+    body repeats, whose adafactor state is stacked as the reference's,
+    held by the replay rule."""
+    _check_train_steps("deepseek-v2-236b@3", 2)
+
+
+def _check_train_steps(arch, steps):
     states, final = _ref_train(arch, 3)
     cfg_j, _ = _reference(arch)
     kind = cfg_j.optimizer
     assert kind == ("adafactor" if arch.startswith("deepseek") else "adamw")
-    opt = make_optimizer(smoke_config(arch))
+    opt = make_optimizer(_config(arch))
     for t in range(steps):
         tree, state_j, grads_j, bj = states[t]
         after = states[t + 1][0] if t + 1 < len(states) else final
         cfg, model = _port(arch, tree=tree)
         params = dict(model.named_parameters())
         before = {n: p.detach().clone() for n, p in params.items()}
-        state = _port_state(cfg, kind, state_j, params)
-        _, bt = _batch(cfg.vocab, seed=10 + t,
+        state = _port_state(cfg, kind, state_j, opt)
+        _, bt = _batch(cfg, seed=10 + t,
                        alpha=np.array([1.0, 1.0, 0.0, 1.0], np.float32))
         sigma_j, delta_j = _ref_selection(arch, tree, bj)
         step = tm.make_train_step(cfg, opt, tm.FeelIntegration(n_clients=K))
@@ -476,7 +519,7 @@ def test_feel_selection_and_weights_match_reference(alpha):
     arch = "falcon-mamba-7b"
     cfg_j, tree = _reference(arch)
     cfg, model = _port(arch)
-    bj, bt = _batch(cfg.vocab, seed=6, alpha=np.array(alpha, np.float32))
+    bj, bt = _batch(cfg, seed=6, alpha=np.array(alpha, np.float32))
     sigma_j, delta_j = _ref_selection(arch, tree, bj)
     _, metrics_j = _ref_grads(arch, tree, bj)
     with torch.no_grad():
@@ -516,14 +559,14 @@ def test_train_step_marks_its_stages_in_order():
         step = tm.make_train_step(cfg, opt, tm.FeelIntegration(n_clients=K)
                                   if feel else None)
         seen = []
-        step(model, state, _batch(cfg.vocab)[1], mark=seen.append)
+        step(model, state, _batch(cfg)[1], mark=seen.append)
         assert seen == want
 
 
 def test_train_step_needs_gradients_on_and_a_per_leaf_optimizer():
     cfg = smoke_config("llama3.2-3b")
     model = tm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
-    _, bt = _batch(cfg.vocab)
+    _, bt = _batch(cfg)
     with pytest.raises(ValueError, match="trainable"):
         tm.grads_of(tm.make_loss_fn(cfg), model, bt)
     clip = make_optimizer(cfg)
@@ -535,12 +578,14 @@ def test_train_step_needs_gradients_on_and_a_per_leaf_optimizer():
 
 
 def test_apply_optimizer_equals_the_whole_dict_update():
-    """Leaf by leaf in place, the values of ``opt.update`` on the whole
-    dict and ``apply_updates``, for adamw and adafactor over 2 steps."""
+    """Leaf by leaf (group by group) in place, the values of
+    ``opt.update`` on the whole dict and ``apply_updates``, for adamw,
+    adafactor and adafactor with a group of two leaves over 2 steps."""
     from repro_torch import optim
     rng = np.random.default_rng(8)
-    shapes = {"a": (5, 7), "b": (7,), "c": (3, 4, 6)}
-    for opt in (optim.adamw(1e-2, weight_decay=0.01), optim.adafactor(1e-2)):
+    shapes = {"a": (5, 7), "b": (7,), "c": (3, 4, 6), "d": (7,)}
+    for opt in (optim.adamw(1e-2, weight_decay=0.01), optim.adafactor(1e-2),
+                optim.adafactor(1e-2, groups={"bd": ("b", "d")})):
         p1 = {n: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
               for n, s in shapes.items()}
         p2 = {n: t.clone() for n, t in p1.items()}
