@@ -41,7 +41,7 @@ exit) if anything in it fails; no failure is caught:
    128256), beside ``vector_norm`` of both operands, and the scan at
    mamba's and recurrentgemma's train steps, (8, 512, 131072) and (8,
    512, 4096), with its gradient through the kernel
-   (``ops.lru_scan_autograd``) held against autograd through the plain
+   (``ops.lru_scan``) held against autograd through the plain
    loop on the card and its backward call timed against the bytes
    bound; ``gradnorm_sigma`` also at qwen2-vl-2b's and musicgen-medium's
    train steps, (8192, 1536) + (8192, 151936) and (8192, 1536) +
@@ -94,8 +94,9 @@ exit) if anything in it fails; no failure is caught:
    the span tree whole, each child inside its parent's time; the stages
    between 0.5x (the round's profiling calls aside) and 1.01x the round
    wall; ``gradnorm_sigma`` once a round plus once per profiling call;
-   the ``sigma_all`` profile's FLOPs are the flop counter's plus the
-   kernel's own count (``gradnorm.cost``); round 0 decides as phase 4's
+   the ``sigma_all`` profile's FLOPs are the flop counter's, which
+   counts the kernel's custom op by its own count (``gradnorm.cost``,
+   checked); round 0 decides as phase 4's
    untraced round 0 under phase 5's replay rule; the trace file
    round-trips through ``load_trace`` and ``summarize``.  Prints the
    per-stage medians, the top span self-times, each profile's FLOPs,
@@ -244,7 +245,27 @@ exit) if anything in it fails; no failure is caught:
    width cut to 2 layers, fp32, after 3 warm-up steps; and 2 adafactor
    steps of deepseek-v2's smoke decoder cut to 3 layers (a dense head
    layer and two body repeats: adafactor steps each stacked body group
-   at once, as the reference's on its stacked tree).
+   at once, as the reference's on its stacked tree);
+33. llama3.2-3b at full width and depth on a 1x1 ``DeviceMesh``
+   (``launch.mesh.make_host_mesh``: a one-rank nccl group): the params
+   DTensors placed by the reference's sharding rules
+   (``launch.sharding.param_shardings``), each step under the
+   activation constrainer; phase 7's serve request (tokens equal to
+   phase 7's, prefill logits held at LOGITS_RTOL and checked
+   bit-identical or not; 28 flash launches a prefill through
+   ``local_map``) and 3 of phase 25's FEEL train steps, held against 3
+   plain steps of the same seeds, both under deterministic algorithms
+   (losses at the replay rule's rtol, params at its 1e-6 + 1e-5 |w|,
+   each checked bit-identical or not; one sigma launch a step through
+   ``local_map``); the prefill s, decode ms/step, step ms and peak GiB
+   printed beside phases 7 and 25;
+34. the multi-pod dry run on the host's CPU (``launch.dryrun.run_one``,
+   a fake process group of 256 or 512 ranks, fake tensors):
+   llama3.2-3b x train_4k on 16x16 and deepseek-v3-671b x decode_32k on
+   2x16x16, each record and its wall time printed; each must be ``ok``
+   with the reference's parameter counts, and its ``argument_bytes``
+   must equal the sharding rules' arithmetic on a ``MeshShape``.  The
+   records are estimates at H100 datasheet rates, not measurements.
 
 Every replay (8, 10, 17, 22, 30) draws its weights on the card from a
 seed, runs there, moves them to the host and runs again.  Launch counts
@@ -272,7 +293,10 @@ shapes); the vlm and audio paths with their own runs' launches:
 ``flash_attention@serve-qwen2-vl-2b`` (phase 28),
 ``flash_attention@serve-musicgen-medium`` (29),
 ``gradnorm_sigma@train-qwen2-vl-2b`` and
-``gradnorm_sigma@train-musicgen-medium`` (31), each at its own shape),
+``gradnorm_sigma@train-musicgen-medium`` (31), each at its own shape;
+the host mesh's ``flash_attention@hostmesh-llama3.2-3b`` and
+``gradnorm_sigma@hostmesh-train-llama3.2-3b`` (33), each with phase
+33's own launches),
 and, last, the ``{"ok": true,
 "device": ...}`` line.  Without a GPU, or without the repository's
 ``src/repro_torch`` beside it, it exits non-zero before printing
@@ -398,6 +422,14 @@ SIGMA_TRAIN_QWEN = (TRAIN_BATCH * TRAIN_SEQ, 1536, 151936)
 SIGMA_TRAIN_MUSICGEN = (TRAIN_BATCH * TRAIN_SEQ, 1536, 4 * 2048)
 REPLAY_GRID, REPLAY_GRID_AT = (2, 8, 8), 16
 ADAFACTOR_REPLAY_LAYERS = 3
+# phase 33: train steps on the host mesh; phase 34: the dry runs, (arch,
+# shape, multi-pod) with the reference's parameter counts (params_total,
+# params_active)
+MESH_TRAIN_STEPS = 3
+DRY_RUNS = (("llama3.2-3b", "train_4k", False, 3_606_752_256,
+             3_606_752_256),
+            ("deepseek-v3-671b", "decode_32k", True, 671_026_404_352,
+             37_552_282_624))
 
 
 def die(msg: str) -> None:
@@ -1288,7 +1320,6 @@ def phase_traced(rt, torch, data, init_sd, kernels, gradnorm, gpu0,
 
     for m in kernels:
         m.reset_launch_counts()
-    work0 = dict(gradnorm.WORK)
     per_round, syncs, metrics = [], [], []
     for tr, i in runs:
         if tr is proposed and i % 2:
@@ -1320,8 +1351,6 @@ def phase_traced(rt, torch, data, init_sd, kernels, gradnorm, gpu0,
                        "flash_attention": 0, "lru_scan": 0},
           f"launches on the traced and untraced rounds {launches}")
     kernel_flops, kernel_bytes = gradnorm.cost(K * D_HAT, 84, 10)
-    check(gradnorm.WORK["flops"] - work0["flops"]
-          == (sum(per_round) + ROUNDS) * kernel_flops, "gradnorm.WORK flops")
     rounds = [e for e in events if isinstance(e, obs.RoundEvent)]
     check([r.round for r in rounds] == [i for _, i in runs],
           f"round events {[r.round for r in rounds]}")
@@ -1356,8 +1385,9 @@ def phase_traced(rt, torch, data, init_sd, kernels, gradnorm, gpu0,
     sig_prof = [p for p in profiles if p.name == "sigma_all"]
     check(len(sig_prof) == 2, f"{len(sig_prof)} sigma_all profiles, "
           "expected one per trainer")
-    # the profile's FLOPs: the forward's convolutions and matmuls as the
-    # flop counter sees them, plus the kernel's own count
+    # the profile's FLOPs: the forward's convolutions and matmuls and the
+    # kernel, a custom op the flop counter counts by its own formula
+    # (``gradnorm.cost``)
     from torch.utils.flop_counter import FlopCounterMode
     gen = torch.Generator(device="cuda").manual_seed(3)
     images = torch.rand((K, D_HAT, SIDE, SIDE), generator=gen,
@@ -1366,10 +1396,16 @@ def phase_traced(rt, torch, data, init_sd, kernels, gradnorm, gpu0,
     with FlopCounterMode(display=False) as fc:
         rt.fed.client.batched_sigma(proposed.model, images, labels)
     visible = fc.get_total_flops()
+    with FlopCounterMode(display=False) as fc:
+        gradnorm.gradnorm_sigma(images.new_zeros(K * D_HAT, 84),
+                                images.new_zeros(K * D_HAT, 10))
+    check(fc.get_total_flops() == kernel_flops,
+          f"the kernel's op counts {fc.get_total_flops()} FLOPs, its own "
+          f"count is {kernel_flops}")
     for p in sig_prof:
-        check(p.flops > 0 and p.flops == visible + kernel_flops,
+        check(p.flops > kernel_flops and p.flops == visible,
               f"sigma_all profile: {p.flops} FLOPs, expected {visible} "
-              f"+ the kernel's {kernel_flops}")
+              f"(with the kernel's {kernel_flops})")
     records = obs.load_trace(path)
     check(records[0]["ev"] == "header"
           and records[1:] == [e.to_record() for e in events],
@@ -1913,7 +1949,7 @@ def phase_train_kernels(torch, gradnorm, lru, ops, device="cuda"):
     ``torch.linalg.vector_norm`` of both operands and each operand's
     ``einsum("nd,nd->n")`` (``rownorm2``'s function in one call); the
     scan at the train shapes (``SCAN_TRAIN``) timed, and its gradient
-    through the kernel (``ops.lru_scan_autograd``) against autograd
+    through the kernel (``ops.lru_scan``) against autograd
     through the plain loop on the card, with the backward call
     (``lru_scan_backward``: one reversed-scan launch, flips and dL/da)
     timed against the bytes bound of a and gbar read and g written once
@@ -1967,7 +2003,7 @@ def phase_train_kernels(torch, gradnorm, lru, ops, device="cuda"):
         b = torch.randn(shape, generator=gen, device=device)
         w = torch.randn(shape, generator=gen, device=device)
         a1, b1 = a.clone().requires_grad_(), b.clone().requires_grad_()
-        h = ops.lru_scan_autograd(a1, b1)
+        h = ops.lru_scan(a1, b1)
         got = torch.autograd.grad((h * w).sum(), (a1, b1))
         del a1, b1, h
         a2, b2 = a.clone().requires_grad_(), b.clone().requires_grad_()
@@ -2192,6 +2228,190 @@ def phase_train_replay(torch, train_mod, replay, tm, full_fp32, get_config,
     return launches
 
 
+def phase_host_mesh(torch, serve_mod, train_mod, replay, kernels, mesh_mod,
+                    get_config, served7, peak7, train25):
+    """Phase 33: llama3.2-3b at full width and depth on a 1x1
+    ``DeviceMesh``, the params DTensors placed by the reference's rules,
+    each step under the activation constrainer: phase 7's request
+    (``served7``, its peak ``peak7``) and 3 of phase 25's train steps
+    (``train25``: its step times, losses and peak), the latter held
+    against 3 plain steps of the same seeds.  Every launch count is
+    zeroed just before each mesh run and read just after; returns the
+    serve's and the train run's launches."""
+    mesh = mesh_mod.make_host_mesh(1, 1)
+    print(f"host mesh: {mesh}")
+    expected = {"prefill": {"flash_attention": 28, "lru_scan": 0},
+                "decode": {"flash_attention": 0, "lru_scan": 0}}
+    kw = dict(batch=SERVE_BATCH, prompt_len=PROMPT, smoke=False, seed=0,
+              device="cuda", mesh=mesh)
+    warm = serve_mod.serve(ARCH, new_tokens=2, **kw)
+    print(f"serve {ARCH} on the host mesh, warm-up: prefill "
+          f"{warm.prefill_s:.6f} s")
+    del warm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for m in kernels:
+        m.reset_launch_counts()
+    res = serve_mod.serve(ARCH, new_tokens=NEW_TOKENS, **kw)
+    serve_launches = kernel_launches(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    check(res.launches == expected, f"host mesh serve: launches per phase "
+          f"{res.launches}, expected {expected}")
+    got, want = res.prefill_logits, served7.prefill_logits
+    err = float((got - want).abs().max())
+    atol = LOGITS_RTOL * float(want.abs().max())
+    differ = [(b, int((res.tokens[b] != served7.tokens[b]).nonzero()[0]))
+              for b in range(res.tokens.shape[0])
+              if not torch.equal(res.tokens[b], served7.tokens[b])]
+    check(not differ, f"host mesh serve: tokens differ from phase 7's at "
+          f"(sequence, first step) {differ}; prefill logits max abs err "
+          f"{err:.3g}, bit-identical {torch.equal(got, want)}")
+    check(bool(torch.allclose(got, want, rtol=LOGITS_RTOL, atol=atol)),
+          f"host mesh serve: prefill logits differ by {err:.3g} (rtol "
+          f"{LOGITS_RTOL}, atol {atol:.3g})")
+
+    def median_ms(ts):
+        ts = sorted(ts)
+        return 1e3 * ts[len(ts) // 2]
+
+    print(f"serve {ARCH} on the host mesh: tokens equal to phase 7's; "
+          f"prefill logits max abs err {err:.3g} (rtol {LOGITS_RTOL}, atol "
+          f"{atol:.3g}), bit-identical {torch.equal(got, want)} | prefill "
+          f"{res.prefill_s:.6f} s (phase 7: {served7.prefill_s:.6f}) | "
+          f"decode ms/step median {median_ms(res.decode_s):.3f} mean "
+          f"{1e3 * sum(res.decode_s) / len(res.decode_s):.3f} (phase 7: "
+          f"{median_ms(served7.decode_s):.3f}, "
+          f"{1e3 * sum(served7.decode_s) / len(served7.decode_s):.3f}) | "
+          f"peak {peak / 2**30:.3f} GiB (phase 7: {peak7 / 2**30:.3f}) | "
+          f"launches {serve_launches} per phase {res.launches}")
+    del res
+    torch.cuda.empty_cache()
+
+    llama = get_config(ARCH)
+    run = partial(train_mod.run, llama, steps=MESH_TRAIN_STEPS,
+                  batch=TRAIN_BATCH, seq=TRAIN_SEQ, n_clients=TRAIN_CLIENTS,
+                  log_every=MESH_TRAIN_STEPS, device="cuda",
+                  keep_params=True)
+    # a bf16 train step is not reproducible run to run under the default
+    # algorithms (two plain runs of these steps on an H100 part at step 0
+    # by ~1e-3 in the loss), so both runs take the deterministic ones
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = run()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for m in kernels:
+            m.reset_launch_counts()
+        meshed = run(mesh=mesh)
+        train_launches = kernel_launches(kernels)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
+    per_step = {"gradnorm_sigma": 1, "flash_attention": 0, "lru_scan": 0}
+    for i, got in enumerate(meshed.launches):
+        check(got == per_step, f"host mesh train step {i}: launches {got}, "
+              f"expected {per_step}")
+    loss_err = replay.check_rel("host mesh train losses",
+                                torch.tensor(meshed.losses),
+                                torch.tensor(plain.losses))
+    equal, worst = True, 0.0
+    for name, want in plain.params.items():
+        got = meshed.params[name]
+        if torch.equal(got, want):
+            continue
+        equal = False
+        w, g = want.float(), got.float()
+        diff = (g - w).abs()
+        worst = max(worst, float(diff.max()))
+        check(bool((diff <= replay.PARAM_ATOL
+                    + replay.PARAM_RTOL * w.abs()).all()),
+              f"host mesh train: param {name} differs by "
+              f"{float(diff.max()):.3g}, beyond 1e-6 + 1e-5 |w|")
+    step25, losses25, peak25 = train25
+    print(f"train {ARCH} on the host mesh, {MESH_TRAIN_STEPS} FEEL steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, both runs under deterministic "
+          f"algorithms: losses {meshed.losses} (plain "
+          f"{plain.losses}, rel err {loss_err:.3g}, bit-identical "
+          f"{meshed.losses == plain.losses}; phase 25's first "
+          f"{losses25[:MESH_TRAIN_STEPS]}) | params after the steps "
+          f"bit-identical {equal} (max abs err {worst:.3g}) | step ms "
+          f"{[round(t * 1e3, 3) for t in meshed.step_s]} (plain "
+          f"{[round(t * 1e3, 3) for t in plain.step_s]}; phase 25's steps "
+          f"1-{MESH_TRAIN_STEPS - 1} "
+          f"{[round(t * 1e3, 3) for t in step25[1:MESH_TRAIN_STEPS]]}) | "
+          f"peak {peak / 2**30:.3f} GiB (phase 25: {peak25 / 2**30:.3f}) | "
+          f"launches {train_launches}")
+    del plain, meshed
+    torch.cuda.empty_cache()
+    return serve_launches, train_launches
+
+
+def argument_bytes(torch, mesh_mod, sharding, shapes, tm, cfg, shape,
+                   multi_pod):
+    """A dry run's per-device argument bytes by the sharding rules on a
+    ``MeshShape`` (no process group, no DTensor): params, optimizer
+    state (train), batch and cache (decode), each leaf's shard shape
+    times its item size."""
+    ms = mesh_mod.production_shape(multi_pod=multi_pod)
+    info = shapes.SHAPES[shape]
+    kind, B, S = info["kind"], info["batch"], info["seq"]
+    params = dict(tm.init_model(cfg, None, "meta").named_parameters())
+    batch = shapes._abstract_batch(cfg, kind, B, S, mesh_mod.data_size(ms),
+                                   True)
+    trees = [(params, sharding.param_shardings(ms, params, cfg)),
+             (batch, sharding.batch_shardings(ms, batch))]
+    if kind == "train":
+        state = shapes.make_optimizer(cfg).init(params)
+        trees.append((state, sharding.opt_state_shardings(ms, state, cfg)))
+    if kind == "decode":
+        cache = tm.make_cache(cfg, B, S, dtype=cfg.act_dtype, device="meta")
+        trees.append((cache, sharding.cache_shardings(ms, cache, B)))
+    sizes = []
+    for tree, shards in trees:
+        sharding.map_sharded(tree, shards, lambda t, s: sizes.append(
+            math.prod(s.shard_shape(t.shape)) * t.element_size()))
+    return sum(sizes)
+
+
+def phase_dry_runs(torch, dryrun, mesh_mod, sharding, shapes, tm,
+                   get_config):
+    """Phase 34: the multi-pod dry run on the host's CPU (a fake process
+    group, fake tensors), one record per ``DRY_RUNS`` entry, printed
+    with its wall time; each must be ``ok``, with the reference's
+    parameter counts, and argument bytes equal to the rules'
+    arithmetic."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    for arch, shape, multi_pod, total, active in DRY_RUNS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(arch, shape, multi_pod, out_path=None)
+        wall = time.perf_counter() - t0
+        print(f"dry run {arch} x {shape} on {rec['mesh']}: wall {wall:.2f} s "
+              "(an estimate at H100 datasheet rates, not a measurement)")
+        print(json.dumps({k: v for k, v in rec.items() if k != "traceback"}))
+        check(rec["ok"], f"dry run {arch} x {shape}: {rec.get('error')}\n"
+              f"{rec.get('traceback')}")
+        check((rec["params_total"], rec["params_active"]) == (total, active),
+              f"dry run {arch}: params {rec['params_total']:,} total, "
+              f"{rec['params_active']:,} active; the reference's {total:,}, "
+              f"{active:,}")
+        want = argument_bytes(torch, mesh_mod, sharding, shapes, tm,
+                              get_config(arch), shape, multi_pod)
+        check(rec["memory"]["argument_bytes"] == want,
+              f"dry run {arch}: argument bytes "
+              f"{rec['memory']['argument_bytes']:,}, the rules' {want:,}")
+        print(f"dry run {arch} x {shape}: argument bytes "
+              f"{want:,} a device, equal to the sharding rules' arithmetic")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def _clone_cache(torch, cache):
     """A copy of a decoder cache (nested dicts and lists of tensors)."""
     if torch.is_tensor(cache):
@@ -2219,7 +2439,8 @@ def main() -> None:
     from repro_torch.core import matching, selection
     from repro_torch.device import full_fp32
     from repro_torch.kernels import flash_attention, gradnorm, lru_scan, ops
-    from repro_torch.launch import replay
+    from repro_torch.launch import dryrun, replay, sharding, shapes
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
     from repro_torch.models import model as tm
@@ -2338,10 +2559,11 @@ def main() -> None:
     done("6 FEEL profile")
 
     # -- 7. the serving path --------------------------------------------
-    serve_launches, _ = phase_serve(
+    serve_launches, served7 = phase_serve(
         torch, serve_mod, kernels, ARCH,
         {"prefill": {"flash_attention": 28, "lru_scan": 0},
          "decode": {"flash_attention": 0, "lru_scan": 0}}, 128256)
+    peak7 = torch.cuda.max_memory_allocated()
     print(f"flash_attention device time of one prefill's 28 launches: "
           f"{28 * flash_rec['ms']:.3f} ms (28 x the {FLASH_GQA} time)")
     phase_serve_profile(torch, tm, get_config, ARCH)
@@ -2563,6 +2785,7 @@ def main() -> None:
     check(res.n_params == 3_606_752_256, f"{ARCH}: {res.n_params:,} params")
     print(f"gradnorm_sigma device time of one step's launch at "
           f"{SIGMA_TRAIN}: {sigma_train_rec['ms']:.6f} ms (phase 3)")
+    train25 = (res.step_s, res.losses, torch.cuda.max_memory_allocated())
     del res
     profile_train_step(torch, train_mod, llama, ARCH, TRAIN_BATCH, TRAIN_SEQ)
     done("25 llama train")
@@ -2653,6 +2876,19 @@ def main() -> None:
                        kernels, DSV2, 0, cfg=dsv2_cut)
     done("32 modality and adafactor train replays")
 
+    # -- 33. llama3.2-3b on a 1x1 DeviceMesh -----------------------------
+    torch.cuda.empty_cache()
+    mesh_serve_launches, mesh_train_launches = phase_host_mesh(
+        torch, serve_mod, train_mod, replay, kernels, mesh_mod, get_config,
+        served7, peak7, train25)
+    del served7
+    done("33 host mesh")
+
+    # -- 34. the multi-pod dry run on the host's CPU ---------------------
+    phase_dry_runs(torch, dryrun, mesh_mod, sharding, shapes, tm,
+                   get_config)
+    done("34 dry runs")
+
     # -- results --------------------------------------------------------
     def entry(name, source, replaces, launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -2740,7 +2976,12 @@ def main() -> None:
               sigma_train_recs[SIGMA_TRAIN_QWEN]),
         entry(f"gradnorm_sigma@train-{MUSICGEN[0]}", gn_src, gn_ref,
               modality_train[MUSICGEN[0]]["gradnorm_sigma"],
-              sigma_train_recs[SIGMA_TRAIN_MUSICGEN])]}))
+              sigma_train_recs[SIGMA_TRAIN_MUSICGEN]),
+        # the host mesh's paths, each with its own run's launches
+        entry(f"flash_attention@hostmesh-{ARCH}", sm90_src, flash_src,
+              mesh_serve_launches["flash_attention"], flash_rec),
+        entry(f"gradnorm_sigma@hostmesh-train-{ARCH}", gn_src, gn_ref,
+              mesh_train_launches["gradnorm_sigma"], sigma_train_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,9 +17,11 @@ other:
   metadata goes to ``<path>.meta.json`` the same way.
 
 A tree is a dict whose values are dicts or leaves: tensors (any device;
-copied to the host), numpy arrays or scalars.  ``load_pytree`` returns
-CPU tensors.  The reference's sharded restore has nothing to do on one
-device and is not ported.
+copied to the host; a DTensor's full value), numpy arrays or scalars.
+``load_pytree`` returns CPU tensors.  ``restore_sharded`` loads each
+leaf as a DTensor with the mesh and placements of its target in an
+abstract tree, so a checkpoint written on one mesh (or by the
+reference) loads onto another (resharding on load).
 """
 from __future__ import annotations
 
@@ -47,6 +49,8 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 def _to_numpy(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):  # a DTensor: its whole value
+            leaf = leaf.full_tensor()
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
             return leaf.view(torch.int16).numpy().view(np.uint16)
@@ -104,6 +108,28 @@ def _unflatten_like(like: Dict[str, Any], leaves: Dict[str, torch.Tensor],
     return {key: (_unflatten_like(sub, leaves, f"{prefix}{key}{SEP}")
                   if isinstance(sub, dict) else leaves[f"{prefix}{key}"])
             for key, sub in like.items()}
+
+
+def restore_sharded(path: str, abstract: Dict[str, Any]) -> Dict[str, Any]:
+    """Load ``path`` into the structure of ``abstract`` and lay out each
+    leaf as its target is: a target with a ``device_mesh`` and
+    ``placements`` (a DTensor, or a ``launch.sharding.NamedSharding``)
+    makes the leaf a DTensor on that mesh with those placements, moved
+    to the mesh's device type; any other target leaves the CPU tensor
+    as it is."""
+    from torch.distributed.tensor import distribute_tensor
+    host = load_pytree(path, abstract)
+
+    def put(x, ref):
+        if isinstance(ref, dict):
+            return {k: put(x[k], ref[k]) for k in ref}
+        mesh = getattr(ref, "device_mesh", None)
+        if mesh is None:
+            return x
+        return distribute_tensor(x.to(mesh.device_type), mesh,
+                                 ref.placements)
+
+    return put(host, abstract)
 
 
 def load_metadata(path: str) -> Optional[dict]:

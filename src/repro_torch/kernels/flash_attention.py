@@ -17,6 +17,13 @@ the same type out.  Two entries:
   with its columns zero-padded to d before the launch, since the
   kernels take one head width, and the output is cut back to dv.
 
+The kernel is the custom op ``repro_torch::flash_attention``
+(``flash_attention_op``) on the serving layout, with a shape-only
+implementation for fake tensors and a FLOP formula (the causal half of
+q k^T and p v) that ``torch.utils.flop_counter`` reads.  On DTensors
+``flash_attention_bhsd`` runs it on each shard's heads (``local.py``):
+a batch or head sharding is kept, any other is redistributed first.
+
 On CUDA tensors, bf16 launches the TMA + wgmma tensor-core kernel of
 ``csrc/flash_attention_sm90.cu`` and fp32 the CUDA-core kernel of
 ``csrc/flash_attention.cu``; both are built for sm_90a with nvcc at
@@ -36,8 +43,9 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from . import nvcc
+from . import local, nvcc
 from .nvcc import BuildInfo
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -260,33 +268,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return out if out.shape[-1] == d else out[..., :d].contiguous()
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """q, k, v: (BH, S, d), batch and heads merged (MHA layout) ->
-    (BH, S, d) in the input dtype."""
-    if _on_cpu(q=q, k=k, v=v):
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_tensor(name, x, 3)
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("q, k and v must have one (BH, S, d) shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    _check_pair(q, k, v)
-    return _launch(q[:, :, None], k[:, :, None], v[:, :, None], causal,
-                   scale)[:, :, 0]
-
-
-def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, S, H, d); k: (B, S, Hk, d); v: (B, S, Hk, dv) with Hk
-    dividing H and dv <= d, read in place (GQA: query head h reads kv
-    head h // (H / Hk)) -> contiguous (B, S, H, dv) in the input dtype.
-    With Hk == H and dv == d it is the reference's
-    ``ops.flash_attention_bhsd``; with dv < d, the reference's
-    ``causal_attend`` (to which MLA's prefill hands a narrower v)."""
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, scale: Optional[float]) -> torch.Tensor:
+    """The kernel as an op on the serving layout: q (B, S, H, d), k (B,
+    S, Hk, d), v (B, S, Hk, dv) -> a new contiguous (B, S, H, dv).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel after
+    the checks above."""
     if _on_cpu(q=q, k=k, v=v):
         _check_bhsd_shapes(q, k, v)
         return flash_attention_bhsd_plain(q, k, v, causal=causal,
@@ -300,3 +288,60 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _launch(q, k, v, causal, scale)
     return _launch(q, k, _value_operand(v, d), causal,
                    scale)[..., :dv].contiguous()
+
+
+@flash_attention_op.register_fake
+def _flash_fake(q, k, v, causal, scale):
+    local.check_fake("flash", q, k, v)
+    _check_bhsd_shapes(q, k, v)
+    return q.new_empty(q.shape[:3] + (v.shape[3],))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flash_flops(q_shape, k_shape, v_shape, causal, scale, *args,
+                out_shape=None, **kwargs) -> int:
+    """2 flops per multiply-add of q k^T (width d) and of p v (width dv)
+    over the (query, key) pairs the kernel visits: the causal half
+    S (S + 1) / 2 of them when causal."""
+    B, S, H, d = q_shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 2 * B * H * (d + v_shape[3]) * pairs
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q, k, v: (BH, S, d), batch and heads merged (MHA layout) ->
+    (BH, S, d) in the input dtype."""
+    if not _on_cpu(q=q, k=k, v=v):
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            _check_tensor(name, x, 3)
+        if k.shape != q.shape or v.shape != q.shape:
+            raise ValueError("q, k and v must have one (BH, S, d) shape, "
+                             f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                             f"{tuple(v.shape)}")
+    return flash_attention_op(q[:, :, None], k[:, :, None], v[:, :, None],
+                              causal, scale)[:, :, 0]
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, S, H, d); k: (B, S, Hk, d); v: (B, S, Hk, dv) with Hk
+    dividing H and dv <= d, read in place (GQA: query head h reads kv
+    head h // (H / Hk)) -> contiguous (B, S, H, dv) in the input dtype.
+    With Hk == H and dv == d it is the reference's
+    ``ops.flash_attention_bhsd``; with dv < d, the reference's
+    ``causal_attend`` (to which MLA's prefill hands a narrower v).
+    DTensors run shard by shard: the batch split as q's is, the heads
+    where both H and Hk divide over the mesh dimension, the rest
+    gathered."""
+    if local.is_dtensor(q):
+        B, H, Hk = q.shape[0], q.shape[2], k.shape[2]
+        pl = local.keep_shards(
+            q, (0, 2), lambda dim, n: (B % n == 0 if dim == 0 else
+                                       H % n == 0 and Hk % n == 0))
+        return local.call_local(flash_attention_op,
+                                (q, k, v, causal, scale),
+                                (pl, pl, pl, None, None), pl, q.device_mesh)
+    return flash_attention_op(q, k, v, causal, scale)

@@ -12,6 +12,13 @@ two row-wise squared norms.  ``rownorm2`` and the fused
 loaded with ctypes) on a CUDA tensor, and use the plain PyTorch
 versions beside them only for a tensor on the CPU.  Any other device,
 dtype, rank or layout raises: there is no silent fallback.
+
+Each kernel is a custom op (``repro_torch::rownorm2``,
+``repro_torch::gradnorm_sigma``) with a shape-only implementation for
+fake tensors and a FLOP formula (``cost``) that
+``torch.utils.flop_counter`` reads.  On DTensors the wrappers run the
+op on each shard's rows (``local.py``): the rows are split over every
+mesh dimension they divide, and the columns gathered.
 """
 from __future__ import annotations
 
@@ -20,8 +27,9 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from . import nvcc
+from . import local, nvcc
 from .nvcc import BuildInfo
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gradnorm.cu"
@@ -31,10 +39,6 @@ NVCC_FLAGS = nvcc.BASE_FLAGS
 
 #: kernel launches per entry point; bumped only where a kernel launches.
 LAUNCHES = {"rownorm2": 0, "gradnorm_sigma": 0}
-#: FLOPs and bytes of every launch so far, by ``cost``; the kernels are
-#: called through ctypes, so no torch dispatch mode sees their work and
-#: ``obs.profile.cost_of`` reads it here.
-WORK = {"flops": 0.0, "bytes": 0.0}
 
 
 def reset_launch_counts() -> None:
@@ -50,12 +54,6 @@ def cost(n: int, f: int, c: int = 0) -> tuple[float, float]:
     input read once and the (n,) output written once."""
     flops = 2.0 * n * (f + c) + (2.0 * n if c else 0.0)
     return flops, 4.0 * (n * (f + c) + n)
-
-
-def _count_work(n: int, f: int, c: int = 0) -> None:
-    flops, n_bytes = cost(n, f, c)
-    WORK["flops"] += flops
-    WORK["bytes"] += n_bytes
 
 
 # ---------------------------------------------------------------- plain
@@ -119,8 +117,10 @@ def _check(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: too large for the kernel's int sizes")
 
 
-def rownorm2(x: torch.Tensor) -> torch.Tensor:
-    """sum(x^2, axis=-1) for x: (N, F) -> (N,) float32."""
+@torch.library.custom_op("repro_torch::rownorm2", mutates_args=())
+def rownorm2_op(x: torch.Tensor) -> torch.Tensor:
+    """sum(x^2, axis=-1) for x: (N, F) -> (N,) float32; CPU tensors take
+    the plain version, CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return rownorm2_plain(x)
     _check(x, "x")
@@ -133,13 +133,25 @@ def rownorm2(x: torch.Tensor) -> torch.Tensor:
             nvcc.raise_on(lib.repro_rownorm2_f32(x.data_ptr(), out.data_ptr(),
                                              n, f, stream), "rownorm2")
         LAUNCHES["rownorm2"] += 1
-        _count_work(n, f)
     return out
 
 
-def gradnorm_sigma(h: torch.Tensor, dlogits: torch.Tensor) -> torch.Tensor:
-    """sigma = (||h||^2 + 1) * ||dlogits||^2 per row, in one pass that
-    reads each row of h and of dlogits once."""
+@rownorm2_op.register_fake
+def _rownorm2_fake(x):
+    local.check_fake("gradnorm", x)
+    return x.new_empty(x.shape[:1], dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.rownorm2)
+def _rownorm2_flops(x_shape, *args, out_shape=None, **kwargs) -> int:
+    return int(cost(*x_shape)[0])
+
+
+@torch.library.custom_op("repro_torch::gradnorm_sigma", mutates_args=())
+def gradnorm_sigma_op(h: torch.Tensor, dlogits: torch.Tensor
+                      ) -> torch.Tensor:
+    """(||h||^2 + 1) * ||dlogits||^2 per row -> (N,) float32; CPU tensors
+    take the plain version, CUDA tensors launch the fused kernel."""
     if h.device.type == "cpu" and dlogits.device.type == "cpu":
         return gradnorm_sigma_plain(h, dlogits)
     _check(h, "h")
@@ -159,5 +171,40 @@ def gradnorm_sigma(h: torch.Tensor, dlogits: torch.Tensor) -> torch.Tensor:
                 h.data_ptr(), dlogits.data_ptr(), out.data_ptr(), n, fh, fd,
                 stream), "gradnorm_sigma")
         LAUNCHES["gradnorm_sigma"] += 1
-        _count_work(n, fh, fd)
     return out
+
+
+@gradnorm_sigma_op.register_fake
+def _gradnorm_sigma_fake(h, dlogits):
+    local.check_fake("gradnorm", h, dlogits)
+    if h.shape[0] != dlogits.shape[0]:
+        raise ValueError("h and dlogits must share a row count, got "
+                         f"{tuple(h.shape)} and {tuple(dlogits.shape)}")
+    return h.new_empty(h.shape[:1], dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.gradnorm_sigma)
+def _gradnorm_sigma_flops(h_shape, d_shape, *args, out_shape=None,
+                          **kwargs) -> int:
+    return int(cost(h_shape[0], h_shape[1], d_shape[1])[0])
+
+
+def _by_rows(op, *xs: torch.Tensor) -> torch.Tensor:
+    """``op`` on each shard's rows of the DTensors ``xs``."""
+    pl = local.rows_over_mesh(xs[0], xs[0].shape[0])
+    return local.call_local(op, xs, (pl,) * len(xs), pl, xs[0].device_mesh)
+
+
+def rownorm2(x: torch.Tensor) -> torch.Tensor:
+    """sum(x^2, axis=-1) for x: (N, F) -> (N,) float32."""
+    if local.is_dtensor(x):
+        return _by_rows(rownorm2_op, x)
+    return rownorm2_op(x)
+
+
+def gradnorm_sigma(h: torch.Tensor, dlogits: torch.Tensor) -> torch.Tensor:
+    """sigma = (||h||^2 + 1) * ||dlogits||^2 per row, in one pass that
+    reads each row of h and of dlogits once."""
+    if local.is_dtensor(h):
+        return _by_rows(gradnorm_sigma_op, h, dlogits)
+    return gradnorm_sigma_op(h, dlogits)

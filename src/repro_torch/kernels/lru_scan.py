@@ -17,8 +17,14 @@ than float32 or bfloat16, a rank other than 3, a non-contiguous tensor,
 or mismatched shapes, dtypes or devices raise: there is no silent
 fallback.
 
-``LRUScan`` (``lru_scan_autograd``) is the scan with its gradient, for
-the mixers' train mode.  The gradient is the adjoint recurrence
+The kernel is the custom op ``repro_torch::lru_scan`` (``lru_scan_op``),
+with a shape-only implementation for fake tensors, a FLOP formula (a
+multiply and an add per element) that ``torch.utils.flop_counter``
+reads, and its gradient registered as the op's autograd, for the
+mixers' train mode.  On
+DTensors ``lru_scan`` runs it on each shard's channels (``local.py``):
+a batch or channel sharding is kept, a sequence one gathered first.
+The gradient is the adjoint recurrence
 g_t = gbar_t + a_{t+1} g_{t+1} (a_S = 0), itself a linear recurrence run
 backwards in time: the backward pass launches the same kernel on
 time-reversed contiguous copies of gbar and of a shifted by one step,
@@ -34,8 +40,9 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from . import nvcc
+from . import local, nvcc
 from .nvcc import BuildInfo
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "lru_scan.cu"
@@ -128,9 +135,11 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("a and b must be on one device")
 
 
-def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a, b: (B, S, C) -> h: (B, S, C) float32 with
-    h_t = a_t h_{t-1} + b_t."""
+@torch.library.custom_op("repro_torch::lru_scan", mutates_args=())
+def lru_scan_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b: (B, S, C) -> a new h: (B, S, C) float32 with
+    h_t = a_t h_{t-1} + b_t; CPU tensors take the plain version, CUDA
+    tensors launch the kernel."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return lru_scan_plain(a, b)
     _check(a, b)
@@ -146,6 +155,35 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                              B, S, C, stream), "lru_scan")
         LAUNCHES["lru_scan"] += 1
     return out
+
+
+@lru_scan_op.register_fake
+def _lru_scan_fake(a, b):
+    local.check_fake("scan", a, b)
+    if a.shape != b.shape:
+        raise ValueError(f"a and b must have one (B, S, C) shape, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    return a.new_empty(a.shape, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.lru_scan)
+def _lru_scan_flops(a_shape, b_shape, *args, out_shape=None,
+                    **kwargs) -> int:
+    """A multiply and an add per step and channel."""
+    B, S, C = a_shape
+    return 2 * B * S * C
+
+
+def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b: (B, S, C) -> h: (B, S, C) float32 with
+    h_t = a_t h_{t-1} + b_t, differentiable (the op's autograd)."""
+    if local.is_dtensor(a):
+        B, C = a.shape[0], a.shape[2]
+        pl = local.keep_shards(
+            a, (0, 2), lambda dim, n: (B if dim == 0 else C) % n == 0)
+        return local.call_local(lru_scan_op, (a, b), (pl, pl), pl,
+                                a.device_mesh)
+    return lru_scan_op(a, b)
 
 
 # ------------------------------------------------------------- gradient
@@ -168,25 +206,16 @@ def lru_scan_backward(a: torch.Tensor, h: torch.Tensor, gbar: torch.Tensor
     return grad_a, g
 
 
-class LRUScan(torch.autograd.Function):
-    """h = lru_scan(a, b) with its gradient through the same kernel
-    (``lru_scan_backward``).  Saves a and h; CPU tensors take the plain
-    version in both directions, as ``lru_scan`` routes them."""
-
-    @staticmethod
-    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        h = lru_scan(a, b)
-        ctx.save_for_backward(a, h)
-        ctx.dtypes = (a.dtype, b.dtype)
-        return h
-
-    @staticmethod
-    def backward(ctx, gbar: torch.Tensor):
-        a, h = ctx.saved_tensors
-        grad_a, grad_b = lru_scan_backward(a, h, gbar)
-        return grad_a.to(ctx.dtypes[0]), grad_b.to(ctx.dtypes[1])
+def _save_for_backward(ctx, inputs, output) -> None:
+    a, b = inputs
+    ctx.save_for_backward(a, output)
+    ctx.dtypes = (a.dtype, b.dtype)
 
 
-def lru_scan_autograd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``lru_scan`` that autograd can differentiate (``LRUScan``)."""
-    return LRUScan.apply(a, b)
+def _backward(ctx, gbar: torch.Tensor):
+    a, h = ctx.saved_tensors
+    grad_a, grad_b = lru_scan_backward(a, h, gbar)
+    return grad_a.to(ctx.dtypes[0]), grad_b.to(ctx.dtypes[1])
+
+
+lru_scan_op.register_autograd(_backward, setup_context=_save_for_backward)

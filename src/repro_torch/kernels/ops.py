@@ -4,20 +4,25 @@ Counterpart of ``repro/kernels/ops.py``: the row-norm sigma kernel,
 flash attention and the linear-recurrence scan.  Same signatures as the
 reference, minus its ``interpret`` flag and block sizes: the device of
 the inputs decides, CUDA tensors launch the CUDA kernel and CPU tensors
-take its plain version.  ``lru_scan_autograd`` is the scan with its
-gradient (``lru_scan.LRUScan``), whose backward pass runs the same
-kernel backwards in time.
+take its plain version.  Each kernel is a ``torch.library`` custom op
+(``repro_torch::flash_attention``, ``::rownorm2``, ``::gradnorm_sigma``,
+``::lru_scan``) with a fake implementation and a FLOP formula, so fake
+tensors and the FLOP counter trace it, and on DTensors each wrapper runs
+its op on the local shards (``local.py``).  The scan carries its
+gradient (the op's registered autograd runs the same kernel backwards
+in time), for the mixers' train mode.
 """
 from __future__ import annotations
 
 import torch
 
+from . import local
 from .flash_attention import flash_attention_bhsd
 from .gradnorm import gradnorm_sigma, rownorm2
-from .lru_scan import lru_scan, lru_scan_autograd
+from .lru_scan import lru_scan
 
 __all__ = ["flash_attention_bhsd", "rownorm2", "gradnorm_sigma",
-           "lru_scan", "lru_scan_autograd", "sigma_from_head"]
+           "lru_scan", "sigma_from_head"]
 
 
 def sigma_from_head(h: torch.Tensor, logits: torch.Tensor,
@@ -28,7 +33,19 @@ def sigma_from_head(h: torch.Tensor, logits: torch.Tensor,
     p - y is formed in place on the fp32 softmax, 1 taken off at each
     row's label, so besides the logits only that (N, V) fp32 plane is
     allocated (no (N, V) one-hot); its values are those of p - one_hot.
+    On DTensors the whole function runs on each shard's rows, split over
+    every mesh dimension they divide: the rows' full vocabulary is then
+    local to one rank.
     """
+    if local.is_dtensor(logits):
+        pl = local.rows_over_mesh(logits, logits.shape[0])
+        return local.call_local(_sigma_from_head, (h, logits, labels),
+                                (pl, pl, pl), pl, logits.device_mesh)
+    return _sigma_from_head(h, logits, labels)
+
+
+def _sigma_from_head(h: torch.Tensor, logits: torch.Tensor,
+                     labels: torch.Tensor) -> torch.Tensor:
     p = torch.softmax(logits.float(), dim=-1)
     rows = torch.arange(p.shape[0], device=p.device)
     p[rows, labels.long()] -= 1.0

@@ -25,7 +25,10 @@ given; without a GPU and without it, it raises.
 
 ``--arch`` takes every name above.  The full DeepSeek configs (238 and
 671 G parameters) fit no single card; ``serve`` also takes an
-``ArchConfig``, such as one cut in depth.
+``ArchConfig``, such as one cut in depth, and a ``mesh``: the weights
+then become DTensors laid out by the reference's sharding rules and
+each step runs under the activation constrainer
+(``sharding.sharded_step``).
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from ..kernels import flash_attention, lru_scan
 from ..models import (ArchConfig, init_model, make_cache, make_decode_step,
                       make_prefill_step, param_count)
 from ..models.moe import MoE, dropped
+from . import sharding
 
 
 @dataclasses.dataclass
@@ -56,6 +60,8 @@ class ServeResult:
     # per MoE layer of the prefill: (token slots per expert C, routed
     # (token, expert) pairs dropped past capacity); empty without MoE
     moe_dispatch: List[Tuple[int, int]]
+    # the prefill's last-position logits, fp32 on the host
+    prefill_logits: Optional[torch.Tensor] = None
 
 
 def _launch_counts() -> Dict[str, int]:
@@ -106,7 +112,7 @@ def decode_batch(cfg: ArchConfig, tok: torch.Tensor, index: int,
 def serve(arch: Union[str, ArchConfig] = "llama3.2-3b", batch: int = 4,
           prompt_len: int = 32, new_tokens: int = 16, smoke: bool = True,
           seed: int = 0, device: DeviceLike = None,
-          mla_absorbed: bool = False) -> ServeResult:
+          mla_absorbed: bool = False, mesh=None) -> ServeResult:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens and decode
     ``new_tokens`` greedy steps.  ``arch`` is a name (its smoke config,
     or with ``smoke=False`` its full one) or an ``ArchConfig``, taken as
@@ -118,7 +124,11 @@ def serve(arch: Union[str, ArchConfig] = "llama3.2-3b", batch: int = 4,
     layer's rolling buffer holds ``window`` slots and writes position p
     at slot p % window).  Greedy decoding takes the argmax per sequence,
     for audio per codebook.  ``mla_absorbed`` picks the absorbed decode
-    of latent attention."""
+    of latent attention.  ``mesh``: a ``DeviceMesh`` on ``device``'s
+    type; the weights and the cache become DTensors by
+    ``sharding.param_shardings`` and ``sharding.cache_shardings``, and
+    each step runs under ``sharding.sharded_step`` (its logits are read
+    back whole)."""
     dev = resolve_device(device)
     if isinstance(arch, ArchConfig):
         cfg = arch
@@ -128,11 +138,16 @@ def serve(arch: Union[str, ArchConfig] = "llama3.2-3b", batch: int = 4,
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = init_model(cfg, gen, dev)
     n_params = param_count(model)
+    if mesh is not None:
+        sharding.distribute_model(model, mesh, cfg)
     print(f"arch={cfg.name} params={n_params:,} device={dev}")
     request = prefill_batch(cfg, batch, prompt_len, gen, dev)
     cache = make_cache(cfg, batch, prompt_len + new_tokens, device=dev)
-    prefill = make_prefill_step(cfg)
-    decode = make_decode_step(cfg, mla_absorbed=mla_absorbed)
+    if mesh is not None:
+        cache = sharding.distribute_tree(
+            cache, sharding.cache_shardings(mesh, cache, batch))
+    prefill = _on_mesh(make_prefill_step(cfg), mesh)
+    decode = _on_mesh(make_decode_step(cfg, mla_absorbed=mla_absorbed), mesh)
     moes = [m for m in model.modules() if isinstance(m, MoE)]
     for m in moes:
         m.routing_log = []
@@ -145,6 +160,7 @@ def serve(arch: Union[str, ArchConfig] = "llama3.2-3b", batch: int = 4,
     synchronize(dev)
     t_prefill = time.perf_counter() - t0
     n1 = _launch_counts()
+    first = logits[:, -1].float().cpu()
     dispatch = [(r["w_ec"].shape[1], int(dropped(r))) for m in moes
                 for r in m.routing_log]
     for m in moes:
@@ -168,7 +184,20 @@ def serve(arch: Union[str, ArchConfig] = "llama3.2-3b", batch: int = 4,
           f"{new_tokens} steps: {sum(steps):.3f}s ({ms:.2f} ms/step); "
           f"kernel launches {launches}")
     return ServeResult(torch.stack(toks, dim=1).cpu(), t_prefill, steps,
-                       launches, n_params, dispatch)
+                       launches, n_params, dispatch, first)
+
+
+def _on_mesh(step, mesh):
+    """``step`` run under ``sharding.sharded_step(mesh)``,
+    its logits whole; ``step`` itself without a mesh."""
+    if mesh is None:
+        return step
+
+    def on_mesh(*args):
+        with sharding.sharded_step(mesh):
+            logits, cache = step(*args)
+            return sharding.full(logits), cache
+    return on_mesh
 
 
 def main(argv: Optional[List[str]] = None) -> ServeResult:

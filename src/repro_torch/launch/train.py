@@ -15,6 +15,11 @@ is given; without a GPU and without it, it raises.
     PYTHONPATH=src python -m repro_torch.launch.train --smoke \\
         --steps 3 --device cpu                                 # smoke
 
+``run`` also takes a ``mesh``: the parameters (and the optimizer state
+that follows them) then become DTensors laid out by the reference's
+sharding rules, and each step runs under the activation constrainer
+(``sharding.sharded_step``).
+
 Each step reads its metrics back, so its wall time ends with the
 device's work.  Per step the result holds the kernels' launches: with
 FEEL one ``gradnorm_sigma`` (sigma), none of flash attention (train
@@ -37,6 +42,7 @@ from ..device import DeviceLike, resolve_device, synchronize
 from ..kernels import flash_attention, gradnorm, lru_scan
 from ..models import (ArchConfig, FeelIntegration, init_model,
                       make_train_step, param_count, trainable)
+from . import sharding
 from .shapes import make_optimizer
 
 #: ``examples/train_llm_feel.py --full-100m``: a ~100M-parameter
@@ -55,6 +61,8 @@ class TrainResult:
     aux_loss: List[float]        # the summed MoE aux loss
     step_s: List[float]          # wall time of each step
     launches: List[Dict[str, int]]  # kernel launches of each step
+    # the parameters after the last step, on the host (``keep_params``)
+    params: Optional[Dict[str, torch.Tensor]] = None
 
 
 def launch_counts() -> Dict[str, int]:
@@ -110,29 +118,45 @@ def config_of(arch: Union[str, ArchConfig], smoke: bool = False,
 
 
 def setup(cfg: ArchConfig, seed: int = 0, device=None, feel: bool = True,
-          n_clients: int = 4):
+          n_clients: int = 4, mesh=None):
     """(model with gradients on, optimizer, its state, train step):
     weights drawn on ``device`` from a generator seeded with ``seed``,
-    ``cfg``'s optimizer (``make_optimizer``)."""
+    ``cfg``'s optimizer (``make_optimizer``).  With a ``mesh`` the
+    weights are DTensors (``sharding.distribute_model``), the state
+    follows them, and the step runs under ``sharding.sharded_step`` and
+    returns its metrics whole."""
     gen = torch.Generator(device=device).manual_seed(seed)
     model = trainable(init_model(cfg, gen, device))
+    if mesh is not None:
+        sharding.distribute_model(model, mesh, cfg)
     opt = make_optimizer(cfg)
     feel_cfg = FeelIntegration(n_clients=n_clients) if feel else None
-    return (model, opt, opt.init(dict(model.named_parameters())),
-            make_train_step(cfg, opt, feel=feel_cfg))
+    step = make_train_step(cfg, opt, feel=feel_cfg)
+    if mesh is not None:
+        plain_step = step
+
+        def step(*args, **kwargs):
+            with sharding.sharded_step(mesh):
+                model, state, m = plain_step(*args, **kwargs)
+                return model, state, {k: sharding.full(v)
+                                      for k, v in m.items()}
+    return model, opt, opt.init(dict(model.named_parameters())), step
 
 
 def run(arch: Union[str, ArchConfig] = "llama3.2-3b", steps: int = 20,
         batch: int = 8, seq: int = 128, smoke: bool = False,
         feel: bool = True, n_clients: int = 4, log_every: int = 5,
         seed: int = 0, device: DeviceLike = None,
-        full_100m: bool = False) -> TrainResult:
+        full_100m: bool = False, mesh=None,
+        keep_params: bool = False) -> TrainResult:
     """``steps`` train steps of ``batch`` x ``seq`` synthetic tokens; batch
     i is drawn from a generator seeded with ``seed + 1000 + i``.  Raises
-    if the last loss is not finite."""
+    if the last loss is not finite.  ``mesh``: as in ``setup``;
+    ``keep_params``: copy the parameters to the host at the end."""
     dev = resolve_device(device)
     cfg = config_of(arch, smoke, full_100m)
-    model, _, opt_state, step_fn = setup(cfg, seed, dev, feel, n_clients)
+    model, _, opt_state, step_fn = setup(cfg, seed, dev, feel, n_clients,
+                                         mesh)
     res = TrainResult(param_count(model), [], [], [], [], [], [], [])
     print(f"arch={cfg.name} params={res.n_params:,} feel={feel} "
           f"dtype={cfg.dtype} device={dev}")
@@ -159,6 +183,9 @@ def run(arch: Union[str, ArchConfig] = "llama3.2-3b", steps: int = 20,
                   f"ms={res.step_s[-1] * 1e3:.1f}", flush=True)
     if not math.isfinite(res.losses[-1]):
         raise RuntimeError("training diverged: the last loss is not finite")
+    if keep_params:
+        res.params = {n: sharding.full(p).detach().cpu()
+                      for n, p in model.named_parameters()}
     return res
 
 

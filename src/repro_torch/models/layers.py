@@ -47,6 +47,16 @@ def frozen(t: Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def linear(x: Tensor, w: Tensor) -> Tensor:
+    """x (..., d_in) @ w (d_in, d_out) as one 2-D GEMM over the flattened
+    leading dims: what ``x @ w`` folds to for a contiguous x.  ``@`` on a
+    3-D DTensor decides between that and a batched GEMM by the DTensor's
+    own strides, which for a size-1 dim (a decode step) need not be a
+    contiguous tensor's, and the batched GEMM rounds otherwise; this way
+    a step on a mesh takes the GEMMs of the step without one."""
+    return (x.reshape(-1, x.shape[-1]) @ w).view(*x.shape[:-1], w.shape[-1])
+
+
 # ------------------------------------------------------------------ norms
 
 def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
@@ -160,9 +170,9 @@ def init_mlp(generator: torch.Generator, d: int, f: int,
 
 
 def mlp(p: MLP, x: Tensor, act: str = "silu") -> Tensor:
-    a = F.silu(x @ p.w_gate) if act == "silu" else F.gelu(
-        x @ p.w_gate, approximate="tanh")
-    return (a * (x @ p.w_up)) @ p.w_down
+    a = F.silu(linear(x, p.w_gate)) if act == "silu" else F.gelu(
+        linear(x, p.w_gate), approximate="tanh")
+    return linear(a * linear(x, p.w_up), p.w_down)
 
 
 # -------------------------------------------------------------- attention

@@ -31,6 +31,7 @@ from torch import nn
 from .config import ArchConfig
 from .layers import (_NEG_INF, apply_rope, causal_attend,
                      causal_attend_chunked, frozen, init_dense, rmsnorm)
+from .shard_ctx import constrain
 
 Tensor = torch.Tensor
 
@@ -139,6 +140,7 @@ def mla_attention(cfg: ArchConfig, p: MLA, x: Tensor, positions: Tensor,
     if absorbed:
         q_lat = torch.einsum("bqhn,chn->bqhc", q_nope,
                              p.w_uk.reshape(cfg.kv_lora, H, nope))
+        q_lat = constrain(q_lat, "act_bthd")
         scores = torch.einsum("bqhc,bkc->bhqk", q_lat.float(), ckv.float())
         values = ckv
     else:

@@ -39,11 +39,12 @@ from torch import nn
 
 from ..core.selection import exact_selection
 from ..core.types import SystemParams
-from ..kernels import ops
+from ..kernels import local, ops
 from ..optim import GradientTransformation, apply_updates
 from .config import ArchConfig
 from . import mla, moe, rglru, ssm
-from .layers import MLP, Attention, frozen, init_dense, init_normal
+from .layers import MLP, Attention, frozen, init_dense, init_normal, linear
+from .shard_ctx import constrain
 from .transformer import (Block, Cache, Decoder, MambaBlock, RGLRUBlock,
                           _layer_plan, _uses_moe, apply_decoder,
                           check_supported, init_cache, init_decoder)
@@ -236,11 +237,12 @@ def unembed(cfg: ArchConfig, model: Model, hidden: Tensor) -> Tensor:
     untied head multiplies in the activation dtype and casts afterwards,
     as the reference does (greedy ties depend on it)."""
     if cfg.modality == "text" and cfg.tie_embeddings:
-        return hidden.float() @ model.embed.float().T
-    logits = (hidden @ model.lm_head).float()
+        logits = linear(hidden.float(), model.embed.float().T)
+    else:
+        logits = linear(hidden, model.lm_head).float()
     if cfg.modality == "audio":
         logits = logits.view(*hidden.shape[:-1], cfg.n_codebooks, cfg.vocab)
-    return logits
+    return constrain(logits, "logits_btv")
 
 
 # ------------------------------------------------------------------ loss
@@ -256,8 +258,21 @@ def per_example_loss(cfg: ArchConfig, logits: Tensor,
                      batch: Dict[str, Tensor]) -> Tuple[Tensor, Tensor]:
     """Mean cross-entropy per example over its valid tokens (labels
     >= 0; for audio every valid (position, codebook) pair): ((B,),
-    valid counts (B,), at least 1)."""
+    valid counts (B,), at least 1).  On DTensor logits it runs on each
+    shard's examples: the logits keep their batch split and gather the
+    rest (the vocabulary), so each example's full row is local and no
+    rank holds the whole (B, S, vocab) plane, in the forward pass or the
+    backward."""
     labels = _labels(cfg, batch)
+    if local.is_dtensor(logits):
+        mesh, B = logits.device_mesh, logits.shape[0]
+        pl = local.keep_shards(logits, (0,), lambda dim, n: B % n == 0)
+        return local.call_local(_example_loss, (logits, local.on_mesh(
+            labels, mesh)), (pl, pl), (pl, pl), mesh)
+    return _example_loss(logits, labels)
+
+
+def _example_loss(logits: Tensor, labels: Tensor) -> Tuple[Tensor, Tensor]:
     valid = labels >= 0
     logp = torch.log_softmax(logits, dim=-1)
     tok_ll = logp.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]

@@ -30,6 +30,7 @@ from torch import nn
 
 from .config import ArchConfig
 from .layers import MLP, frozen, init_dense, init_mlp, init_normal, mlp
+from .shard_ctx import constrain
 
 Tensor = torch.Tensor
 
@@ -148,10 +149,11 @@ def moe_ffn(cfg: ArchConfig, p: MoE, x: Tensor) -> Tuple[Tensor, Tensor]:
     # expert-side capacity: each expert's top-C tokens by gate value
     C = capacity(cfg, G)
     w_ec, idx_ec = torch.topk(gate.T, C, dim=-1)               # (E, C)
-    x_ec = xf[idx_ec]                                          # (E, C, d)
+    x_ec = constrain(xf[idx_ec], "moe_ecd")                    # (E, C, d)
     act = (F.silu(torch.bmm(x_ec, p.w_gate)) if cfg.act == "silu" else
            F.gelu(torch.bmm(x_ec, p.w_gate), approximate="tanh"))
-    y_ec = torch.bmm(act * torch.bmm(x_ec, p.w_up), p.w_down)  # (E, C, d)
+    y_ec = constrain(torch.bmm(act * torch.bmm(x_ec, p.w_up), p.w_down),
+                     "moe_ecd")                                # (E, C, d)
     yf = _combine(y_ec, w_ec, idx_ec, top_idx, x.dtype)
     if p.shared is not None:
         yf = yf + mlp(p.shared, xf, cfg.act)

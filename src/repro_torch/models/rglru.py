@@ -13,8 +13,8 @@ the output projection.  Prefill runs the diagonal recurrence over
 (B, S, w) fp32 through the hand-written scan kernel
 (``kernels.ops.lru_scan``) where the reference runs
 ``jax.lax.associative_scan``, as the Mamba mixer does (``ssm.py``);
-the ``train`` mode runs it through the scan with its gradient
-(``kernels.ops.lru_scan_autograd``) and keeps no cache; decode is the
+the ``train`` mode runs it through the same scan, whose backward pass
+is the kernel run backwards in time, and keeps no cache; decode is the
 single-step recurrence in eager torch and launches no kernel of the
 port.
 
@@ -33,6 +33,7 @@ from ..kernels import ops
 from .config import ArchConfig
 from .layers import frozen, init_dense
 from .ssm import causal_conv
+from .shard_ctx import constrain
 
 Tensor = torch.Tensor
 
@@ -104,13 +105,13 @@ def rglru_mixer(cfg: ArchConfig, p: RGLRU, x: Tensor, mode: str,
     xs = x @ p.w_x
     # jax.nn.gelu defaults to the tanh approximation
     gate = F.gelu((x @ p.w_y).float(), approximate="tanh")
+    xs = constrain(xs, "act_btf")
 
     if mode in ("train", "prefill"):
         conv = causal_conv(p, xs, k)
         a, bx_scale = _gates(p, conv)
         bx = bx_scale * conv.float()
-        scan = ops.lru_scan_autograd if mode == "train" else ops.lru_scan
-        h = scan(a, bx)                               # (B, S, w) fp32
+        h = ops.lru_scan(a, bx)                       # (B, S, w) fp32
         del a, bx
         if mode == "prefill":
             xp = F.pad(xs, (0, 0, max(k - 1 - S, 0), 0))

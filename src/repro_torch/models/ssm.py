@@ -9,9 +9,9 @@ kernel (``kernels.ops.lru_scan``, with the (d_inner, n) plane flattened
 into channels) where the reference runs ``jax.lax.associative_scan``;
 the two compute the same h.  The ``train`` mode builds the same planes
 out of place (prefill's in-place ``exp_`` and ``mul_`` would overwrite
-what autograd saves) and runs the recurrence through the scan with its
-gradient (``kernels.ops.lru_scan_autograd``: the backward pass is the
-same kernel run backwards in time); it keeps no cache.  Decode is the
+what autograd saves) and runs the recurrence through the same scan,
+whose backward pass is the kernel run backwards in time; it keeps no
+cache.  Decode is the
 single-step recurrence on the carried (conv_state, ssm_state) in eager
 torch, and launches no kernel of the port.
 
@@ -32,6 +32,7 @@ from torch import nn
 from ..kernels import ops
 from .config import ArchConfig
 from .layers import frozen, init_dense
+from .shard_ctx import constrain
 
 Tensor = torch.Tensor
 
@@ -116,6 +117,7 @@ def mamba_mixer(cfg: ArchConfig, p: Mamba, x: Tensor, mode: str,
     di, n, k = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_conv
     A = -torch.exp(p.A_log)  # (di, n)
     xs, z = (x @ p.in_proj).chunk(2, dim=-1)
+    xs = constrain(xs, "act_btf")
 
     if mode == "train":
         s = F.silu(causal_conv(p, xs, k))
@@ -123,8 +125,7 @@ def mamba_mixer(cfg: ArchConfig, p: Mamba, x: Tensor, mode: str,
         sf = s.float()
         dA = torch.exp(dt[..., None] * A)                     # (B,S,di,n)
         dBx = dt[..., None] * Bmat[:, :, None, :] * sf[..., None]
-        h = ops.lru_scan_autograd(dA.reshape(B, S, di * n),
-                                  dBx.reshape(B, S, di * n))
+        h = ops.lru_scan(dA.reshape(B, S, di * n), dBx.reshape(B, S, di * n))
         y = torch.einsum("bsdn,bsn->bsd", h.view(B, S, di, n), Cmat) \
             + p.D * sf
     elif mode == "prefill":

@@ -51,11 +51,12 @@ from torch.utils.checkpoint import checkpoint
 from .config import ArchConfig
 from .layers import (MLP, Attention, _TODO, apply_rope, causal_attend,
                      causal_attend_chunked, decode_attend, frozen,
-                     init_attention, init_mlp, local_attend_chunked, mlp,
-                     rmsnorm)
+                     init_attention, init_mlp, linear, local_attend_chunked,
+                     mlp, rmsnorm)
 from .mla import MLA, init_mla, mla_attention
 from .moe import MoE, init_moe, moe_ffn
 from .rglru import RGLRU, init_rglru, rglru_mixer
+from .shard_ctx import constrain
 from .ssm import Mamba, init_mamba, mamba_mixer
 
 Tensor = torch.Tensor
@@ -145,9 +146,9 @@ def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
     local = kind == "attn_local"
     theta = (cfg.rope_theta_local
              if local and cfg.rope_theta_local else cfg.rope_theta)
-    q = (x @ ap.wq).reshape(B, S, H, Dh)
-    k = (x @ ap.wk).reshape(B, S, Hk, Dh)
-    v = (x @ ap.wv).reshape(B, S, Hk, Dh)
+    q = linear(x, ap.wq).reshape(B, S, H, Dh)
+    k = linear(x, ap.wk).reshape(B, S, Hk, Dh)
+    v = linear(x, ap.wv).reshape(B, S, Hk, Dh)
     if cfg.qk_norm:
         q = rmsnorm(q, ap.q_norm)
         k = rmsnorm(k, ap.k_norm)
@@ -155,6 +156,7 @@ def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
                    cfg.mrope_sections)
     k = apply_rope(k, positions, theta, cfg.rope_fraction,
                    cfg.mrope_sections)
+    q = constrain(q, "act_bthd")
     if mode == "train":
         out = (local_attend_chunked(q, k, v, cfg.window) if local else
                causal_attend_chunked(q, k, v))
@@ -172,18 +174,19 @@ def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
                                     t[:, S - take:].to(cache[name].dtype))
     elif mode == "prefill":
         out = causal_attend(q, k, v)
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
+        cache["k"][:, :S] = constrain(k, "kv_cache")
+        cache["v"][:, :S] = constrain(v, "kv_cache")
     elif mode == "decode":
         slot = cache_index % cfg.window if local else cache_index
         cache["k"][:, slot:slot + S] = k
         cache["v"][:, slot:slot + S] = v
-        out = decode_attend(q, cache["k"], cache["v"], cache_index,
+        out = decode_attend(q, constrain(cache["k"], "kv_cache"),
+                            constrain(cache["v"], "kv_cache"), cache_index,
                             window=cfg.window if local else 0,
                             rolling=local)
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    return out.reshape(B, S, H * Dh) @ ap.wo
+    return linear(out.reshape(B, S, H * Dh), ap.wo)
 
 
 def apply_block(cfg: ArchConfig, kind: str, use_moe: bool,
@@ -198,7 +201,8 @@ def apply_block(cfg: ArchConfig, kind: str, use_moe: bool,
         raise NotImplementedError(f"{kind!r} blocks are {_TODO}")
     h = rmsnorm(x, p.ln1)
     if kind == "mamba":
-        return x + mamba_mixer(cfg, p.mixer, h, mode, cache), None
+        return constrain(x + mamba_mixer(cfg, p.mixer, h, mode, cache),
+                         "act_btd"), None
     if kind == "rglru":
         x = x + rglru_mixer(cfg, p.mixer, h, mode, cache)
     elif kind == "mla":
@@ -210,8 +214,8 @@ def apply_block(cfg: ArchConfig, kind: str, use_moe: bool,
     h = rmsnorm(x, p.ln2)
     if use_moe:
         f, aux = moe_ffn(cfg, p.ffn, h)
-        return x + f, aux
-    return x + mlp(p.ffn, h, cfg.act), None
+        return constrain(x + f, "act_btd"), aux
+    return constrain(x + mlp(p.ffn, h, cfg.act), "act_btd"), None
 
 
 # ----------------------------------------------------------- decoder stack

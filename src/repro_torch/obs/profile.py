@@ -11,10 +11,9 @@ and counts what that call does:
   nothing, are skipped).  That is the traffic of the eager program,
   every op unfused: XLA's "bytes accessed" summed per op, not the
   least the work needs;
-* the hand-written row-norm kernel (``kernels/gradnorm.py``) is called
-  through ctypes, so neither mode sees it: its own count
-  (``gradnorm.cost``, accumulated in ``gradnorm.WORK`` at each launch)
-  is added when the call launches it.
+* the hand-written kernels are custom ops (``kernels/``), which both
+  modes see as one op each: FLOPs by the formula each registers (the
+  row-norm kernel's is ``gradnorm.cost``), bytes its inputs and output.
 
 ``profile_fn`` wraps that into a ``ProfileEvent`` (schema v2) recorded
 once per (function, input shapes), stamped with the device's estimated
@@ -42,7 +41,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..device import full_fp32, synchronize
-from ..kernels import gradnorm as gradnorm_mod
 from . import events as ev
 from . import metrics as metrics_mod
 from . import trace as trace_mod
@@ -112,17 +110,14 @@ def cost_of(fn, *args) -> Dict[str, float]:
     wall time of that counted call (eager code compiles nothing, and
     this call is the one-off price of the profile).  ``fn`` must not
     change its arguments or draw random numbers: it really runs."""
-    work0 = dict(gradnorm_mod.WORK)
     t0 = time.perf_counter()
     with FlopCounterMode(display=False) as flops, _BytesMode() as nbytes:
         out = fn(*args)
     for dev in trace_mod.cuda_devices((args, out), set()):
         torch.cuda.synchronize(dev)
     compile_s = time.perf_counter() - t0
-    return {"flops": float(flops.get_total_flops()
-                           + gradnorm_mod.WORK["flops"] - work0["flops"]),
-            "bytes_accessed": float(nbytes.bytes + gradnorm_mod.WORK["bytes"]
-                                    - work0["bytes"]),
+    return {"flops": float(flops.get_total_flops()),
+            "bytes_accessed": float(nbytes.bytes),
             "compile_s": compile_s}
 
 

@@ -18,7 +18,8 @@ loop on the card; whole FEEL train steps of the llama, mamba, qwen2-vl
 and musicgen smoke decoders in fp32 against the same steps on the CPU
 by the replay rule (``repro_torch/launch/replay.py``); the vlm and
 audio smoke decoders' prefill and decode in fp32 against the CPU at the
-replays' rtol 1e-4.
+replays' rtol 1e-4; serves on a one-rank ``DeviceMesh`` bit-identical to
+the plain serves.
 """
 import ctypes
 
@@ -621,7 +622,7 @@ def test_cuda_lru_scan_rejects_what_the_kernel_does_not_take(cuda):
                                          ((3, 300, 130), "uniform"),
                                          ((2, 2048, 256), "near1")])
 def test_cuda_scan_gradient_matches_plain(cuda, shape, gates):
-    """``ops.lru_scan_autograd`` on the card (forward and backward through
+    """``ops.lru_scan`` on the card (forward and backward through
     the kernel, one launch each) against autograd through the plain loop
     on the card; gates in (0.999, 1) held as the forward is."""
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
@@ -631,7 +632,7 @@ def test_cuda_scan_gradient_matches_plain(cuda, shape, gates):
     w = torch.randn(shape, generator=gen, device=cuda)
     a1, b1 = a.clone().requires_grad_(), b.clone().requires_grad_()
     lru_scan.reset_launch_counts()
-    h = ops.lru_scan_autograd(a1, b1)
+    h = ops.lru_scan(a1, b1)
     ga, gb = torch.autograd.grad((h * w).sum(), (a1, b1))
     torch.cuda.synchronize()
     assert lru_scan.LAUNCHES == {"lru_scan": 2}
@@ -673,3 +674,33 @@ def test_cuda_feel_train_steps_match_the_cpu(cuda, arch):
             n_scan = cfg.n_layers if arch == "falcon-mamba-7b" else 0
             assert lru_scan.LAUNCHES == {"lru_scan": 3 * n_scan}
             assert rep["selection_equal"] or rep["given"]
+
+
+HOST_MESH_SERVES = [(arch, True) for arch in (
+    "llama3.2-3b", "falcon-mamba-7b", "recurrentgemma-9b", "gemma3-12b",
+    "stablelm-12b", "command-r-35b", "deepseek-v2-236b", "deepseek-v3-671b",
+    "qwen2-vl-2b", "musicgen-medium")] + [("falcon-mamba-7b", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,smoke", HOST_MESH_SERVES,
+                         ids=[f"{a}-{'smoke' if s else 'full'}"
+                              for a, s in HOST_MESH_SERVES])
+def test_cuda_host_mesh_serve_equals_the_plain_serve(cuda, arch, smoke):
+    """A decoder (the smoke one, and falcon-mamba-7b's full one) served
+    on ``make_host_mesh(1, 1)`` (weights and cache DTensors, each step
+    under ``sharding.sharded_step``) on the card: tokens and prefill
+    logits bit-identical to the plain serve (one rank holds every shard,
+    so the same ops run on the same tensors)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import serve
+    kw = dict(batch=2, prompt_len=16, new_tokens=3, device=cuda, smoke=smoke)
+    plain = serve.serve(arch, **kw)
+    try:
+        meshed = serve.serve(arch, mesh=tmesh.make_host_mesh(1, 1), **kw)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert torch.equal(meshed.tokens, plain.tokens)
+    assert torch.equal(meshed.prefill_logits, plain.prefill_logits)

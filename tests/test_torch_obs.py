@@ -262,9 +262,12 @@ def test_cost_of_counts_flops_bytes_and_the_kernels_own_work(monkeypatch):
     assert cost["bytes_accessed"] == 4 * (m * k + n * k + m * n)
     assert cost["compile_s"] > 0
 
-    # a ctypes launch is invisible to the modes: its own count is added
+    # the kernel is one custom op to both modes: its FLOP formula is its
+    # own count, its bytes its inputs and output
+    h, dlogits = torch.ones(2000, 84), torch.ones(2000, 10)
+
     def launches(x):
-        gradnorm._count_work(2000, 84, 10)
+        gradnorm.gradnorm_sigma(h, dlogits)
         return x + 1
 
     cost = obs.cost_of(launches, a)

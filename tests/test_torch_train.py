@@ -483,14 +483,14 @@ def _scan_inputs(seed, shape, lo=0.3, hi=0.999):
 @pytest.mark.parametrize("shape,lo", [((2, 1, 5), 0.3), ((2, 37, 6), 0.3),
                                       ((1, 300, 4), 0.999)])
 def test_scan_gradient_matches_autograd_and_reference(shape, lo):
-    """``ops.lru_scan_autograd``'s gradient (the adjoint recurrence run
+    """``ops.lru_scan``'s gradient (the adjoint recurrence run
     backwards through the scan) against autograd through the plain loop
     and against ``jax.grad`` of the reference's associative scan; S = 1,
     an S that is a multiple of nothing, gates in (0.999, 1)."""
     a, b, w = _scan_inputs(5, shape, lo=lo, hi=0.9999 if lo > 0.9 else 0.999)
     at = torch.from_numpy(a).requires_grad_()
     bt = torch.from_numpy(b).requires_grad_()
-    h = ops.lru_scan_autograd(at, bt)
+    h = ops.lru_scan(at, bt)
     ga, gb = torch.autograd.grad((h * torch.from_numpy(w)).sum(), (at, bt))
     a2 = torch.from_numpy(a).requires_grad_()
     b2 = torch.from_numpy(b).requires_grad_()
