@@ -48,7 +48,16 @@ exit) if anything in it fails; no failure is caught:
    (8192, 8192), each operand's ``einsum("nd,nd->n")`` timed beside it;
    bf16 flash at qwen2-vl-2b's (12:2 GQA, d = 128) and
    musicgen-medium's (24:24 MHA, d = 64) prefill shapes, and fp32 flash
-   at their replays';
+   at their replays'; the softcapped instances (softcap 50.0, q at 4x
+   scale so that the cap bites) of bf16 flash at llama's and gemma3's
+   prefill shapes and of fp32 flash at the llama replay's, each beside
+   compiled ``flex_attention`` with the cap as a score_mod (its library
+   call) and SDPA without the cap; bf16 flash with a query offset:
+   llama's last 1024 queries at offset 1024 against all 2048 keys, held
+   against the plain version and bit for bit against rows 1024.. of the
+   one-shot kernel output, SDPA with the offset's explicit mask (its
+   library call) and ``flex_attention`` with the offset's block mask
+   beside it; each flex output held against the plain version;
 4. FEEL path: 3 untraced rounds of the paper's §VI-A setup (K=10, N=5,
    Q=2, D̂=200, 28x28 images, faithful selection with 400 GP steps)
    through ``FEELTrainer.run_round``, which scores sigma through the
@@ -56,7 +65,8 @@ exit) if anything in it fails; no failure is caught:
 5. replay: round 0 again with the port on the CPU, held against the
    card's round 0;
 6. where the time goes: the decision's matching and selection timed
-   alone, and one more round under ``torch.profiler``;
+   alone, and one more round under ``torch.profiler`` (device activity
+   only);
 7. serving path: ``repro_torch.launch.serve.serve`` on llama3.2-3b at
    full width and depth (28 layers, random weights from a seed), batch
    4, prompt length 2048, 32 greedy tokens; prefill attention goes
@@ -265,15 +275,28 @@ exit) if anything in it fails; no failure is caught:
    2x16x16, each record and its wall time printed; each must be ``ok``
    with the reference's parameter counts, and its ``argument_bytes``
    must equal the sharding rules' arithmetic on a ``MeshShape``.  The
-   records are estimates at H100 datasheet rates, not measurements.
+   records are estimates at H100 datasheet rates, not measurements;
+35. softcapped attention: gemma3-12b with ``attn_logit_softcap = 50.0``
+   (Gemma 2's published cap) through the entry points: (a) served at
+   full width and depth (48 layers, 12,772,052,736 parameters), phase
+   7's request, 8 flash launches a prefill and none a decode step, and
+   in a profiled prefill the 8 flash launches the softcapped instance;
+   prefill s, decode ms/step and peak printed beside phase 16's
+   uncapped serve; (b) one pattern (6 layers, window 128) replayed in
+   fp32 on the CPU as phase 17 (the fp32 kernel's softcapped instance
+   on the card); (c) FEEL train steps at full width cut to one pattern
+   (6 layers), the config's AdamW, one sigma launch a step, step ms,
+   tok/s and peak; (d) 2 train steps of a 2-layer fp32 cut, its
+   vocabulary cut to 32768, replayed on the CPU by phase 27's rule.
 
-Every replay (8, 10, 17, 22, 30) draws its weights on the card from a
+Every replay (8, 10, 17, 22, 30, 35) draws its weights on the card from a
 seed, runs there, moves them to the host and runs again.  Launch counts
 are zeroed just before each path (4, 7, 9, 11, 12b, 13,
 14, both requests of 15, 16, 18, 19, both requests of 20, 21, the
 card's runs in 8, 10, 17 and 22, each run of 23, 24, 25, each run of
 26, each replayed step of 27, 28, 29, the card's runs in 30, each run
-of 31 and each replayed step of 32) and read just after.  It prints one
+of 31, each replayed step of 32, and 35's serve, replay, train run and
+replayed steps) and read just after.  It prints one
 ``{"kernels": [...]}`` line, with one entry per kernel and serving shape
 (``gradnorm_sigma`` at the §VI-A shape once for each FEEL path with
 that path's own launches: phase 4's (the main path), 11's
@@ -296,7 +319,12 @@ shapes); the vlm and audio paths with their own runs' launches:
 ``gradnorm_sigma@train-musicgen-medium`` (31), each at its own shape;
 the host mesh's ``flash_attention@hostmesh-llama3.2-3b`` and
 ``gradnorm_sigma@hostmesh-train-llama3.2-3b`` (33), each with phase
-33's own launches),
+33's own launches; the softcapped path's
+``flash_attention@softcap-gemma3-12b`` (35a's launches, at gemma3's
+shape), ``flash_attention_f32@softcap`` (35b's) and
+``gradnorm_sigma@train-softcap-gemma3-12b`` (35c's), and, with no launch
+on any path, ``flash_attention@softcap-llama3.2-3b`` and
+``flash_attention@q_offset``),
 and, last, the ``{"ok": true,
 "device": ...}`` line.  Without a GPU, or without the repository's
 ``src/repro_torch`` beside it, it exits non-zero before printing
@@ -357,6 +385,10 @@ FLASH_MUSICGEN = (4, 2048, 24, 24, 64)   # musicgen-medium: d = 64, MHA
 FLASH_F32_ZOO = [(1, 256, 32, 8, 160), (1, 256, 128, 128, 192, 128),
                  (1, 256, 12, 2, 128), (1, 256, 24, 24, 64)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# softcapped attention (phase 3's capped cases and phase 35): Gemma 2's
+# published cap, the q scale of the capped kernel checks, and the
+# offset case's queries (llama's last 1024 of 2048)
+SOFTCAP, CAP_Q_SCALE, FLASH_OFFSET = 50.0, 4.0, 1024
 ARCH, SERVE_BATCH, PROMPT, NEW_TOKENS = "llama3.2-3b", 4, 2048, 32
 REPLAY_LAYERS, REPLAY_PROMPT, REPLAY_STEPS = 2, 256, 8
 LOGITS_RTOL = 1e-4       # card vs CPU prefill logits, fp32 with TF32 off
@@ -426,6 +458,14 @@ ADAFACTOR_REPLAY_LAYERS = 3
 # shape, multi-pod) with the reference's parameter counts (params_total,
 # params_active)
 MESH_TRAIN_STEPS = 3
+# phase 35: the softcapped gemma3-12b's train cut (one pattern), the
+# sigma shape of its steps (h, p - y), and the vocabulary of its replayed
+# steps' cut (the CPU side's time goes with the parameters, 2.0e9 of its
+# 2.46e9 in the two 262144-row tables at full vocabulary; the cap acts in
+# attention, and (b) and (c) run the full vocabulary)
+SOFTCAP_TRAIN_LAYERS = 6
+SOFTCAP_REPLAY_VOCAB = 32768
+SIGMA_TRAIN_GEMMA = (CUT_BATCH * CUT_SEQ, 3840, 262144)
 DRY_RUNS = (("llama3.2-3b", "train_4k", False, 3_606_752_256,
              3_606_752_256),
             ("deepseek-v3-671b", "decode_32k", True, 671_026_404_352,
@@ -569,18 +609,23 @@ def phase_kernels(torch, gradnorm):
 
 
 def flash_bound(b: int, s: int, h: int, hk: int, d: int, causal: bool,
-                itemsize: int, dv: int | None = None) -> tuple[float, str]:
+                itemsize: int, dv: int | None = None, sk: int | None = None,
+                q_offset: int = 0) -> tuple[float, str]:
     """Operations: 2 flops per multiply-add of q k^T (width d) and of p v
-    (width dv, d by default) over the (query, key) pairs the mask keeps;
-    bytes: q and k (width d), v (width dv; k and v with Hk heads) read
-    and o (width dv) written once.  The peak is that of the input type:
-    the dense bf16 tensor cores for bf16, the CUDA cores' float32 rate
-    for float32."""
+    (width dv, d by default) over the (query, key) pairs the mask keeps
+    (query i, at position q_offset + i, sees min(sk, q_offset + i + 1)
+    keys; sk is s by default); bytes: q (s rows) and k (sk rows, width
+    d), v (width dv; k and v with Hk heads) read and o (s rows, width
+    dv) written once.  The softcap's tanh is not counted (no tensor-core
+    work).  The peak is that of the input type: the dense bf16 tensor
+    cores for bf16, the CUDA cores' float32 rate for float32."""
     dv = d if dv is None else dv
-    pairs = s * (s + 1) / 2 if causal else s * s
+    sk = s if sk is None else sk
+    pairs = (sum(min(sk, q_offset + i + 1) for i in range(s)) if causal
+             else s * sk)
     flops = 2.0 * b * h * (d + dv) * pairs
     peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
-    n_bytes = b * s * (h * d + hk * d + hk * dv + h * dv) * itemsize
+    n_bytes = b * (s * (h * d + h * dv) + sk * (hk * d + hk * dv)) * itemsize
     return bound(n_bytes, flops, peak)
 
 
@@ -674,6 +719,129 @@ def phase_flash(torch, fa, ops):
                   f"before the launch: {pad_ms:.6f} ms")
         recs[(shape, dt, layout)] = rec
         del q, k, v, q4, k4, v4, qs, ks, vs
+        torch.cuda.empty_cache()
+    return recs
+
+
+def flex_call(torch, qs, ks, vs, softcap: float, q_offset: int):
+    """One call of ``torch.nn.attention.flex_attention``, compiled as its
+    documentation asks, that computes the capped or offset kernel's
+    function on the (B, H, S, d) inputs: the softcap as a ``score_mod``
+    (applied to the scaled logits, before the mask), the causal mask with
+    the query offset as a ``block_mask``.  A yardstick only: the port
+    never calls it."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def causal(b, h, q_idx, kv_idx):
+        return kv_idx <= q_idx + q_offset
+
+    def capped(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    block = create_block_mask(causal, None, None, qs.shape[2], ks.shape[2],
+                              device=qs.device)
+    return partial(torch.compile(flex_attention, dynamic=False), qs, ks, vs,
+                   score_mod=capped if softcap else None, block_mask=block,
+                   enable_gqa=ks.shape[1] != qs.shape[1])
+
+
+def phase_flash_capped(torch, fa, ops):
+    """The softcapped and offset instances against their plain versions at
+    the main paths' shapes (phase 3): bf16 flash with softcap at llama's
+    and gemma3's prefill shapes, fp32 at the llama replay's (q at
+    ``CAP_Q_SCALE`` so that logits reach the cap), each beside
+    ``flex_attention`` with the cap as a score_mod (``flex_call``, its
+    ``library_ms``) and SDPA without the cap; bf16 at llama's shape with
+    the last ``FLASH_OFFSET`` queries at that offset, held bit for bit
+    against rows FLASH_OFFSET.. of the one-shot kernel output too, SDPA
+    with the offset's explicit mask as its library call and
+    ``flex_attention`` with the offset's block mask beside it.  Each
+    flex output is held against the plain version at the kernel's
+    tolerance.  Returns the records by label."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    F = torch.nn.functional
+    recs = {}
+    for label, shape, dt, kw in (
+            ("softcap-llama", FLASH_GQA, "bfloat16", {"softcap": SOFTCAP}),
+            ("softcap-gemma", FLASH_GEMMA, "bfloat16", {"softcap": SOFTCAP}),
+            ("softcap-f32", FLASH_F32_REPLAY, "float32",
+             {"softcap": SOFTCAP}),
+            ("q_offset", FLASH_GQA, "bfloat16", {"q_offset": FLASH_OFFSET})):
+        dtype = getattr(torch, dt)
+        b, s, h, hk, d = shape
+        q_scale = CAP_Q_SCALE if "softcap" in kw else 1.0
+
+        def randn(heads):
+            return (torch.randn(b, s, heads, d, generator=gen, device="cuda")
+                    .to(dtype))
+
+        q_full, k, v = randn(h) * q_scale, randn(hk), randn(hk)
+        off = kw.get("q_offset", 0)
+        q = q_full[:, off:]  # a view: the last s - off queries
+        run = partial(ops.flash_attention_bhsd, q, k, v, **kw)
+        plain = partial(fa.flash_attention_bhsd_plain, q, k, v, **kw)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dt]
+        check(bool(torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol)),
+              f"flash_attention {label} {shape} {dt} {kw}: max abs err "
+              f"{err:.3g} above {tol}")
+        note = ""
+        if off:
+            one_shot = ops.flash_attention_bhsd(q_full, k, v)
+            torch.cuda.synchronize()
+            same = torch.equal(one_shot[:, off:], got)
+            check(same, f"flash_attention q_offset={off}: rows {off}.. of "
+                  "the one-shot kernel output differ from the offset call")
+            note = (f"; bit-identical to rows {off}.. of the one-shot "
+                    f"kernel output: {same}")
+            del one_shot
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        t0 = time.perf_counter()
+        flex = flex_call(torch, qs, ks, vs, kw.get("softcap", 0.0), off)
+        flex_out = flex().transpose(1, 2)
+        torch.cuda.synchronize()
+        flex_s = time.perf_counter() - t0
+        flex_err = float((flex_out.float() - want.float()).abs().max())
+        check(bool(torch.allclose(flex_out.float(), want.float(), atol=tol,
+                                  rtol=tol)),
+              f"flex_attention {label} {shape} {dt} {kw}: max abs err "
+              f"{flex_err:.3g} above {tol}: not the kernel's function")
+        flex_ms = device_ms(torch, flex, 5, 3)
+        if off:
+            qpos = off + torch.arange(s - off, device="cuda")
+            mask = torch.arange(s, device="cuda")[None, :] <= qpos[:, None]
+            library_ms = device_ms(
+                torch, partial(F.scaled_dot_product_attention, qs, ks, vs,
+                               attn_mask=mask, enable_gqa=hk != h), 5, 3)
+            nocap_ms = None
+        else:
+            library_ms = flex_ms
+            nocap_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=hk != h), 5, 3)
+        b_ms, b_by = flash_bound(b, s - off, h, hk, d, True,
+                                 q.element_size(), sk=s, q_offset=off)
+        rec = {"max_abs_err": err, "ms": device_ms(torch, run, 5, 3),
+               "plain_ms": device_ms(torch, plain, 2, 2),
+               "library_ms": library_ms, "flex_ms": flex_ms,
+               "flex_max_abs_err": flex_err,
+               "sdpa_uncapped_ms": nocap_ms,
+               "bound_ms": b_ms, "bound_by": b_by}
+        print(f"flash_attention {label} {shape} {dt} {kw}"
+              + (f" (q at {q_scale}x)" if q_scale != 1 else "")
+              + f": max_abs_err {err:.3g} (tol {tol}) | device ms: kernel "
+              f"{rec['ms']:.6f} plain {rec['plain_ms']:.6f} "
+              + (f"sdpa with the offset mask {library_ms:.6f} "
+                 if off else f"sdpa without the cap {nocap_ms:.6f} ")
+              + f"flex_attention {flex_ms:.6f} (max_abs_err {flex_err:.3g}; "
+              f"compiled and first run in {flex_s:.2f} s) bound {b_ms:.6f} "
+              f"({b_by}) | {100 * b_ms / rec['ms']:.1f} % of bound; "
+              f"kernel/library {rec['ms'] / library_ms:.2f}x{note}")
+        recs[label] = rec
+        del q, q_full, k, v, qs, ks, vs, got, want, flex, flex_out
         torch.cuda.empty_cache()
     return recs
 
@@ -1639,11 +1807,13 @@ def phase_resilience(rt, torch, data, init_sd, kernels, gradnorm):
 
 
 def profile_round(torch, tr, i):
-    """One round under torch.profiler: device operations and busy time."""
+    """One round under torch.profiler: device operations and busy time.
+    Device activity only: nothing here reads the host's events, and
+    recording the round's ~216k host operations as well roughly doubles
+    its wall under the profiler, which overstates the idle share."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         m = tr.run_round(i)
         wall = time.perf_counter() - t0
@@ -1721,7 +1891,8 @@ def phase_serve_profile(torch, tm, get_config, arch):
     ``torch.profiler`` (after a warm-up of each): device operations,
     device busy time against wall time, the kernels that take the most
     device time, and the scan and flash kernels' device time where the
-    step runs them."""
+    step runs them.  Returns the names of the prefill's flash kernel
+    launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve as serve_mod
@@ -1763,8 +1934,9 @@ def phase_serve_profile(torch, tm, get_config, arch):
                  "launches" if scans else "")
               + (f"; the flash kernel {sum(flash):.3f} ms in {len(flash)} "
                  "launches" if flash else ""))
+        return [e.name for e in dev if "flash" in e.name]
 
-    step("prefill", lambda: prefill(model, request, cache))
+    flash_names = step("prefill", lambda: prefill(model, request, cache))
     tok = torch.zeros((SERVE_BATCH,) + ((cfg.n_codebooks,) if
                                         cfg.modality == "audio" else ()),
                       dtype=torch.long, device="cuda")
@@ -1772,6 +1944,7 @@ def phase_serve_profile(torch, tm, get_config, arch):
         model, cache, serve_mod.decode_batch(cfg, tok, PROMPT)))
     del model, cache
     torch.cuda.empty_cache()
+    return flash_names
 
 
 def phase_llm_replay(torch, tm, get_config, full_fp32, arch, kernels,
@@ -1944,7 +2117,8 @@ def replay_request(torch, cfg):
 
 def phase_train_kernels(torch, gradnorm, lru, ops, device="cuda"):
     """Phase 3's train shapes: ``gradnorm_sigma`` at the train steps'
-    (``SIGMA_TRAIN``: llama's; ``SIGMA_TRAIN_QWEN``, ``_MUSICGEN``)
+    (``SIGMA_TRAIN``: llama's; ``SIGMA_TRAIN_QWEN``, ``_MUSICGEN``,
+    ``_GEMMA``)
     against its plain version, timed beside its bound,
     ``torch.linalg.vector_norm`` of both operands and each operand's
     ``einsum("nd,nd->n")`` (``rownorm2``'s function in one call); the
@@ -1960,7 +2134,8 @@ def phase_train_kernels(torch, gradnorm, lru, ops, device="cuda"):
     for shape, label in ((SIGMA_TRAIN, "llama3.2-3b"),
                          (SIGMA_TRAIN_QWEN, "qwen2-vl-2b"),
                          (SIGMA_TRAIN_MUSICGEN, "musicgen-medium, 4 "
-                                                "codebooks folded")):
+                                                "codebooks folded"),
+                         (SIGMA_TRAIN_GEMMA, "softcapped gemma3-12b cut")):
         n, fh, fd = shape
         h = torch.randn(n, fh, generator=gen, device=device)
         d = torch.randn(n, fd, generator=gen, device=device)
@@ -2228,6 +2403,85 @@ def phase_train_replay(torch, train_mod, replay, tm, full_fp32, get_config,
     return launches
 
 
+def phase_softcap(torch, serve_mod, train_mod, replay, tm, full_fp32,
+                  get_config, kernels, served16):
+    """Phase 35: gemma3-12b with ``attn_logit_softcap = SOFTCAP`` through
+    the entry points.  (a) served at full width and depth, the flash
+    launches of a profiled prefill checked to be the softcapped
+    instance, printed beside phase 16's uncapped serve (``served16``:
+    prefill s, decode steps, peak bytes); (b) one pattern replayed in
+    fp32 on the CPU as phase 17; (c) FEEL train steps cut to one pattern;
+    (d) 2 train steps of a 2-layer fp32 cut, its vocabulary cut to
+    ``SOFTCAP_REPLAY_VOCAB``, replayed on the CPU.  Returns each part's
+    launches."""
+    def capped(arch):
+        return get_config(arch).scaled(attn_logit_softcap=SOFTCAP)
+
+    out = {}
+    cfg = capped(GEMMA)
+    torch.cuda.empty_cache()
+    out["serve"], res = phase_serve(
+        torch, serve_mod, kernels, cfg,
+        {"prefill": {"flash_attention": GEMMA_GLOBAL, "lru_scan": 0},
+         "decode": {"flash_attention": 0, "lru_scan": 0}}, 262144)
+    peak = torch.cuda.max_memory_allocated()
+    check(res.n_params == GEMMA_PARAMS, f"softcapped {GEMMA}: "
+          f"{res.n_params:,} parameters, expected {GEMMA_PARAMS:,}")
+    prefill16, decode16, peak16 = served16
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2] * 1e3
+
+    print(f"softcapped {GEMMA} (attn_logit_softcap {SOFTCAP}) served: "
+          f"prefill {res.prefill_s:.6f} s (phase 16, uncapped: "
+          f"{prefill16:.6f} s; the cap {res.prefill_s - prefill16:+.6f} s) "
+          f"| decode ms/step median {median(res.decode_s):.3f} (phase 16: "
+          f"{median(decode16):.3f}) | peak {peak / 2**30:.3f} GiB (phase "
+          f"16: {peak16 / 2**30:.3f}) | flash launches per phase "
+          f"{ {k: v['flash_attention'] for k, v in res.launches.items()} }")
+    del res
+    torch.cuda.empty_cache()
+    names = phase_serve_profile(torch, tm, get_config, cfg)
+    instance = [n for n in names if ("true, true" in n or "Lb1ELb1E" in n)]
+    check(len(names) == GEMMA_GLOBAL and len(instance) == len(names),
+          f"softcapped {GEMMA}: the profiled prefill's flash launches "
+          f"{names} are not {GEMMA_GLOBAL} of the softcapped instance")
+    print(f"softcapped {GEMMA}: the profiled prefill's {len(names)} flash "
+          f"launches are the softcapped instance ({names[0][:90]})")
+    torch.cuda.empty_cache()
+    out["replay"] = phase_llm_replay(
+        torch, tm, capped, full_fp32, GEMMA, kernels, n_layers=6,
+        window=HYBRID_WINDOW)
+    want = {"flash_attention": 1, "lru_scan": 0}
+    check({k: out["replay"][k] for k in want} == want,
+          f"softcapped {GEMMA} replay: launches {out['replay']}, expected "
+          f"{want}")
+    print(f"the replay above: {GEMMA} with attn_logit_softcap {SOFTCAP}")
+    cut = cfg.scaled(n_layers=SOFTCAP_TRAIN_LAYERS)
+    # one pattern is 3,358,117,632 parameters, 16 bytes each with AdamW's
+    # fp32 moments (54 GiB), and the eager update's fp32 temporaries of
+    # the (262144, 3840) table take 3.75 GiB each: with the caching
+    # allocator's fixed segments step 1 found 20 GiB reserved but free
+    # and no room for one; growable segments hold it
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        out["train"], res = phase_train(
+            torch, train_mod, kernels, cut, CUT_BATCH, CUT_SEQ, CUT_STEPS,
+            {"gradnorm_sigma": 1, "flash_attention": 0, "lru_scan": 0},
+            f"{GEMMA} softcap {SOFTCAP} cut to {SOFTCAP_TRAIN_LAYERS} "
+            f"layers {list(cut.layer_pattern)}")
+        del res
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+    out["train_replay"] = phase_train_replay(
+        torch, train_mod, replay, tm, full_fp32, get_config, kernels, GEMMA,
+        0, cfg=cfg.scaled(dtype="float32", n_layers=REPLAY_LAYERS,
+                          vocab=SOFTCAP_REPLAY_VOCAB))
+    return out
+
+
 def phase_host_mesh(torch, serve_mod, train_mod, replay, kernels, mesh_mod,
                     get_config, served7, peak7, train25):
     """Phase 33: llama3.2-3b at full width and depth on a 1x1
@@ -2422,6 +2676,9 @@ def _clone_cache(torch, cache):
 
 
 def main() -> None:
+    # phase 3's flex_attention yardsticks compile in this process: no
+    # pool of compile workers outlives the script
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
     import torch
     if not torch.cuda.is_available():
         die("no CUDA device: this smoke test needs an NVIDIA GPU")
@@ -2485,6 +2742,7 @@ def main() -> None:
     flash_rec = flash_recs[(FLASH_GQA, "bfloat16", "bshd")]
     flash_gemma_rec = flash_recs[(FLASH_GEMMA, "bfloat16", "bshd")]
     flash_f32_rec = flash_recs[(FLASH_F32_REPLAY, "float32", "bshd")]
+    capped_recs = phase_flash_capped(torch, flash_attention, ops)
     scan_recs = phase_scan(torch, lru_scan, ops)
     scan_rec = scan_recs[SCAN_SLICE]
     sigma_train_recs, scan_train_recs = phase_train_kernels(
@@ -2660,6 +2918,8 @@ def main() -> None:
          "decode": {"flash_attention": 0, "lru_scan": 0}}, 262144)
     check(served.n_params == GEMMA_PARAMS,
           f"{GEMMA}: {served.n_params:,} parameters, expected {GEMMA_PARAMS:,}")
+    served16 = (served.prefill_s, served.decode_s,
+                torch.cuda.max_memory_allocated())
     print(f"flash_attention device time of one prefill's {GEMMA_GLOBAL} "
           f"launches: {GEMMA_GLOBAL * flash_gemma_rec['ms']:.3f} ms "
           f"({GEMMA_GLOBAL} x the {FLASH_GEMMA} time)")
@@ -2889,6 +3149,17 @@ def main() -> None:
                    get_config)
     done("34 dry runs")
 
+    # -- 35. softcapped attention: gemma3-12b at attn_logit_softcap 50 ---
+    softcap_launches = phase_softcap(torch, serve_mod, train_mod, replay, tm,
+                                     full_fp32, get_config, kernels, served16)
+    print(f"flash_attention device time of one softcapped prefill's "
+          f"{GEMMA_GLOBAL} launches: "
+          f"{GEMMA_GLOBAL * capped_recs['softcap-gemma']['ms']:.3f} ms "
+          f"({GEMMA_GLOBAL} x the {FLASH_GEMMA} time with softcap "
+          f"{SOFTCAP}; phase 16's uncapped "
+          f"{GEMMA_GLOBAL * flash_gemma_rec['ms']:.3f} ms)")
+    done("35 softcap")
+
     # -- results --------------------------------------------------------
     def entry(name, source, replaces, launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -2981,7 +3252,23 @@ def main() -> None:
         entry(f"flash_attention@hostmesh-{ARCH}", sm90_src, flash_src,
               mesh_serve_launches["flash_attention"], flash_rec),
         entry(f"gradnorm_sigma@hostmesh-train-{ARCH}", gn_src, gn_ref,
-              mesh_train_launches["gradnorm_sigma"], sigma_train_rec)]}))
+              mesh_train_launches["gradnorm_sigma"], sigma_train_rec),
+        # the softcapped path, each with its own run's launches; the
+        # llama-shape softcap and the offset instance run on no path
+        entry(f"flash_attention@softcap-{GEMMA}", sm90_src, flash_src,
+              softcap_launches["serve"]["flash_attention"],
+              capped_recs["softcap-gemma"]),
+        entry("flash_attention_f32@softcap",
+              "src/repro_torch/kernels/csrc/flash_attention.cu", flash_src,
+              softcap_launches["replay"]["flash_attention"],
+              capped_recs["softcap-f32"]),
+        entry(f"gradnorm_sigma@train-softcap-{GEMMA}", gn_src, gn_ref,
+              softcap_launches["train"]["gradnorm_sigma"],
+              sigma_train_recs[SIGMA_TRAIN_GEMMA]),
+        entry(f"flash_attention@softcap-{ARCH}", sm90_src, flash_src, 0,
+              capped_recs["softcap-llama"]),
+        entry("flash_attention@q_offset", sm90_src, flash_src, 0,
+              capped_recs["q_offset"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

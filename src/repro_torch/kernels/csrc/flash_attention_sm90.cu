@@ -3,14 +3,18 @@
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (_flash_kernel)
 // for bfloat16 inputs: softmax(scale * q k^T) v, causal or not, bf16 in and
-// out.  The running max m, the running sum l and the output accumulator are
-// fp32.  Masked logits are -1e30 (keys at positions >= S, and with `causal`
-// keys after the query), and the denominator is max(l, 1e-30), as in the TPU
-// kernel.  The probabilities are rounded to bf16 before the product with v,
+// out, with the JAX zoo's logit softcapping and query offset
+// (repro/models/layers.py `_softmax_attend` under `causal_attend`'s mask):
+// with softcap > 0 a logit s = scale * q.k becomes softcap * tanh(s /
+// softcap) before the mask, and query row i sits at position q_offset + i,
+// keys at 0 .. seq_k - 1.  The running max m, the running sum l and the
+// output accumulator are fp32.  Masked logits are -1e30 (keys at positions
+// >= seq_k, and with `causal` keys after the query's position), and the
+// denominator is max(l, 1e-30), as in the TPU kernel.  The probabilities are rounded to bf16 before the product with v,
 // as the JAX zoo's `_softmax_attend` casts them to v's dtype.  float32
 // inputs stay on the CUDA-core kernel of flash_attention.cu.
 //
-// Layout.  q and o are (B, S, H, d), k and v (B, S, Hk, d), each with its
+// Layout.  q and o are (B, Sq, H, d), k and v (B, Sk, Hk, d), each with its
 // own 64-bit element strides for batch, sequence and head and a unit stride
 // over d: the serving path's (B, S, H, d) projections are read in place, and
 // query head h reads kv head h / (H / Hk), the grouping of GQA, with no
@@ -36,7 +40,7 @@
 //   4-D (d, H, S, B) views and passed as __grid_constant__ parameters.
 //   Boxes are 64 columns of d wide with the 128-byte swizzle, so d is
 //   padded to a multiple of 64 in shared memory by TMA's zero fill,
-//   and rows past S are zero-filled too.
+//   and rows past Sq (q) or Sk (K, V) are zero-filled too.
 // - There is no producer warp, and no `setmaxnreg`: ptxas compiles a
 //   wgmma kernel for whole warpgroups, so a third (producer) warpgroup
 //   would cap every thread at 168 registers, and it keeps that cap for
@@ -45,27 +49,36 @@
 //   at d = 128; two warpgroups may use up to 255.
 // - S = Q K^T is a `wgmma` with both operands in swizzled shared memory
 //   (K-major); the online softmax runs on the fp32 accumulator in
-//   registers with exp2 and scale * log2(e) folded in; P is converted to
+//   registers with exp2 and scale * log2(e) folded in (with softcap, the
+//   tanh acts on scale * s first, see `softmax_tile`); P is converted to
 //   bf16 in the accumulator's own fragment layout and fed back as the
 //   register A operand of O += P V, with V read from shared memory
 //   MN-major.  A warpgroup issues S_t and then P_{t-1} V_{t-1}, waits
 //   for S_t alone, and runs the softmax of tile t while P_{t-1} V_{t-1}
 //   is still on the tensor cores.
 // - The K tiles are walked from the last to the first, so the only
-//   tiles that need a mask (the causal diagonal and the tail past S)
-//   come first; with `causal`, tiles wholly after the q tile are never
-//   loaded, and a warpgroup skips a tile wholly after its own rows.
+//   tiles that need a mask (the causal diagonal and the tail past Sk)
+//   come first; with `causal`, tiles wholly after the q tile's last
+//   position are never loaded, and a warpgroup skips a tile wholly after
+//   its own rows' positions.  A row whose first tiles are all masked
+//   takes garbage weights there, which the first tile it sees a key in
+//   rescales by exactly 0; the last tile holds key 0, which every row
+//   sees (so a negative q_offset, rows that see no key, is refused).
 //   The accumulator is rescaled only for rows whose max grew.
 // - Keys per stage: 128 for d <= 128, 64 for d <= 256 (so the q tile
 //   and the K/V stages fit in 227 KB).
+// - Softcap and the offset are template flags (kSoftcap; kOffset: a
+//   query offset or a key length of its own), so the instance with
+//   neither compiles to the code it had before they existed (its
+//   q_offset is the constant 0 and its key length the query length).
 // It launches one block per (batch, head, q tile), heads taken in groups
 // of about one wave and the longest q tiles of a group first
 // (`block_work`), so the blocks in flight share their K/V in L2.
 //
 // Interface.  A plain C entry point for ctypes: device pointers, the stride
 // array (host memory, 12 int64: batch, seq, head of q, k, v, o) and the CUDA
-// stream arrive as pointers, sizes and the flag as int, the scale as
-// float.  It returns a cudaError_t as int (0 = success), the result of
+// stream arrive as pointers, sizes, the flag and the query offset as int,
+// the scale and softcap as float.  It returns a cudaError_t as int (0 = success), the result of
 // cudaGetLastError() after its launch.  The TMA descriptors are encoded
 // through the driver entry point found by cudaGetDriverEntryPoint, so the
 // library does not link libcuda.
@@ -109,6 +122,13 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// 1/x on the special-function unit (relative error within 1 ulp).
+__device__ __forceinline__ float fast_rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -118,24 +138,37 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // (e % 4 < 2) or row b (e % 4 >= 2) of its quad, key column
 // 8 * (e / 4) + 2 * (lane % 4) + (e % 2) of the tile.  Scores become
 // probabilities in place; m is in log2 units; l is this thread's partial
-// row sum (the quad's lanes are summed once, at the end).  Returns the
-// factors the accumulator is rescaled by.
-template <int N>
+// row sum (the quad's lanes are summed once, at the end).  `pos_a` is row
+// a's position (q_offset + its row), row b's is pos_a + 8.  Without
+// kSoftcap a logit in log2 units is s * scale_a (scale_a = scale *
+// log2 e); with it, softcap * tanh(scale * s / softcap) * log2 e, as
+// scale_b - 2 scale_b / (1 + 2^(s * scale_a)) with scale_a = 2 log2 e *
+// scale / softcap and scale_b = softcap * log2 e: tanh y = 1 - 2 / (1 +
+// e^(2y)) on two special-function ops, an absolute error of a few float32
+// ulps of scale_b (an overflowing 2^ gives +inf and the cap exactly).
+// Returns the factors the accumulator is rescaled by.
+template <int N, bool kSoftcap>
 __device__ __forceinline__ float2 softmax_tile(float (&s)[N], bool masked,
-                                               int key0, int row_a,
-                                               int seq, bool causal,
-                                               float scale_log2, float& m_a,
-                                               float& m_b, float& l_a,
-                                               float& l_b) {
+                                               int key0, int pos_a,
+                                               int seq_k, bool causal,
+                                               float scale_a, float scale_b,
+                                               float& m_a, float& m_b,
+                                               float& l_a, float& l_b) {
   const int lane = threadIdx.x % 32;
   float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
   for (int e = 0; e < N; ++e) {
-    float x = s[e] * scale_log2;
+    float x;
+    if constexpr (kSoftcap) {
+      x = fmaf(-2.0f * scale_b, fast_rcp(1.0f + fast_exp2(s[e] * scale_a)),
+               scale_b);
+    } else {
+      x = s[e] * scale_a;
+    }
     if (masked) {
       const int key = key0 + 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
-      const int row = (e % 4 < 2) ? row_a : row_a + 8;
-      if (key >= seq || (causal && key > row)) x = kNegInf;
+      const int pos = (e % 4 < 2) ? pos_a : pos_a + 8;
+      if (key >= seq_k || (causal && key > pos)) x = kNegInf;
     }
     s[e] = x;
     if (e % 4 < 2) {
@@ -587,16 +620,21 @@ struct Loader {
 };
 
 // grid: one block per (batch * H + head, q tile), in `block_work` order.
-// DC: 64-column chunks of d; BK: keys per K/V stage.
-template <int DC, int BK>
+// DC: 64-column chunks of d; BK: keys per K/V stage; kSoftcap: the
+// logits are softcapped (scale_a, scale_b as in `softmax_tile`);
+// kOffset: q_offset and seq_k are read (else 0 and seq_q).
+template <int DC, int BK, bool kSoftcap, bool kOffset>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
-                   bf16* __restrict__ o, Strides st, int seq, int n_bh,
-                   int group_heads, int n_heads, int group, int d, int causal,
-                   float scale_log2) {
+                   bf16* __restrict__ o, Strides st, int seq_q, int seq_k_in,
+                   int q_offset_in, int n_bh, int group_heads, int n_heads,
+                   int group, int d, int causal, float scale_a,
+                   float scale_b) {
   using L = WgSmem<DC, BK>;
+  const int seq_k = kOffset ? seq_k_in : seq_q;
+  const int q_offset = kOffset ? q_offset_in : 0;
   constexpr int NS = BK / 2;       // score floats per thread (m64nBK)
   constexpr int NO = DC * 32;      // accumulator floats per thread
 
@@ -605,11 +643,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t q_s = base;
   const uint32_t q_full = base + L::kBar;
   int q_tile, bh;
-  block_work(blockIdx.x, (seq + kWgBlockQ - 1) / kWgBlockQ, n_bh,
+  block_work(blockIdx.x, (seq_q + kWgBlockQ - 1) / kWgBlockQ, n_bh,
              group_heads, q_tile, bh);
   const int q0 = q_tile * kWgBlockQ;
   const int h = bh % n_heads;
-  const int k_end = causal ? min(seq, q0 + kWgBlockQ) : seq;
+  // key tiles up to the q tile's last position (its rows past seq_q are
+  // never stored)
+  const int k_end = causal ? min(seq_k, q_offset + q0 + kWgBlockQ) : seq_k;
   Loader<DC, BK> ld;
   ld.tm_k = &tm_k;
   ld.tm_v = &tm_v;
@@ -657,6 +697,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // V_{t-1} once its product is done; then thread 0 loads K_{t+2} and
   // V_{t+1} into the stages that frees, a whole iteration ahead of use.
   const int wg_row0 = q0 + 64 * wg;
+  const int wg_pos0 = q_offset + wg_row0;  // its first row's position
   const int row_a = wg_row0 + 16 * (tid / 32) + lane / 4;  // and row_a + 8
   float acc[NO];
 #pragma unroll
@@ -679,18 +720,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }                        \
     __syncwarp();            \
   } while (0)
-#define REPRO_SOFTMAX(t)                                                  \
-  softmax_tile<NS>(s,                                                     \
-                   (n_kv - (t)) * BK > seq ||                             \
-                       (causal && (n_kv - (t)) * BK - 1 > wg_row0),       \
-                   (n_kv - 1 - (t)) * BK, row_a, seq, causal, scale_log2, \
-                   m_a, m_b, l_a, l_b)
+#define REPRO_SOFTMAX(t)                                                    \
+  softmax_tile<NS, kSoftcap>(                                               \
+      s,                                                                    \
+      (n_kv - (t)) * BK > seq_k ||                                          \
+          (causal && (n_kv - (t)) * BK - 1 > wg_pos0),                      \
+      (n_kv - 1 - (t)) * BK, q_offset + row_a, seq_k, causal, scale_a,      \
+      scale_b, m_a, m_b, l_a, l_b)
 
   mbar_wait(q_full, 0);
   // with `causal` and 64-key tiles, the first tile (the diagonal of
   // warpgroup 1) lies wholly after warpgroup 0's rows: it gives zero
   // weight there, so warpgroup 0 only releases it
-  const int n_skip = causal ? max(0, n_kv - 1 - (wg_row0 + 63) / BK) : 0;
+  const int n_skip = causal ? max(0, n_kv - 1 - (wg_pos0 + 63) / BK) : 0;
   for (int t = 0; t < n_skip; ++t) {
     const int stage = t % L::kStages;
     const uint32_t parity = (t / L::kStages) & 1;
@@ -751,7 +793,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const bool first = e % 4 < 2;
     const int row = first ? row_a : row_a + 8;
     const int col = 8 * (e / 4) + 2 * (lane % 4);  // even; d % 8 == 0
-    if (row < seq && col < d) {
+    if (row < seq_q && col < d) {
       const float inv = first ? inv_a : inv_b;
       *reinterpret_cast<uint32_t*>(o_bh + row * st.os + col) =
           pack_bf16(acc[e] * inv, acc[e + 1] * inv);
@@ -822,64 +864,100 @@ bool tma_ok(const void* p, int batch, int seq, int heads, long long sb,
          stride_ok(seq, ss) && stride_ok(heads, sh);
 }
 
-template <int DC, int BK>
+template <int DC, int BK, bool kSoftcap, bool kOffset>
 int launch_wgmma(const void* q, const void* k, const void* v, bf16* o,
-                 const Strides& st, int batch, int seq, int n_heads,
-                 int n_kv_heads, int d, int causal, float scale_log2,
-                 cudaStream_t stream) {
+                 const Strides& st, int batch, int seq_q, int seq_k,
+                 int q_offset, int n_heads, int n_kv_heads, int d, int causal,
+                 float scale_a, float scale_b, cudaStream_t stream) {
   constexpr int smem = WgSmem<DC, BK>::kBytes;
   static bool opted_in = false;  // above 48 KB a kernel must opt in
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_wgmma_kernel<DC, BK>,
+        flash_wgmma_kernel<DC, BK, kSoftcap, kOffset>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode(&tm_q, q, batch, seq, n_heads, d, st.qb, st.qs, st.qh,
+  if (!encode(&tm_q, q, batch, seq_q, n_heads, d, st.qb, st.qs, st.qh,
               kWgBlockQ) ||
-      !encode(&tm_k, k, batch, seq, n_kv_heads, d, st.kb, st.ks, st.kh, BK) ||
-      !encode(&tm_v, v, batch, seq, n_kv_heads, d, st.vb, st.vs, st.vh, BK)) {
+      !encode(&tm_k, k, batch, seq_k, n_kv_heads, d, st.kb, st.ks, st.kh,
+              BK) ||
+      !encode(&tm_v, v, batch, seq_k, n_kv_heads, d, st.vb, st.vs, st.vh,
+              BK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int n_qt = (seq + kWgBlockQ - 1) / kWgBlockQ;
+  const int n_qt = (seq_q + kWgBlockQ - 1) / kWgBlockQ;
   const int n_bh = batch * n_heads;
-  flash_wgmma_kernel<DC, BK><<<n_bh * n_qt, kWgThreads, smem, stream>>>(
-      tm_q, tm_k, tm_v, o, st, seq, n_bh, heads_per_group(n_qt, n_bh),
-      n_heads, n_heads / n_kv_heads, d, causal, scale_log2);
+  flash_wgmma_kernel<DC, BK, kSoftcap, kOffset>
+      <<<n_bh * n_qt, kWgThreads, smem, stream>>>(
+          tm_q, tm_k, tm_v, o, st, seq_q, seq_k, q_offset, n_bh,
+          heads_per_group(n_qt, n_bh), n_heads, n_heads / n_kv_heads, d,
+          causal, scale_a, scale_b);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance for the call: softcapped (with the offset read), offset
+// only, or neither.
+template <int DC, int BK>
+int dispatch(const void* q, const void* k, const void* v, bf16* o,
+             const Strides& st, int batch, int seq_q, int seq_k, int q_offset,
+             int n_heads, int n_kv_heads, int d, int causal, float scale_a,
+             float scale_b, bool capped, cudaStream_t stream) {
+  if (capped) {
+    return launch_wgmma<DC, BK, true, true>(
+        q, k, v, o, st, batch, seq_q, seq_k, q_offset, n_heads, n_kv_heads,
+        d, causal, scale_a, scale_b, stream);
+  }
+  if (q_offset != 0 || seq_k != seq_q) {
+    return launch_wgmma<DC, BK, false, true>(
+        q, k, v, o, st, batch, seq_q, seq_k, q_offset, n_heads, n_kv_heads,
+        d, causal, scale_a, scale_b, stream);
+  }
+  return launch_wgmma<DC, BK, false, false>(
+      q, k, v, o, st, batch, seq_q, seq_k, q_offset, n_heads, n_kv_heads, d,
+      causal, scale_a, scale_b, stream);
 }
 
 }  // namespace
 
-// q, o: (batch, seq, n_heads, d); k, v: (batch, seq, n_kv_heads, d);
-// strides: 12 element strides (batch, seq, head) of q, k, v, o.  A layout
-// TMA cannot read returns cudaErrorInvalidValue (see the header).
+// q, o: (batch, seq_q, n_heads, d); k, v: (batch, seq_k, n_kv_heads, d);
+// strides: 12 element strides (batch, seq, head) of q, k, v, o; query row
+// i at position q_offset + i; softcap > 0 takes the softcapped instance.
+// A layout TMA cannot read, or a negative offset, returns
+// cudaErrorInvalidValue (see the header).
 extern "C" int repro_flash_attention_bf16(
-    const void* q, const void* k, const void* v, void* o, int batch, int seq,
-    int n_heads, int n_kv_heads, int d, const long long* strides, int causal,
-    float scale, void* stream) {
+    const void* q, const void* k, const void* v, void* o, int batch,
+    int seq_q, int seq_k, int n_heads, int n_kv_heads, int d,
+    const long long* strides, int causal, float scale, float softcap,
+    int q_offset, void* stream) {
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
-  if (batch <= 0 || seq <= 0 || d <= 0 || d > 256 || d % 8 != 0 ||
-      n_heads <= 0 || n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
+  if (batch <= 0 || seq_q <= 0 || seq_k <= 0 || q_offset < 0 || d <= 0 ||
+      d > 256 || d % 8 != 0 || n_heads <= 0 || n_kv_heads <= 0 ||
+      n_heads % n_kv_heads != 0 ||
       static_cast<long long>(batch) * n_heads *
-              ((seq + kWgBlockQ - 1) / kWgBlockQ) > 2147483647LL ||
+              ((seq_q + kWgBlockQ - 1) / kWgBlockQ) > 2147483647LL ||
+      static_cast<long long>(q_offset) + seq_q + kWgBlockQ > 2147483647LL ||
       reinterpret_cast<uintptr_t>(o) % 4 != 0 || st.os % 2 != 0 ||
       st.ob % 2 != 0 || st.oh % 2 != 0 ||
-      !tma_ok(q, batch, seq, n_heads, st.qb, st.qs, st.qh) ||
-      !tma_ok(k, batch, seq, n_kv_heads, st.kb, st.ks, st.kh) ||
-      !tma_ok(v, batch, seq, n_kv_heads, st.vb, st.vs, st.vh)) {
+      !tma_ok(q, batch, seq_q, n_heads, st.qb, st.qs, st.qh) ||
+      !tma_ok(k, batch, seq_k, n_kv_heads, st.kb, st.ks, st.kh) ||
+      !tma_ok(v, batch, seq_k, n_kv_heads, st.vb, st.vs, st.vh)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float scale_log2 = scale * kLog2e;
+  const bool capped = softcap > 0.0f;
+  // log2-unit factors of `softmax_tile`
+  const float scale_a =
+      capped ? 2.0f * kLog2e * scale / softcap : scale * kLog2e;
+  const float scale_b = capped ? softcap * kLog2e : 0.0f;
   bf16* ob = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_WG(DC, BK)                                      \
-  return launch_wgmma<DC, BK>(q, k, v, ob, st, batch, seq, n_heads, \
-                              n_kv_heads, d, causal, scale_log2, s)
+#define REPRO_FLASH_WG(DC, BK)                                              \
+  return dispatch<DC, BK>(q, k, v, ob, st, batch, seq_q, seq_k, q_offset,   \
+                          n_heads, n_kv_heads, d, causal, scale_a, scale_b, \
+                          capped, s)
   if (d <= 64) REPRO_FLASH_WG(1, 128);
   if (d <= 128) REPRO_FLASH_WG(2, 128);
   REPRO_FLASH_WG(4, 64);

@@ -2,30 +2,40 @@
 
 Counterpart of ``repro/kernels/flash_attention.py``: forward softmax
 attention, causal or not, scale d^-0.5 by default, fp32 or bf16 in and
-the same type out.  Two entries:
+the same type out, widened to what the JAX zoo's ``causal_attend``
+computes around it: logit softcapping (``softcap > 0``: a logit s =
+scale q.k becomes softcap * tanh(s / softcap) before the mask, as
+``repro/models/layers.py::_softmax_attend`` does) and a query offset
+(query row i sits at position ``q_offset + i``, keys at 0 .. Sk - 1, so
+k and v may be longer than q: a chunk of a prefill against the keys so
+far).  A negative ``q_offset`` raises ``ValueError`` on every device:
+it leaves rows that see no key, where the reference's softmax gives the
+mean of v and the kernels 0.  Two entries:
 
 - ``flash_attention(q, k, v)`` keeps the reference's (BH, S, d)
   signature, batch and heads merged;
 - ``flash_attention_bhsd(q, k, v)``, the reference's MHA entry widened
-  to GQA, reads the serving layout in place: q (B, S, H, d), k (B, S,
-  Hk, d) and v (B, S, Hk, dv) with Hk dividing H and dv <= d, any
+  to GQA, reads the serving layout in place: q (B, Sq, H, d), k (B, Sk,
+  Hk, d) and v (B, Sk, Hk, dv) with Hk dividing H and dv <= d, any
   strides with a unit stride over d; query head h reads kv head
   h // (H / Hk), as ``models.layers._gqa_split`` groups them.  It makes
   no fold copy of q, k or v and no per-head copy of the kv heads, and
-  writes a contiguous (B, S, H, dv) output.  A v narrower than q and k
+  writes a contiguous (B, Sq, H, dv) output.  A v narrower than q and k
   (multi-head latent attention's prefill: d = 192, dv = 128) is copied
   with its columns zero-padded to d before the launch, since the
   kernels take one head width, and the output is cut back to dv.
 
 The kernel is the custom op ``repro_torch::flash_attention``
 (``flash_attention_op``) on the serving layout, with a shape-only
-implementation for fake tensors and a FLOP formula (the causal half of
-q k^T and p v) that ``torch.utils.flop_counter`` reads.  On DTensors
+implementation for fake tensors and a FLOP formula (q k^T and p v over
+the (query, key) pairs the mask keeps) that ``torch.utils.flop_counter``
+reads.  On DTensors
 ``flash_attention_bhsd`` runs it on each shard's heads (``local.py``):
 a batch or head sharding is kept, any other is redistributed first.
 
 On CUDA tensors, bf16 launches the TMA + wgmma tensor-core kernel of
-``csrc/flash_attention_sm90.cu`` and fp32 the CUDA-core kernel of
+``csrc/flash_attention_sm90.cu`` (its softcapped instance when
+``softcap > 0``) and fp32 the CUDA-core kernel of
 ``csrc/flash_attention.cu``; both are built for sm_90a with nvcc at
 first use and loaded with ctypes.  TMA reads a bf16 operand in place
 when d % 8 == 0 and its pointer and strides are 16-byte aligned, as on
@@ -70,39 +80,61 @@ def reset_launch_counts() -> None:
 
 # ---------------------------------------------------------------- plain
 
+def check_offset(q_offset: int) -> None:
+    """A negative query offset leaves rows that see no key: refused."""
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}: rows "
+                         "that see no key are not computed")
+
+
+def causal_pairs(sq: int, sk: int, q_offset: int = 0) -> int:
+    """The (query, key) pairs a causal mask keeps: query i (position
+    q_offset + i) sees min(sk, q_offset + i + 1) keys; summed over i."""
+    a = max(0, min(sq, sk - q_offset))  # rows that see fewer than sk keys
+    return a * q_offset + a * (a + 1) // 2 + (sq - a) * sk
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    """Full fp32 logits, a -1e30 causal mask, softmax, P V, cast to the
-    input dtype: the kernel's plain version (``ref.flash_attention_ref``
-    of the reference).  q, k, v: (BH, S, d)."""
+                          causal: bool = True, scale: Optional[float] = None,
+                          softcap: float = 0.0,
+                          q_offset: int = 0) -> torch.Tensor:
+    """Full fp32 logits, the softcap, a -1e30 causal mask, softmax, P V,
+    cast to the input dtype: the kernel's plain version
+    (``ref.flash_attention_ref`` of the reference, with the zoo's
+    softcap and offset).  q: (BH, Sq, d); k, v: (BH, Sk, d)."""
+    check_offset(q_offset)
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else scale
     logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
     if causal:
-        s = q.shape[1]
-        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-        logits = logits.masked_fill(~mask, _NEG_INF)
+        qpos = q_offset + torch.arange(q.shape[1], device=q.device)
+        kpos = torch.arange(k.shape[1], device=q.device)
+        logits = logits.masked_fill(kpos[None, :] > qpos[:, None], _NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bqk,bkd->bqd", probs, v.float()).to(q.dtype)
 
 
 def flash_attention_bhsd_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, causal: bool = True,
-                               scale: Optional[float] = None) -> torch.Tensor:
+                               scale: Optional[float] = None,
+                               softcap: float = 0.0,
+                               q_offset: int = 0) -> torch.Tensor:
     """The plain version in the serving layout: the kv heads are
     broadcast to the query heads, then ``flash_attention_plain``.
-    q: (B, S, H, d); k: (B, S, Hk, d); v: (B, S, Hk, dv) -> contiguous
-    (B, S, H, dv)."""
+    q: (B, Sq, H, d); k: (B, Sk, Hk, d); v: (B, Sk, Hk, dv) ->
+    contiguous (B, Sq, H, dv)."""
     B, S, H, d = q.shape
 
     def fold(x):
         if x.shape[2] != H:
             x = x.repeat_interleave(H // x.shape[2], dim=2)
-        return x.movedim(2, 1).reshape(B * H, S, x.shape[-1])
+        return x.movedim(2, 1).reshape(B * H, x.shape[1], x.shape[-1])
 
     out = flash_attention_plain(fold(q), fold(k), fold(v), causal=causal,
-                                scale=scale)
+                                scale=scale, softcap=softcap,
+                                q_offset=q_offset)
     return out.reshape(B, H, S, -1).movedim(1, 2).contiguous()
 
 
@@ -134,8 +166,9 @@ def _fn(dtype: torch.dtype):
     """The C entry point for ``dtype``, its library loaded at first use."""
     if dtype not in _FNS:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # q, k, v, o; B, S, H, Hk, d; strides; causal, scale
-        args = [p, p, p, p, i, i, i, i, i, p, i, f]
+        # q, k, v, o; B, Sq, Sk, H, Hk, d; strides; causal, scale,
+        # softcap, q_offset
+        args = [p, p, p, p, i, i, i, i, i, i, p, i, f, f, i]
         if dtype == torch.float32:
             fn = ctypes.CDLL(str(build().path)).repro_flash_attention_f32
         else:
@@ -188,30 +221,30 @@ def _check_pair(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _check_bhsd_shapes(q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor) -> None:
-    """q (B, S, H, d), k (B, S, Hk, d) and v (B, S, Hk, dv) with Hk
-    dividing H and dv <= d, on either device."""
+    """q (B, Sq, H, d), k (B, Sk, Hk, d) and v (B, Sk, Hk, dv) with Hk
+    dividing H, dv <= d and Sk >= 1, on either device."""
     ok = q.dim() == k.dim() == v.dim() == 4
     if ok:
-        B, S, H, d = q.shape
+        B, _, H, d = q.shape
         Hk = k.shape[2]
-        ok = (k.shape[:2] == (B, S) and k.shape[3] == d
+        ok = (k.shape[0] == B and k.shape[1] > 0 and k.shape[3] == d
               and v.shape[:3] == k.shape[:3] and v.shape[3] <= d
               and Hk > 0 and H % Hk == 0)
     if not ok:
-        raise ValueError("expected q (B, S, H, d), k (B, S, Hk, d) and v "
-                         "(B, S, Hk, dv) with Hk dividing H and dv <= d, got "
-                         f"shapes {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+        raise ValueError("expected q (B, Sq, H, d), k (B, Sk, Hk, d) and v "
+                         "(B, Sk, Hk, dv) with Hk dividing H, dv <= d and "
+                         f"Sk >= 1, got shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
 
 
 def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 o: torch.Tensor) -> tuple:
-    """Sizes (B, S, H, Hk, d) and the 12 element strides (batch, seq,
-    head of q, k, v, o) that the C entry points take, for (B, S, H, d)
-    q and o and (B, S, Hk, d) k and v."""
-    B, S, H, d = q.shape
+    """Sizes (B, Sq, Sk, H, Hk, d) and the 12 element strides (batch,
+    seq, head of q, k, v, o) that the C entry points take, for (B, Sq,
+    H, d) q and o and (B, Sk, Hk, d) k and v."""
+    B, Sq, H, d = q.shape
     strides = tuple(s for x in (q, k, v, o) for s in x.stride()[:3])
-    return (B, S, H, k.shape[2], d), strides
+    return (B, Sq, k.shape[1], H, k.shape[2], d), strides
 
 
 def _tma_readable(x: torch.Tensor) -> bool:
@@ -246,9 +279,10 @@ def _value_operand(v: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            scale: Optional[float]) -> torch.Tensor:
-    """One kernel launch on (B, S, H, d) q and (B, S, Hk, d) k, v;
-    returns a contiguous (B, S, H, d) output."""
+            scale: Optional[float], softcap: float,
+            q_offset: int) -> torch.Tensor:
+    """One kernel launch on (B, Sq, H, d) q and (B, Sk, Hk, d) k, v;
+    returns a contiguous (B, Sq, H, d) output."""
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else float(scale)
     if q.dtype == torch.bfloat16:
@@ -263,85 +297,100 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         nvcc.raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          out.data_ptr(), *sizes,
                          (ctypes.c_longlong * 12)(*strides), int(causal),
-                         scale, stream), "flash_attention")
+                         scale, float(softcap), int(q_offset), stream),
+                     "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out if out.shape[-1] == d else out[..., :d].contiguous()
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       causal: bool, scale: Optional[float]) -> torch.Tensor:
-    """The kernel as an op on the serving layout: q (B, S, H, d), k (B,
-    S, Hk, d), v (B, S, Hk, dv) -> a new contiguous (B, S, H, dv).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel after
-    the checks above."""
+                       causal: bool, scale: Optional[float],
+                       softcap: float = 0.0,
+                       q_offset: int = 0) -> torch.Tensor:
+    """The kernel as an op on the serving layout: q (B, Sq, H, d), k (B,
+    Sk, Hk, d), v (B, Sk, Hk, dv) -> a new contiguous (B, Sq, H, dv),
+    query row i at position ``q_offset + i``; ``softcap > 0`` caps the
+    logits.  A negative ``q_offset`` raises ``ValueError`` on every
+    device.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel after the checks above."""
+    check_offset(q_offset)
     if _on_cpu(q=q, k=k, v=v):
         _check_bhsd_shapes(q, k, v)
         return flash_attention_bhsd_plain(q, k, v, causal=causal,
-                                          scale=scale)
+                                          scale=scale, softcap=softcap,
+                                          q_offset=q_offset)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_tensor(name, x, 4)
     _check_bhsd_shapes(q, k, v)
     _check_pair(q, k, v)
     d, dv = q.shape[3], v.shape[3]
     if dv == d:
-        return _launch(q, k, v, causal, scale)
-    return _launch(q, k, _value_operand(v, d), causal,
-                   scale)[..., :dv].contiguous()
+        return _launch(q, k, v, causal, scale, softcap, q_offset)
+    return _launch(q, k, _value_operand(v, d), causal, scale, softcap,
+                   q_offset)[..., :dv].contiguous()
 
 
 @flash_attention_op.register_fake
-def _flash_fake(q, k, v, causal, scale):
+def _flash_fake(q, k, v, causal, scale, softcap=0.0, q_offset=0):
     local.check_fake("flash", q, k, v)
+    check_offset(q_offset)
     _check_bhsd_shapes(q, k, v)
     return q.new_empty(q.shape[:3] + (v.shape[3],))
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
-def flash_flops(q_shape, k_shape, v_shape, causal, scale, *args,
-                out_shape=None, **kwargs) -> int:
+def flash_flops(q_shape, k_shape, v_shape, causal, scale, softcap=0.0,
+                q_offset=0, *args, out_shape=None, **kwargs) -> int:
     """2 flops per multiply-add of q k^T (width d) and of p v (width dv)
-    over the (query, key) pairs the kernel visits: the causal half
-    S (S + 1) / 2 of them when causal."""
-    B, S, H, d = q_shape
-    pairs = S * (S + 1) // 2 if causal else S * S
+    over the (query, key) pairs the kernel visits: when causal, query i
+    (position q_offset + i) against min(Sk, q_offset + i + 1) keys
+    (``causal_pairs``; Sq (Sq + 1) / 2 for a prefill from 0), else
+    Sq Sk."""
+    B, Sq, H, d = q_shape
+    Sk = k_shape[1]
+    pairs = causal_pairs(Sq, Sk, q_offset) if causal else Sq * Sk
     return 2 * B * H * (d + v_shape[3]) * pairs
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """q, k, v: (BH, S, d), batch and heads merged (MHA layout) ->
-    (BH, S, d) in the input dtype."""
+                    causal: bool = True, scale: Optional[float] = None,
+                    softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
+    """q: (BH, Sq, d); k, v: (BH, Sk, d), batch and heads merged (MHA
+    layout) -> (BH, Sq, d) in the input dtype."""
     if not _on_cpu(q=q, k=k, v=v):
         for name, x in (("q", q), ("k", k), ("v", v)):
             _check_tensor(name, x, 3)
-        if k.shape != q.shape or v.shape != q.shape:
-            raise ValueError("q, k and v must have one (BH, S, d) shape, "
-                             f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                             f"{tuple(v.shape)}")
+        if (k.shape != v.shape or k.shape[0] != q.shape[0]
+                or k.shape[2] != q.shape[2]):
+            raise ValueError("expected q (BH, Sq, d) and k, v (BH, Sk, d), "
+                             f"got shapes {tuple(q.shape)}, "
+                             f"{tuple(k.shape)}, {tuple(v.shape)}")
     return flash_attention_op(q[:, :, None], k[:, :, None], v[:, :, None],
-                              causal, scale)[:, :, 0]
+                              causal, scale, softcap, q_offset)[:, :, 0]
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, S, H, d); k: (B, S, Hk, d); v: (B, S, Hk, dv) with Hk
+                         causal: bool = True, scale: Optional[float] = None,
+                         softcap: float = 0.0,
+                         q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, d); k: (B, Sk, Hk, d); v: (B, Sk, Hk, dv) with Hk
     dividing H and dv <= d, read in place (GQA: query head h reads kv
-    head h // (H / Hk)) -> contiguous (B, S, H, dv) in the input dtype.
-    With Hk == H and dv == d it is the reference's
-    ``ops.flash_attention_bhsd``; with dv < d, the reference's
-    ``causal_attend`` (to which MLA's prefill hands a narrower v).
-    DTensors run shard by shard: the batch split as q's is, the heads
-    where both H and Hk divide over the mesh dimension, the rest
-    gathered."""
+    head h // (H / Hk)) -> contiguous (B, Sq, H, dv) in the input dtype;
+    query row i at position ``q_offset`` + i, logits softcapped where
+    ``softcap > 0``.  With Hk == H, dv == d, Sk == Sq and no softcap or
+    offset it is the reference's ``ops.flash_attention_bhsd``; else the
+    reference's ``causal_attend`` (to which MLA's prefill hands a
+    narrower v).  DTensors run shard by shard: the batch split as q's
+    is, the heads where both H and Hk divide over the mesh dimension,
+    the rest gathered."""
     if local.is_dtensor(q):
         B, H, Hk = q.shape[0], q.shape[2], k.shape[2]
         pl = local.keep_shards(
             q, (0, 2), lambda dim, n: (B % n == 0 if dim == 0 else
                                        H % n == 0 and Hk % n == 0))
         return local.call_local(flash_attention_op,
-                                (q, k, v, causal, scale),
-                                (pl, pl, pl, None, None), pl, q.device_mesh)
-    return flash_attention_op(q, k, v, causal, scale)
+                                (q, k, v, causal, scale, softcap, q_offset),
+                                (pl, pl, pl, None, None, None, None), pl,
+                                q.device_mesh)
+    return flash_attention_op(q, k, v, causal, scale, softcap, q_offset)

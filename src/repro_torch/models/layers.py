@@ -13,15 +13,18 @@ the reference's take dict pytrees.  Serving's parameters are frozen
 
 Global prefill attention goes through the hand-written flash-attention
 kernel (``kernels.ops.flash_attention_bhsd``), the route the reference
-keeps for hot paths on its chip.  Global attention in train mode
-(``causal_attend_chunked``) is the reference's q-chunked jnp
-``causal_attend`` in plain torch, which autograd differentiates: the
-flash kernel has no backward, and the reference's train path never
-reaches its Pallas kernel either.  Sliding-window attention
-(``local_attend_chunked``, prefill and train) and decode attention stay
-plain torch, as the reference computes them with einsums outside any
-kernel (its Pallas flash kernel takes no window).  Logit softcapping is
-not ported yet (ROADMAP.md queue 1, item 10) and raises.
+keeps for hot paths on its chip; ``causal_attend`` takes the reference's
+whole signature (a query offset, keys longer than the queries, a scale,
+a softcap and a window: a windowed call takes the plain q-chunked path).
+Global attention in train mode (``causal_attend_chunked``) is the
+reference's q-chunked jnp ``causal_attend`` in plain torch, which
+autograd differentiates: the flash kernel has no backward, and the
+reference's train path never reaches its Pallas kernel either.
+Sliding-window attention (``local_attend_chunked``, prefill and train)
+and decode attention stay plain torch, as the reference computes them
+with einsums outside any kernel (its Pallas flash kernel takes no
+window).  Every path takes the reference's logit softcapping: a logit s
+(after the scale) becomes softcap * tanh(s / softcap) before the mask.
 """
 from __future__ import annotations
 
@@ -33,12 +36,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..kernels.flash_attention import check_offset
 from .config import ArchConfig
 
 Tensor = torch.Tensor
 
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-_TODO = "not ported yet (ROADMAP.md queue 1, item 10)"
 
 
 def frozen(t: Tensor) -> nn.Parameter:
@@ -215,63 +218,81 @@ def _gqa_split(q: Tensor, n_kv: int) -> Tensor:
 
 
 def _softmax_attend(q: Tensor, k: Tensor, v: Tensor, mask: Tensor,
-                    scale: float) -> Tensor:
+                    scale: float, softcap: float = 0.0) -> Tensor:
     """q: (B,Sq,Hk,G,Dh), k: (B,Sk,Hk,Dh), v: (B,Sk,Hk,Dv);
     mask broadcastable to (B,Hk,G,Sq,Sk). Returns (B,Sq,Hk*G,Dv).
 
-    Logits and softmax in fp32; the probabilities are cast to v's dtype
+    Logits and softmax in fp32, softcapped (``softcap > 0``) after the
+    scale and before the mask; the probabilities are cast to v's dtype
     before the product with v, as the reference does."""
     B, Sq, Hk, G, _ = q.shape
     logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
     logits = logits.masked_fill(~mask, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(B, Sq, Hk * G, v.shape[-1])
 
 
-def causal_attend(q: Tensor, k: Tensor, v: Tensor, q_offset: int = 0,
-                  window: int = 0, scale: Optional[float] = None,
-                  softcap: float = 0.0) -> Tensor:
-    """Causal GQA attention over a whole sequence, through the flash
-    kernel.  q: (B,S,H,Dh); k: (B,S,Hk,Dh); v: (B,S,Hk,Dv) with Dv <= Dh
-    (MLA's prefill hands a narrower v); positions 0..S-1.
+def causal_attend(q: Tensor, k: Tensor, v: Tensor,
+                  q_offset: Union[int, Tensor] = 0, window: int = 0,
+                  scale: Optional[float] = None, softcap: float = 0.0,
+                  q_chunk: int = 1024) -> Tensor:
+    """Causal (optionally windowed) GQA attention, the reference's
+    ``causal_attend``.  q: (B,Sq,H,Dh); k: (B,Sk,Hk,Dh); v: (B,Sk,Hk,Dv)
+    with Dv <= Dh (MLA's prefill hands a narrower v).  Query positions
+    are ``q_offset + arange(Sq)``, key positions ``arange(Sk)``: a
+    chunk of a prefill at ``q_offset`` against the keys so far.
+    ``q_offset`` is an int or a 0-d integer tensor, read to the host
+    once (the kernel's grid depends on it); a negative one raises
+    ``ValueError`` (rows that see no key).  ``softcap > 0`` caps the
+    logits before the mask; ``window > 0`` limits a query to the last
+    ``window`` keys.
 
-    The kernel reads the kv heads in place: q head h reads kv head
-    h // (H / Hk), as ``_gqa_split`` groups them.  It takes no window:
-    sliding-window layers go through ``local_attend_chunked``."""
-    if window:
-        raise NotImplementedError("the flash kernel takes no window: "
-                                  "use local_attend_chunked")
-    if softcap:
-        raise NotImplementedError(f"softcapped attention is {_TODO}")
-    if q_offset or k.shape[1] != q.shape[1]:
-        raise NotImplementedError("causal_attend runs a prefill from "
-                                  "position 0 (queries and keys alike)")
+    Without a window it runs the flash kernel, which reads the kv heads
+    in place: q head h reads kv head h // (H / Hk), as ``_gqa_split``
+    groups them.  The kernel takes no window, as the reference's Pallas
+    kernel takes none: a windowed call runs ``causal_attend_chunked``
+    with the reference's banded mask, ``q_chunk`` queries at a time
+    (sliding-window layers of the zoo go through
+    ``local_attend_chunked``)."""
+    q_offset = int(q_offset)
+    check_offset(q_offset)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    return ops.flash_attention_bhsd(q, k, v, causal=True, scale=scale)
+    if window > 0:
+        return causal_attend_chunked(q, k, v, scale, softcap, q_chunk,
+                                     q_offset=q_offset, window=window)
+    return ops.flash_attention_bhsd(q, k, v, causal=True, scale=scale,
+                                    softcap=softcap, q_offset=q_offset)
 
 
 def causal_attend_chunked(q: Tensor, k: Tensor, v: Tensor,
                           scale: Optional[float] = None, softcap: float = 0.0,
-                          q_chunk: int = 1024) -> Tensor:
-    """Causal GQA attention over a whole sequence in plain torch, with
-    q-chunking: the train mode's global attention (the reference's jnp
-    ``causal_attend``), which autograd differentiates.  q: (B,S,H,Dh);
-    k: (B,S,Hk,Dh); v: (B,S,Hk,Dv) (MLA hands a narrower v); positions
-    0..S-1.  Queries go in chunks of ``q_chunk`` against every key, so a
-    chunk's fp32 logits are (B, Hk, G, q_chunk, S), as in the
-    reference."""
-    if softcap:
-        raise NotImplementedError(f"softcapped attention is {_TODO}")
+                          q_chunk: int = 1024, q_offset: int = 0,
+                          window: int = 0) -> Tensor:
+    """Causal GQA attention in plain torch, with q-chunking: the train
+    mode's global attention (the reference's jnp ``causal_attend``),
+    which autograd differentiates, and ``causal_attend``'s windowed
+    route.  q: (B,Sq,H,Dh); k: (B,Sk,Hk,Dh); v: (B,Sk,Hk,Dv) (MLA hands
+    a narrower v); query positions ``q_offset + arange(Sq)``, key
+    positions ``arange(Sk)``; ``window > 0`` also masks keys at or
+    before a query's position minus ``window``.  Queries go in chunks of
+    ``q_chunk`` against every key, so a chunk's fp32 logits are (B, Hk,
+    G, q_chunk, Sk), as in the reference."""
     S, Hk = q.shape[1], k.shape[2]
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     qg = _gqa_split(q, Hk)
-    kpos = torch.arange(k.shape[1], device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
     outs = []
     for s0 in range(0, S, q_chunk):
-        qpos = torch.arange(s0, min(s0 + q_chunk, S), device=q.device)
-        outs.append(_softmax_attend(qg[:, s0:s0 + q_chunk], k, v,
-                                    qpos[:, None] >= kpos[None, :], scale))
+        qpos = torch.arange(q_offset + s0, q_offset + min(s0 + q_chunk, S),
+                            device=q.device)[:, None]
+        mask = qpos >= kpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        outs.append(_softmax_attend(qg[:, s0:s0 + q_chunk], k, v, mask,
+                                    scale, softcap))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
@@ -285,13 +306,15 @@ def local_attend_chunked(q: Tensor, k: Tensor, v: Tensor, window: int,
     The sequence is cut into window-sized chunks (zero-padded at the
     end); chunk i attends to chunks (i-1, i) under the banded (W, 2W)
     mask, and chunk 0 also masks its (zero) previous chunk.  Logits and
-    softmax in fp32, the probabilities cast to v's dtype before the
-    product with v, as the reference does.  The in-place scale and mask
-    act on the logits GEMM's output, which no backward reads (the
-    softmax saves its own output), so autograd runs through it in the
-    train mode."""
-    if softcap:
-        raise NotImplementedError(f"softcapped attention is {_TODO}")
+    softmax in fp32, softcapped (``softcap > 0``) after the scale and
+    before the mask, the probabilities cast to v's dtype before the
+    product with v, as the reference does.  The in-place scale, softcap
+    and mask act on the logits GEMM's output, which no backward reads
+    (the softmax saves its own output), so autograd runs through it in
+    the train mode.  The softcap's tanh runs in place too, but its
+    backward reads its output: under autograd the cap's product is then
+    a new plane, so the train mode keeps one more (B, n, Hk, G, W, 2W)
+    plane per layer, and serving none."""
     B, S, H, Dh = q.shape
     Hk, Dv = k.shape[2], v.shape[-1]
     scale = Dh ** -0.5 if scale is None else scale
@@ -317,10 +340,15 @@ def local_attend_chunked(q: Tensor, k: Tensor, v: Tensor, window: int,
     masks = band.expand(n, W, 2 * W).clone()
     masks[0] &= kpos >= 0     # chunk 0 must not see the (zero) chunk -1
 
-    # scaled and masked in place: one (B, n, Hk, G, W, 2W) fp32 plane
+    # scaled, capped and masked in place: one (B, n, Hk, G, W, 2W) fp32
+    # plane (two under autograd with a softcap, see above)
     logits = torch.einsum("bnqhgd,bnkhd->bnhgqk", qc.float(),
                           k2.float()).mul_(scale)
     del qc, k2
+    if softcap > 0:
+        logits = logits.div_(softcap).tanh_()
+        logits = (logits * softcap if logits.requires_grad
+                  else logits.mul_(softcap))
     logits.masked_fill_(~masks[None, :, None, None], _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     del logits
@@ -340,9 +368,7 @@ def decode_attend(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     (local attention) holds position i - ((i - t) mod C) at slot t after
     token i was written at slot i % C: slots of negative positions are
     masked.  ``window > 0`` also masks positions at or before
-    i - window."""
-    if softcap:
-        raise NotImplementedError(f"softcapped decode attention is {_TODO}")
+    i - window.  ``softcap > 0`` caps the logits before the mask."""
     Hk, C = k_cache.shape[2], k_cache.shape[1]
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     slots = torch.arange(C, device=q.device)
@@ -356,4 +382,4 @@ def decode_attend(q: Tensor, k_cache: Tensor, v_cache: Tensor,
         if window > 0:
             valid &= slots > cache_index - window
     return _softmax_attend(_gqa_split(q, Hk), k_cache, v_cache,
-                           valid[None, None, None, None, :], scale)
+                           valid[None, None, None, None, :], scale, softcap)

@@ -20,6 +20,10 @@ torch with fp32 scores (its ``preferred_element_type=f32`` einsums):
   * naive: expand k and v from the cached latent every step;
   * absorbed: fold W_uk into the query and W_uv into the output, so the
     scores and the context are taken in the latent space.
+
+No path here reads ``cfg.attn_logit_softcap``: the reference's
+``mla_attention`` never applies it, so a latent-attention config that
+sets it computes the logits uncapped, as there.
 """
 from __future__ import annotations
 

@@ -37,8 +37,10 @@ the reference wraps its scan step in ``jax.checkpoint``: only the
 repeat's input is kept, and its blocks run again in the backward pass.
 Head and tail layers are not rematerialised, as in the reference.  The
 MoE aux loss is summed over head, body and tail in every mode.
-Softcapping raises ``NotImplementedError`` (ROADMAP.md queue 1, item
-10).
+``cfg.attn_logit_softcap`` reaches every ``attn`` and ``attn_local``
+attention path in every mode (the flash kernel's softcapped instance in
+a global prefill), as the reference's ``_attn_apply`` passes it;
+``mla`` blocks ignore it, as the reference's ``mla_attention`` does.
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .config import ArchConfig
-from .layers import (MLP, Attention, _TODO, apply_rope, causal_attend,
+from .layers import (MLP, Attention, apply_rope, causal_attend,
                      causal_attend_chunked, decode_attend, frozen,
                      init_attention, init_mlp, linear, local_attend_chunked,
                      mlp, rmsnorm)
@@ -66,16 +68,13 @@ KINDS = ("attn", "attn_local", "mla", "mamba", "rglru")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for what of ``cfg`` the port does not run yet."""
+    """Raise ``ValueError`` for a block kind or modality the zoo does not
+    have, as the reference does."""
     for kind in cfg.layer_pattern:
         if kind not in KINDS:
-            raise NotImplementedError(f"{cfg.name}: {kind!r} blocks are "
-                                      f"{_TODO}")
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
     if cfg.modality not in ("text", "vlm", "audio"):
         raise ValueError(f"{cfg.name}: unknown modality {cfg.modality!r}")
-    if cfg.attn_logit_softcap:
-        raise NotImplementedError(f"{cfg.name}: softcapped attention is "
-                                  f"{_TODO}")
 
 
 # ------------------------------------------------------------------ blocks
@@ -120,7 +119,7 @@ def init_block(generator: torch.Generator, cfg: ArchConfig, kind: str,
                use_moe: bool, dense_ff: Optional[int] = None,
                device=None) -> Union[Block, MambaBlock, RGLRUBlock]:
     if kind not in KINDS:
-        raise NotImplementedError(f"{kind!r} blocks are {_TODO}")
+        raise ValueError(f"unknown block kind {kind!r}")
     dtype, d = cfg.act_dtype, cfg.d_model
     ones = torch.ones(d, dtype=dtype, device=device)
     if kind == "mamba":  # no FFN, as in the reference
@@ -144,6 +143,7 @@ def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
     H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     ap = p.attn
     local = kind == "attn_local"
+    cap = cfg.attn_logit_softcap
     theta = (cfg.rope_theta_local
              if local and cfg.rope_theta_local else cfg.rope_theta)
     q = linear(x, ap.wq).reshape(B, S, H, Dh)
@@ -158,11 +158,11 @@ def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
                    cfg.mrope_sections)
     q = constrain(q, "act_bthd")
     if mode == "train":
-        out = (local_attend_chunked(q, k, v, cfg.window) if local else
-               causal_attend_chunked(q, k, v))
+        out = (local_attend_chunked(q, k, v, cfg.window, softcap=cap)
+               if local else causal_attend_chunked(q, k, v, softcap=cap))
     elif mode == "prefill" and local:
         W = cfg.window
-        out = local_attend_chunked(q, k, v, W)
+        out = local_attend_chunked(q, k, v, W, softcap=cap)
         # the rolling cache holds the last W positions p at slot p % W;
         # with S < W the other slots are zero, as in the reference
         take = min(S, W)
@@ -173,7 +173,7 @@ def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
             cache[name].index_copy_(1, slots,
                                     t[:, S - take:].to(cache[name].dtype))
     elif mode == "prefill":
-        out = causal_attend(q, k, v)
+        out = causal_attend(q, k, v, softcap=cap)
         cache["k"][:, :S] = constrain(k, "kv_cache")
         cache["v"][:, :S] = constrain(v, "kv_cache")
     elif mode == "decode":
@@ -183,7 +183,7 @@ def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
         out = decode_attend(q, constrain(cache["k"], "kv_cache"),
                             constrain(cache["v"], "kv_cache"), cache_index,
                             window=cfg.window if local else 0,
-                            rolling=local)
+                            rolling=local, softcap=cap)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     return linear(out.reshape(B, S, H * Dh), ap.wo)
@@ -198,7 +198,7 @@ def apply_block(cfg: ArchConfig, kind: str, use_moe: bool,
     """Pre-norm residual block. Returns (x, the MoE aux loss, or None
     for a block without an MoE FFN)."""
     if kind not in KINDS:
-        raise NotImplementedError(f"{kind!r} blocks are {_TODO}")
+        raise ValueError(f"unknown block kind {kind!r}")
     h = rmsnorm(x, p.ln1)
     if kind == "mamba":
         return constrain(x + mamba_mixer(cfg, p.mixer, h, mode, cache),
@@ -324,6 +324,13 @@ def apply_decoder(cfg: ArchConfig, dec: Decoder, x: Tensor,
 
     moe = _uses_moe(cfg)
     P = len(pattern)
+    # the input laid out as every block's output is: split by batch.  A
+    # vocab-parallel table whose d is ZeRO-split over data gives an
+    # embedding split over d there; DTensor carries that through the
+    # first block (the norm, the projections' partial sums) into a
+    # backward pass whose attention-output gradient arrives Partial over
+    # data and is gathered whole (one site more than the reference has)
+    x = constrain(x, "act_btd")
 
     def run(kind, use_moe, block, c, x):
         return apply_block(cfg, kind, use_moe, block, x, positions, mode, c,

@@ -246,6 +246,80 @@ def test_cuda_flash_at_the_qwen2vl_and_musicgen_serving_shapes(cuda, shape):
                                rtol=2e-2)
 
 
+# softcap and query offset: (Sq, Sk, q_offset, softcap); S not a multiple
+# of 64 and Sk - q_offset unequal to Sq (short of it, equal, past it)
+FLASH_CAPPED = [(77, 77, 0, 30.0), (70, 201, 100, 0.0), (70, 201, 131, 5.0),
+                (130, 90, 20, 5.0), (1, 65, 64, 50.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 160, 256])
+@pytest.mark.parametrize("sq,sk,q_offset,softcap", FLASH_CAPPED)
+def test_cuda_flash_softcap_and_offset_match_plain(cuda, sq, sk, q_offset,
+                                                   softcap, d, dtype):
+    """Both kernels' softcapped and offset instances against the plain
+    version, GQA 4:2; logits at scale ~3, so that a cap of 5 bites."""
+    q = (3 * _normal(sq + d, (2, sq, 4, d), cuda)).to(dtype)
+    k = _normal(sk + d, (2, sk, 2, d), cuda).to(dtype)
+    v = _normal(sk + d + 1, (2, sk, 2, d), cuda).to(dtype)
+    flash_attention.reset_launch_counts()
+    got = ops.flash_attention_bhsd(q, k, v, softcap=softcap,
+                                   q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash_attention": 1}
+    assert got.shape == q.shape and got.dtype == dtype
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(),
+        flash_attention.flash_attention_bhsd_plain(
+            q, k, v, softcap=softcap, q_offset=q_offset).float(),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_softcap_and_offset_are_deterministic(cuda, dtype):
+    """Repeated calls of the softcapped and offset instances give the same
+    bits; the last 1024 queries of llama's prefill at offset 1024 are
+    the one-shot prefill's rows 1024.. bit for bit (the same q tiles
+    meet the same key tiles in the same order)."""
+    q = _normal(20, (2, 300, 4, 128), cuda).to(dtype)
+    k, v = (_normal(i, (2, 420, 2, 128), cuda).to(dtype) for i in (21, 22))
+    runs = [ops.flash_attention_bhsd(q, k, v, softcap=20.0, q_offset=120)
+            for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    if dtype == torch.bfloat16:
+        q = _normal(0, (4, 2048, 24, 128), cuda).bfloat16()
+        k, v = (_normal(i, (4, 2048, 8, 128), cuda).bfloat16()
+                for i in (1, 2))
+        for cap in (0.0, 50.0):
+            whole = ops.flash_attention_bhsd(q, k, v, softcap=cap)
+            tail = ops.flash_attention_bhsd(q[:, 1024:], k, v, softcap=cap,
+                                            q_offset=1024)
+            assert torch.equal(tail, whole[:, 1024:])
+
+
+#: sha256 of the bf16 kernel's output at llama's prefill shape on the
+#: inputs below, taken from the kernel before it had a softcap or an
+#: offset (NVIDIA H100 80GB HBM3, CUDA 12.8)
+PARENT_LLAMA_SHA256 = ("b0721e0928cbe6564499531b7684a7152ef4cbfff2936b45cc1ff6dde"
+                       "d807063")
+
+
+@pytest.mark.cuda
+def test_cuda_unsoftcapped_flash_is_bit_identical_to_the_parent(cuda):
+    """The instance without softcap computes what the kernel computed
+    before softcap and offsets existed, bit for bit, at llama's shape."""
+    import hashlib
+    q = _normal(0, (4, 2048, 24, 128), cuda).bfloat16()
+    k, v = (_normal(i, (4, 2048, 8, 128), cuda).bfloat16() for i in (1, 2))
+    out = ops.flash_attention_bhsd(q, k, v)
+    digest = hashlib.sha256(
+        out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    assert digest == PARENT_LLAMA_SHA256
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-medium"])
 def test_cuda_modality_smoke_decoders_match_the_cpu(cuda, arch):
@@ -383,7 +457,7 @@ def test_cuda_flash_rejects_what_the_kernel_does_not_take(cuda):
         o = torch.empty_like(x)
         sizes, strides = flash_attention.kernel_args(x, x, x, o)
         err = fn(x.data_ptr(), x.data_ptr(), x.data_ptr(), o.data_ptr(),
-                 *sizes, (ctypes.c_longlong * 12)(*strides), 1, 1.0,
+                 *sizes, (ctypes.c_longlong * 12)(*strides), 1, 1.0, 0.0, 0,
                  torch.cuda.current_stream().cuda_stream)
         assert err != 0
     empty = torch.empty((0, 8, 32), device=cuda)

@@ -120,7 +120,7 @@ def test_flash_attention_bhsd_hands_the_kernel_the_strided_tensors_in_place(
     assert not q.is_contiguous()  # strided views of one (B, S, ., d)
     seen = []
 
-    def kernel(q_, k_, v_, causal, scale):
+    def kernel(q_, k_, v_, causal, scale, softcap, q_offset):
         seen.append(all(x is y for x, y in ((q_, q), (k_, k), (v_, v))))
         return torch.zeros(q_.shape)
 
@@ -198,7 +198,7 @@ def test_kernel_args_are_the_views_own_strides(b):
     q, k, v = base[:, :, :4], base[:, :, 4:6], base[:, :, 6:]
     o = torch.empty((b, 12, 4, 16))
     sizes, strides = flash_attention.kernel_args(q, k, v, o)
-    assert sizes == (b, 12, 4, 2, 16)
+    assert sizes == (b, 12, 12, 4, 2, 16)  # B, Sq, Sk, H, Hk, d
     assert strides == (12 * 7 * 16, 7 * 16, 16) * 3 + (12 * 4 * 16, 4 * 16,
                                                       16)
 

@@ -44,6 +44,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch import sharding  # noqa: E402
 from repro_torch.launch import shapes as tshapes  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 
@@ -72,7 +73,11 @@ def _op_cases():
     h, d = _randn(gen, 10, 7), _randn(gen, 10, 5)
     a = torch.rand(2, 9, 3, generator=gen).requires_grad_()
     b = _randn(gen, 2, 9, 3).requires_grad_()
+    kl, vl = _randn(gen, 2, 11, 2, 16), _randn(gen, 2, 11, 2, 16)
     return {"flash-gqa-fp32": (fa.flash_attention_op, (q, k, v, True, None)),
+            # softcapped, the 8 queries at positions 3.. of 11 keys
+            "flash-softcap-offset-fp32": (fa.flash_attention_op,
+                                          (q, kl, vl, True, None, 30.0, 3)),
             "flash-narrow-v-bf16": (fa.flash_attention_op,
                                     (bq, bk, bk[..., :8].clone(), False,
                                      0.3)),
@@ -103,6 +108,11 @@ def test_op_flop_formulas_count_the_kernels_work():
              2 * B * H * (d + dv) * S * (S + 1) // 2),
             (lambda: ops.flash_attention_bhsd(q, k, v, causal=False),
              2 * B * H * (d + dv) * S * S),
+            # the last 3 queries against all 8 keys, softcapped: query i
+            # sees 5 + i + 1 keys
+            (lambda: ops.flash_attention_bhsd(q[:, 5:], k, v, softcap=30.0,
+                                              q_offset=5),
+             2 * B * H * (d + dv) * (6 + 7 + 8)),
             (lambda: ops.rownorm2(h), gn.cost(12, 7)[0]),
             (lambda: ops.gradnorm_sigma(h, dl), gn.cost(12, 7, 5)[0]),
             (lambda: ops.lru_scan(a, b), 2 * 2 * 9 * 3)):
@@ -388,3 +398,50 @@ def test_meshes_raise_without_enough_ranks():
 def test_host_mesh_asks_for_the_card_by_default():
     with pytest.raises(RuntimeError, match="CUDA device"):
         tmesh.make_host_mesh(1, 1)
+
+
+def test_llama_train_4k_keeps_the_batch_split_through_attention(monkeypatch):
+    """llama3.2-3b x train_4k on 16x16 (full config): the decoder's input
+    is split by batch as a block's output is, so no operand of the
+    (batch, seq, .) activations runs gathered, the attention output's
+    gradient among them (it arrived Partial over data and ran whole
+    before); only the per-example vector's (256,) -> (K, 256 / K) view
+    still is.  Per-device FLOPs and peak fall from 1.588e14 and 6.077e11
+    B (the decoder input unconstrained, torch 2.13) to about 1.19e14 and
+    2.42e11."""
+    shapes = []
+    gathered = sharding._gathered
+
+    def recorded(func, args, kwargs):
+        from torch.distributed.tensor import DTensor
+        shapes.extend(tuple(x.shape) for x in
+                      torch.utils._pytree.tree_leaves((args, kwargs))
+                      if isinstance(x, DTensor))
+        return gathered(func, args, kwargs)
+
+    monkeypatch.setattr(sharding, "_gathered", recorded)
+    rec = dryrun.run_one("llama3.2-3b", "train_4k", False, out_path=None)
+    assert rec["ok"], rec.get("traceback")
+    assert shapes and all(len(s) == 1 for s in shapes), shapes
+    assert rec["flops_per_device"] < 1.3e14
+    assert rec["memory"]["peak_bytes"] < 4e11
+
+
+def test_gemma3_prefill_32k_peak_follows_its_layers():
+    """gemma3-12b x prefill_32k on 16x16 (full config): with the decoder
+    input split by batch, block 0's sliding-window attention runs on
+    its rank's 2 of the 32 sequences.  With the input left split over d
+    (the embedding table's layout) it ran on all 32, and its (32, 32, 8,
+    2, 1024, 2048) fp32 logits set a 4.57e11 B peak at 1 and 2 pattern
+    repeats alike: the law then saw no growth per repeat and gave
+    4.57e11 where the run of every layer peaks at 9.30e11 B (torch
+    2.13).  Now the extrapolated peak is within 10 % of the full-depth
+    run's (7.20e11 against 7.69e11), and the full-depth peak is lower."""
+    rec = dryrun.run_one("gemma3-12b", "prefill_32k", False, out_path=None)
+    full = dryrun.run_one("gemma3-12b", "prefill_32k", False, out_path=None,
+                          full_depth=True)
+    assert rec["ok"] and full["ok"], (rec.get("traceback"),
+                                      full.get("traceback"))
+    peak, full_peak = (r["memory"]["peak_bytes"] for r in (rec, full))
+    assert abs(peak / full_peak - 1.0) < 0.1, (peak, full_peak)
+    assert full_peak < 8.5e11

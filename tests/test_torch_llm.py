@@ -105,27 +105,32 @@ def test_decode_attend_matches_reference(index):
 
 
 def test_unported_attention_paths_raise():
-    """Softcapping is not ported: each of the three attention paths
-    raises on it, and so does a config that sets it, text or vlm (M-RoPE
-    and the vlm modality are ported); the flash path takes no window
-    (local layers have their own path)."""
-    q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="local_attend_chunked"):
-        tl.causal_attend(q, q, q, window=2)
-    for call in (lambda: tl.causal_attend(q, q, q, softcap=30.0),
-                 lambda: tl.local_attend_chunked(q, q, q, 2, softcap=30.0),
-                 lambda: tl.decode_attend(q[:, :1], q, q, 2, rolling=True,
-                                          softcap=30.0)):
-        with pytest.raises(NotImplementedError, match="softcap"):
-            call()
+    """Softcapping and a window are ported: each of the three attention
+    paths runs with a softcap, and ``causal_attend`` with a window, as
+    the reference does; a config that sets the softcap, text or vlm, is
+    supported.  What still raises is a negative ``q_offset`` (rows that
+    see no key), a ``ValueError`` on every route."""
+    q = _normal(40, (1, 12, 4, 8), 2.0)
+    k, v = _normal(41, (1, 12, 2, 8), 2.0), _normal(42, (1, 12, 2, 8))
+    for got, want in (
+            (tl.causal_attend(_t(q), _t(k), _t(v), window=3),
+             jl.causal_attend(q, k, v, window=3)),
+            (tl.causal_attend(_t(q), _t(k), _t(v), softcap=2.0),
+             jl.causal_attend(q, k, v, softcap=2.0)),
+            (tl.local_attend_chunked(_t(q), _t(k), _t(v), 5, softcap=2.0),
+             jl.local_attend_chunked(q, k, v, 5, softcap=2.0)),
+            (tl.decode_attend(_t(q[:, :1]), _t(k), _t(v), 9, window=5,
+                              rolling=True, softcap=2.0),
+             jl.decode_attend(q[:, :1], k, v, jnp.int32(9), window=5,
+                              rolling=True, softcap=2.0))):
+        _close(got, want, TOL)
+    with pytest.raises(ValueError, match="q_offset"):
+        tl.causal_attend(_t(q), _t(k), _t(v), q_offset=-1)
     cfg = smoke_config(ARCH)
-    for bad in (cfg.scaled(attn_logit_softcap=50.0),
-                smoke_config("qwen2-vl-2b").scaled(attn_logit_softcap=30.0)):
-        with pytest.raises(NotImplementedError, match="softcap"):
-            tt.check_supported(bad)
-        with pytest.raises(NotImplementedError, match="softcap"):
-            tt.init_decoder(bad, torch.Generator().manual_seed(0))
-    tt.check_supported(smoke_config("qwen2-vl-2b"))
+    for capped in (cfg.scaled(attn_logit_softcap=50.0),
+                   smoke_config("qwen2-vl-2b").scaled(attn_logit_softcap=30.0)):
+        tt.check_supported(capped)
+        tt.init_decoder(capped, torch.Generator().manual_seed(0))
 
 
 # ------------------------------------------------------------ configs

@@ -60,6 +60,10 @@ def test_main_raises_without_a_gpu_unless_cpu_is_asked(monkeypatch):
                         "--new-tokens", "1"])
     with pytest.raises(ValueError, match="not yet ported"):
         serve_mod.serve("no-such-arch", device="cpu")
-    with pytest.raises(NotImplementedError, match="softcap"):
-        serve_mod.serve(smoke_config("qwen2-vl-2b").scaled(
-            attn_logit_softcap=50.0), device="cpu")
+    # a softcapped config serves on the CPU (the flash kernel's plain
+    # version takes the cap)
+    res = serve_mod.serve(smoke_config("qwen2-vl-2b").scaled(
+        attn_logit_softcap=50.0), batch=1, prompt_len=4, new_tokens=1,
+        device="cpu")
+    assert res.tokens.shape == (1, 2)
+    assert res.launches["prefill"]["flash_attention"] == 0

@@ -336,8 +336,12 @@ def test_constrainer_sees_the_reference_sequence(arch, mode):
                 t_batch["positions"] = t_batch["positions"] + (S - 1)
             tm.make_decode_step(cfg, mla_absorbed=absorbed)(
                 model, tm.make_cache(cfg, B, S), t_batch)
-    assert got == want
-    assert got  # every mode constrains something
+    # the port also constrains the decoder's input as a block's output
+    # (transformer.apply_decoder), one site before the reference's
+    S_in = S if mode in ("prefill", "train") else 1
+    assert got[0] == ("act_btd", (B, S_in, cfg.d_model))
+    assert got[1:] == want
+    assert want  # every mode constrains something
 
 
 # ------------------------------------------------------------ checkpoint

@@ -69,8 +69,16 @@ ARCHS = ["llama3.2-3b", "gemma3-12b", "falcon-mamba-7b",
          "musicgen-medium"]
 #: smoke configs cut otherwise, by a name of their own: deepseek-v2's
 #: cut to 3 layers (a dense head layer and two body repeats, so
-#: adafactor steps a stacked body of two)
-CUTS = {"deepseek-v2-236b@3": ("deepseek-v2-236b", {"n_layers": 3})}
+#: adafactor steps a stacked body of two); gemma3's and llama's with the
+#: reference's attention logit softcapping, at Gemma 2's published 50.0
+#: and at 1.5, where it bites at the smoke decoders' logits
+CUTS = {"deepseek-v2-236b@3": ("deepseek-v2-236b", {"n_layers": 3}),
+        "gemma3-12b@softcap": ("gemma3-12b", {"attn_logit_softcap": 50.0}),
+        "llama3.2-3b@softcap": ("llama3.2-3b", {"attn_logit_softcap": 50.0}),
+        "gemma3-12b@softcap1.5": ("gemma3-12b",
+                                  {"attn_logit_softcap": 1.5})}
+SOFTCAP = ["gemma3-12b@softcap", "llama3.2-3b@softcap",
+           "gemma3-12b@softcap1.5"]
 K = 4
 B, S = 8, 24
 ALPHA = np.array([1.0, 0.0, 1.0, 1.0], np.float32)
@@ -273,10 +281,11 @@ def test_per_example_loss_and_sigma_match_reference():
 
 
 def test_sigma_from_head_forms_p_minus_y_without_a_one_hot(monkeypatch):
-    """The helper equals its former form, softmax - one_hot, at the FEEL
+    """The helper equals its former form, softmax - one_hot (on the CPU
+    the softmax is exp(x - logsumexp x), written out here), at the FEEL
     shape (2000, 84) + (2000, 10), and before the row-norm call it makes
-    one (N, V) plane, the fp32 softmax, and no int64 one: p - y is formed
-    in place."""
+    one (N, V) plane, the fp32 softmax's (x - logsumexp x, exponentiated
+    in place), and no int64 one: p - y is formed in place."""
     from torch.utils._python_dispatch import TorchDispatchMode
     rng = np.random.default_rng(4)
     N, d, V = 2000, 84, 10
@@ -284,7 +293,7 @@ def test_sigma_from_head_forms_p_minus_y_without_a_one_hot(monkeypatch):
     logits = torch.from_numpy(rng.standard_normal((N, V)).astype(np.float32))
     labels = torch.from_numpy(rng.integers(0, V, N))
     former = ops.gradnorm_sigma(
-        h, torch.softmax(logits, dim=-1)
+        h, torch.exp(logits - torch.logsumexp(logits, -1, keepdim=True))
         - torch.nn.functional.one_hot(labels, V).float())
 
     class Planes(TorchDispatchMode):
@@ -311,16 +320,59 @@ def test_sigma_from_head_forms_p_minus_y_without_a_one_hot(monkeypatch):
     monkeypatch.setattr(ops, "gradnorm_sigma", row_norms)
     with Planes() as planes:
         ops.sigma_from_head(h, logits, labels)
-    assert planes.made == [("aten._softmax.default", torch.float32)]
+    assert planes.made == [("aten.sub.Tensor", torch.float32)]
     monkeypatch.undo()
     assert seen["dlogits"].dtype == torch.float32
     assert torch.equal(ops.sigma_from_head(h, logits, labels), former)
 
 
+def test_sigma_stays_accurate_at_a_long_vocabulary():
+    """At gemma3-12b's 262144 columns, each row's mass on one token other
+    than its label (p - y then near 1 + p_max^2, as in a trained
+    model's confident miss), the helper's sigma is within 5e-6 of a
+    float64 recompute on the CPU: 1e-6 here, where torch's CPU softmax
+    gave 4.5e-05 (and 1.5e-4 in a card-vs-CPU replay of gemma3's train
+    steps, the card's within 2.3e-06)."""
+    gen = torch.Generator().manual_seed(5)
+    N, V, d = 16, 262144, 8
+    logits = torch.randn(N, V, generator=gen) * 3
+    labels = torch.randint(0, V, (N,), generator=gen)
+    logits[torch.arange(N), (labels + 1) % V] += 24.0
+    h = torch.randn(N, d, generator=gen)
+    p64 = torch.softmax(logits.double(), -1)
+    p64[torch.arange(N), labels] -= 1.0
+    want = (h.double().square().sum(-1) + 1.0) * p64.square().sum(-1)
+    got = ops.sigma_from_head(h, logits, labels).double()
+    assert float(((got - want).abs() / want).max()) < 5e-6
+
+
+def test_per_example_loss_gradient_stays_accurate_at_a_long_vocabulary():
+    """At 262144 columns the per-example loss's gradient in the logits is
+    within 5e-6 of float64 on the CPU (torch's CPU log_softmax gave
+    5.2e-05, which in a card-vs-CPU replay of gemma3's train steps moved
+    an AdamW embedding entry past the replay rule's bound)."""
+    cfg = smoke_config("llama3.2-3b")
+    gen = torch.Generator().manual_seed(6)
+    B, S, V = 2, 8, 262144
+    logits = torch.randn(B, S, V, generator=gen) * 3
+    labels = torch.randint(0, V, (B, S), generator=gen)
+    logits.view(-1, V)[torch.arange(B * S),
+                       (labels.view(-1) + 1) % V] += 24.0
+    grads = []
+    for dt in (torch.float32, torch.float64):
+        x = logits.to(dt, copy=True).requires_grad_()
+        loss, _ = tm.per_example_loss(cfg, x, {"labels": labels})
+        loss.sum().backward()
+        grads.append(x.grad.double())
+    g, g64 = grads
+    big = g64.abs() > 1e-6
+    assert float(((g - g64).abs() / g64.abs())[big].max()) < 5e-6
+
+
 # ------------------------------------------------------- train forward
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SOFTCAP)
 def test_train_forward_matches_reference(arch, dtype):
     cfg_j, tree = _reference(arch, dtype)
     cfg, model = _port(arch, dtype)
@@ -336,9 +388,29 @@ def test_train_forward_matches_reference(arch, dtype):
     assert (float(aux.detach()) > 0) == (cfg.n_experts > 0)
 
 
+@pytest.mark.parametrize("arch", SOFTCAP)
+def test_softcapped_per_example_loss_matches_reference(arch):
+    """The train mode's per-example loss with softcapped attention (every
+    global and local layer's through the differentiable plain paths);
+    at the 1.5 cap the logits also differ from the uncapped forward's."""
+    cfg_j, tree = _reference(arch)
+    cfg, model = _port(arch)
+    bj, bt = _batch(cfg)
+    logits_j, _, _ = _ref_forward(arch)(tree, bj)
+    logits, _, _ = tm.make_forward(cfg)(model, bt)
+    ex_j, n_j = jm.per_example_loss(cfg_j, logits_j, bj)
+    ex, n = tm.per_example_loss(cfg, logits, bt)
+    _close(_np(ex), ex_j)
+    np.testing.assert_array_equal(n.numpy(), np.asarray(n_j))
+    if cfg.attn_logit_softcap < 50:
+        uncapped, _, _ = tm.make_forward(cfg.scaled(attn_logit_softcap=0.0))(
+            model, bt)
+        assert float((uncapped - logits).detach().abs().max()) > 100 * FP32_TOL
+
+
 # ------------------------------------------------------------ gradients
 
-@pytest.mark.parametrize("arch,feel", [(a, True) for a in ARCHS]
+@pytest.mark.parametrize("arch,feel", [(a, True) for a in ARCHS + SOFTCAP]
                          + [("llama3.2-3b", False),
                             ("falcon-mamba-7b", False)])
 def test_gradients_match_reference(arch, feel):
