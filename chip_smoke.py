@@ -270,11 +270,16 @@ exit) if anything in it fails; no failure is caught:
    ``local_map``); the prefill s, decode ms/step, step ms and peak GiB
    printed beside phases 7 and 25;
 34. the multi-pod dry run on the host's CPU (``launch.dryrun.run_one``,
-   a fake process group of 256 or 512 ranks, fake tensors):
-   llama3.2-3b x train_4k on 16x16 and deepseek-v3-671b x decode_32k on
-   2x16x16, each record and its wall time printed; each must be ``ok``
-   with the reference's parameter counts, and its ``argument_bytes``
-   must equal the sharding rules' arithmetic on a ``MeshShape``.  The
+   a fake process group of 256 or 512 ranks, fake tensors, every layer
+   run, every op partitioned): llama3.2-3b x train_4k and x decode_32k
+   and deepseek-v2-236b x decode_32k on 16x16, deepseek-v3-671b x
+   decode_32k on 2x16x16 (the cache writes and the MoE among them), each
+   record, its wall time, collective bytes and peak printed; each must
+   be ``ok`` with no gathered op, the reference's parameter counts,
+   ``argument_bytes`` equal to the sharding rules' arithmetic on a
+   ``MeshShape``, ``peak_bytes >= argument_bytes``, and FLOPs a device
+   within 1 % of the count pinned beside ``DRY_RUNS`` (torch 2.13 on a
+   CPU), so the count is the same under this host's release.  The
    records are estimates at H100 datasheet rates, not measurements;
 35. softcapped attention: gemma3-12b with ``attn_logit_softcap = 50.0``
    (Gemma 2's published cap) through the entry points: (a) served at
@@ -466,10 +471,22 @@ MESH_TRAIN_STEPS = 3
 SOFTCAP_TRAIN_LAYERS = 6
 SOFTCAP_REPLAY_VOCAB = 32768
 SIGMA_TRAIN_GEMMA = (CUT_BATCH * CUT_SEQ, 3840, 262144)
+LLAMA_TRAIN_FLOPS = 119_360_364_486_656.0
+DSV3_DECODE_FLOPS = 16_836_506_648_576.0
+LLAMA_DECODE_FLOPS = 8_849_719_296.0
+DSV2_DECODE_FLOPS = 33_094_028_328_960.0
+# phase 34: (arch, shape, multi_pod, the reference's total and active
+# parameters, FLOPs a device counted by ``python -m
+# repro_torch.launch.dryrun`` under torch 2.13 on a CPU)
 DRY_RUNS = (("llama3.2-3b", "train_4k", False, 3_606_752_256,
-             3_606_752_256),
+             3_606_752_256, LLAMA_TRAIN_FLOPS),
             ("deepseek-v3-671b", "decode_32k", True, 671_026_404_352,
-             37_552_282_624))
+             37_552_282_624, DSV3_DECODE_FLOPS),
+            ("llama3.2-3b", "decode_32k", False, 3_606_752_256,
+             3_606_752_256, LLAMA_DECODE_FLOPS),
+            ("deepseek-v2-236b", "decode_32k", False, 238_478_310_400,
+             24_112_675_840, DSV2_DECODE_FLOPS))
+DRY_RUN_RTOL = 0.01
 
 
 def die(msg: str) -> None:
@@ -2483,15 +2500,25 @@ def phase_softcap(torch, serve_mod, train_mod, replay, tm, full_fp32,
 
 
 def phase_host_mesh(torch, serve_mod, train_mod, replay, kernels, mesh_mod,
-                    get_config, served7, peak7, train25):
+                    sharding, get_config, served7, peak7, train25):
     """Phase 33: llama3.2-3b at full width and depth on a 1x1
     ``DeviceMesh``, the params DTensors placed by the reference's rules,
     each step under the activation constrainer: phase 7's request
     (``served7``, its peak ``peak7``) and 3 of phase 25's train steps
     (``train25``: its step times, losses and peak), the latter held
     against 3 plain steps of the same seeds.  Every launch count is
-    zeroed just before each mesh run and read just after; returns the
-    serve's and the train run's launches."""
+    zeroed just before each mesh run and read just after; so is a count
+    of the ops that ran on gathered operands (the gathering mode of
+    ``sharding.gather_unsharded_ops``), printed.  Returns the serve's and
+    the train run's launches."""
+    gathered: dict = {}
+    gather = sharding._gathered
+
+    def counted(func, args, kwargs):
+        gathered[str(func)] = gathered.get(str(func), 0) + 1
+        return gather(func, args, kwargs)
+
+    sharding._gathered = counted
     mesh = mesh_mod.make_host_mesh(1, 1)
     print(f"host mesh: {mesh}")
     expected = {"prefill": {"flash_attention": 28, "lru_scan": 0},
@@ -2506,8 +2533,10 @@ def phase_host_mesh(torch, serve_mod, train_mod, replay, kernels, mesh_mod,
     torch.cuda.reset_peak_memory_stats()
     for m in kernels:
         m.reset_launch_counts()
+    gathered.clear()
     res = serve_mod.serve(ARCH, new_tokens=NEW_TOKENS, **kw)
     serve_launches = kernel_launches(kernels)
+    serve_gathered = dict(gathered)
     peak = torch.cuda.max_memory_allocated()
     check(res.launches == expected, f"host mesh serve: launches per phase "
           f"{res.launches}, expected {expected}")
@@ -2537,7 +2566,8 @@ def phase_host_mesh(torch, serve_mod, train_mod, replay, kernels, mesh_mod,
           f"{median_ms(served7.decode_s):.3f}, "
           f"{1e3 * sum(served7.decode_s) / len(served7.decode_s):.3f}) | "
           f"peak {peak / 2**30:.3f} GiB (phase 7: {peak7 / 2**30:.3f}) | "
-          f"launches {serve_launches} per phase {res.launches}")
+          f"launches {serve_launches} per phase {res.launches} | ops on "
+          f"gathered operands {serve_gathered}")
     del res
     torch.cuda.empty_cache()
 
@@ -2560,12 +2590,14 @@ def phase_host_mesh(torch, serve_mod, train_mod, replay, kernels, mesh_mod,
         torch.cuda.reset_peak_memory_stats()
         for m in kernels:
             m.reset_launch_counts()
+        gathered.clear()
         meshed = run(mesh=mesh)
         train_launches = kernel_launches(kernels)
         peak = torch.cuda.max_memory_allocated()
     finally:
         torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
         torch.backends.cudnn.deterministic = saved[2]
+        sharding._gathered = gather
     per_step = {"gradnorm_sigma": 1, "flash_attention": 0, "lru_scan": 0}
     for i, got in enumerate(meshed.launches):
         check(got == per_step, f"host mesh train step {i}: launches {got}, "
@@ -2599,7 +2631,8 @@ def phase_host_mesh(torch, serve_mod, train_mod, replay, kernels, mesh_mod,
           f"1-{MESH_TRAIN_STEPS - 1} "
           f"{[round(t * 1e3, 3) for t in step25[1:MESH_TRAIN_STEPS]]}) | "
           f"peak {peak / 2**30:.3f} GiB (phase 25: {peak25 / 2**30:.3f}) | "
-          f"launches {train_launches}")
+          f"launches {train_launches} | ops on gathered operands "
+          f"{gathered}")
     del plain, meshed
     torch.cuda.empty_cache()
     return serve_launches, train_launches
@@ -2636,21 +2669,37 @@ def phase_dry_runs(torch, dryrun, mesh_mod, sharding, shapes, tm,
                    get_config):
     """Phase 34: the multi-pod dry run on the host's CPU (a fake process
     group, fake tensors), one record per ``DRY_RUNS`` entry, printed
-    with its wall time; each must be ``ok``, with the reference's
-    parameter counts, and argument bytes equal to the rules'
-    arithmetic."""
+    with its wall time, collective bytes and peak; each must be ``ok``
+    at full depth with no gathered op, with the reference's parameter
+    counts, argument bytes equal to the rules' arithmetic, a peak that
+    holds them, and FLOPs within ``DRY_RUN_RTOL`` of the pinned
+    count."""
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()
-    for arch, shape, multi_pod, total, active in DRY_RUNS:
+    for arch, shape, multi_pod, total, active, flops in DRY_RUNS:
         t0 = time.perf_counter()
         rec = dryrun.run_one(arch, shape, multi_pod, out_path=None)
         wall = time.perf_counter() - t0
-        print(f"dry run {arch} x {shape} on {rec['mesh']}: wall {wall:.2f} s "
-              "(an estimate at H100 datasheet rates, not a measurement)")
         print(json.dumps({k: v for k, v in rec.items() if k != "traceback"}))
         check(rec["ok"], f"dry run {arch} x {shape}: {rec.get('error')}\n"
               f"{rec.get('traceback')}")
+        peak, args = (rec["memory"][k] for k in ("peak_bytes",
+                                                 "argument_bytes"))
+        print(f"dry run {arch} x {shape} on {rec['mesh']}: wall {wall:.2f} s, "
+              f"{rec['flops_per_device']:.6e} FLOPs, "
+              f"{rec['collective_bytes_per_device']:.6e} collective B, "
+              f"peak {peak:.6e} B ({args:.6e} argument B) a device (counts "
+              "and estimates at H100 datasheet rates, not measurements)")
+        check(rec["full_depth"] and not rec["gathered_ops"],
+              f"dry run {arch} x {shape}: full depth {rec['full_depth']}, "
+              f"gathered {rec['gathered_ops']}")
+        check(peak >= args, f"dry run {arch} x {shape}: peak {peak:.6e} B "
+              f"under its {args:.6e} argument B")
+        check(abs(rec["flops_per_device"] / flops - 1.0) <= DRY_RUN_RTOL,
+              f"dry run {arch} x {shape}: {rec['flops_per_device']:.6e} "
+              f"FLOPs a device, the pinned count {flops:.6e} (torch 2.13, "
+              f"CPU); rtol {DRY_RUN_RTOL}")
         check((rec["params_total"], rec["params_active"]) == (total, active),
               f"dry run {arch}: params {rec['params_total']:,} total, "
               f"{rec['params_active']:,} active; the reference's {total:,}, "
@@ -3139,8 +3188,8 @@ def main() -> None:
     # -- 33. llama3.2-3b on a 1x1 DeviceMesh -----------------------------
     torch.cuda.empty_cache()
     mesh_serve_launches, mesh_train_launches = phase_host_mesh(
-        torch, serve_mod, train_mod, replay, kernels, mesh_mod, get_config,
-        served7, peak7, train25)
+        torch, serve_mod, train_mod, replay, kernels, mesh_mod, sharding,
+        get_config, served7, peak7, train25)
     del served7
     done("33 host mesh")
 

@@ -13,7 +13,7 @@ are passed.
 from __future__ import annotations
 
 import inspect
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Tuple
 
 import torch
 
@@ -35,6 +35,22 @@ def on_mesh(x: Tensor, mesh) -> Tensor:
     from torch.distributed.tensor import DTensor, Replicate
     return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
+
+
+def local_range(x, dim: int, placements=None) -> Tuple[int, int]:
+    """(first index, length) of this rank's shard of DTensor ``x`` along
+    ``dim`` under ``placements`` (x's own by default), which split it
+    evenly (``Shard(dim)`` on mesh dims in mesh order, as every rule of
+    the launch layer splits)."""
+    from torch.distributed.tensor import Shard
+    mesh, index, count = x.device_mesh, 0, 1
+    for m, pl in enumerate(x.placements if placements is None
+                           else placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            index = index * mesh.size(m) + mesh.get_local_rank(m)
+            count *= mesh.size(m)
+    n = x.shape[dim] // count
+    return index * n, n
 
 
 def check_fake(kernel: str, *xs: Tensor) -> None:
@@ -84,15 +100,21 @@ def rows_over_mesh(x, n_rows: int) -> list:
 
 
 def call_local(fn: Callable, args: tuple, in_placements: tuple,
-               out_placements, mesh) -> Tensor:
+               out_placements, mesh, grad_placements: tuple = None
+               ) -> Tensor:
     """``fn(*args)`` on the local shards of ``args`` (DTensors
     redistributed to ``in_placements``, None for a non-tensor argument),
-    returned as a DTensor with ``out_placements``."""
+    returned as a DTensor with ``out_placements`` (a list; a tuple of
+    them where ``fn`` returns a tuple).  ``grad_placements``: the
+    placements of each argument's gradient where they are not its own
+    (a weight read whole by ranks that each hold other rows gets a
+    partial sum)."""
     from torch.distributed.tensor.experimental import local_map
     accepted = inspect.signature(local_map).parameters
     kwargs = {k: v for k, v in (("out_placements", out_placements),
                                 ("in_placements", in_placements),
+                                ("in_grad_placements", grad_placements),
                                 ("device_mesh", mesh),
                                 ("redistribute_inputs", True))
-              if k in accepted}
+              if k in accepted and v is not None}
     return local_map(fn, **kwargs)(*args)

@@ -54,9 +54,11 @@ def sigma_from_head(h: torch.Tensor, logits: torch.Tensor,
     local to one rank.
     """
     if local.is_dtensor(logits):
+        mesh = logits.device_mesh
         pl = local.rows_over_mesh(logits, logits.shape[0])
+        h, labels = local.on_mesh(h, mesh), local.on_mesh(labels, mesh)
         return local.call_local(_sigma_from_head, (h, logits, labels),
-                                (pl, pl, pl), pl, logits.device_mesh)
+                                (pl, pl, pl), pl, mesh)
     return _sigma_from_head(h, logits, labels)
 
 

@@ -13,16 +13,27 @@ memory and HLO analyses.  Here:
   the reference's sharding rules (``shapes.build_spec``), their local
   shards fake tensors (``FakeTensorMode``): nothing is allocated;
 * the step (train: forward, backward and the optimizer; prefill;
-  decode) runs once under the activation constrainer
-  (``sharding.sharded_step``), eager, op by op, as the card runs it;
-* a dispatch mode below DTensor sees each rank's local ops: FLOPs by
-  ``torch.utils.flop_counter``'s formulas (the kernels' own: the custom
-  ops of ``kernels/``), bytes as each non-view op's inputs and outputs
-  (eager ops are unfused), and the output bytes of each
-  ``c10d_functional`` collective by kind (the reference's rule);
+  decode) runs once, every layer of it, under the activation
+  constrainer (``sharding.sharded_step``), eager, op by op, as the card
+  runs it.  Every op runs partitioned: one that DTensor cannot shard
+  fails the record (``ok: false``, the op named in ``error``) instead
+  of running on gathered operands;
+* a dispatch mode below DTensor (``LocalCost``) sees each rank's local
+  ops: FLOPs by ``torch.utils.flop_counter``'s formulas (the kernels'
+  own: the custom ops of ``kernels/``), bytes as each non-view op's
+  inputs and outputs (eager ops are unfused), and the output bytes of
+  each ``c10d_functional`` collective by kind (the reference's rule;
+  the all-gather and chunk that stand in for an all-to-all on a CPU
+  group count as that all-to-all);
 * memory: ``argument_bytes`` is the local shard bytes of params,
-  optimizer state, batch and cache, ``peak_bytes`` the peak of
-  ``torch.distributed._tools.mem_tracker.MemTracker`` over the step;
+  optimizer state, batch and cache.  ``peak_bytes`` is the rank's
+  highest total of live bytes over the step: the arguments plus every
+  storage the step allocates while it is alive (activations, gradients,
+  the optimizer's temporaries, collective outputs), each storage once,
+  so ``peak_bytes >= argument_bytes``.  The reference's ``peak_bytes`` is XLA's ``peak_memory_in_bytes`` of the compiled
+  program, which also holds its arguments; XLA's buffers are reused
+  and its ops fused, so the port's eager peak is the larger where
+  temporaries pile up;
 * the three time terms use H100 SXM datasheet constants (below): they
   are estimates, not measurements.
 
@@ -31,15 +42,19 @@ Usage:
     python -m repro_torch.launch.dryrun --all                # single pod
     python -m repro_torch.launch.dryrun --all --multi-pod    # 512 ranks
 
+``--arch`` takes the names of ``configs.ARCHS`` and their aliases
+(``llama3.2-3b`` for ``llama3_2-3b``).  ``--fit`` runs the layer pattern
+once and twice and extrapolates, as the reference does with its scan
+(``full_depth: false``, ``peak_is_estimate: true``).
+
 The fields only XLA gives (``hlo_lines``, ``raw_scan_flops``,
 ``t_lower_s``, ``t_compile_s``) are not in the record.  Two are the
-port's own: ``gathered_ops``, the ops that DTensor could not shard and
-that ran on gathered inputs (by name), and ``comparable``, false where
-there is any.  Such a record's memory, FLOPs and collectives are those
-of a program that gathers where XLA would partition, and do not say
-what a partitioned step would spend.  Where this torch release plans a
-redistribution by a graph search, the count takes DTensor's greedy plan
-instead (``_outside_the_count``), so the collectives are that plan's.
+port's own and kept so that old records read alike: ``gathered_ops``,
+the ops that ran on gathered operands (empty: the dry run fails an op
+DTensor cannot shard), and ``comparable``, true where there is none.
+Where this torch release plans a redistribution by a graph search, the
+count takes DTensor's greedy plan instead (``_outside_the_count``), so
+the collectives are that plan's.
 """
 from __future__ import annotations
 
@@ -50,6 +65,7 @@ import json
 import os
 import time
 import traceback
+import weakref
 from typing import Dict, Optional
 
 import torch
@@ -58,7 +74,7 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
-from ..configs import ARCHS
+from ..configs import ALIASES, ARCHS
 from ..models.transformer import _layer_plan
 from . import mesh as mesh_mod
 from . import sharding as sh
@@ -87,17 +103,22 @@ def _nbytes(x) -> int:
 
 
 def collective_bytes(records) -> Dict[str, int]:
-    """Sum the output bytes of each collective, by kind, from
-    ``(c10d_functional op name, output)`` records (a kind the reference
-    has no name for under the op's own); ``count`` is the number of
-    collectives."""
+    """Sum the bytes of each collective, by kind, from ``(c10d_functional
+    op name, output bytes)`` records (a kind the reference has no name
+    for under the op's own); ``count`` is the number of collectives."""
     out = {c: 0 for c in _COLLECTIVES}
     out["count"] = 0
-    for name, output in records:
+    for name, n_bytes in records:
         kind = _KIND.get(name, name)
-        out[kind] = out.get(kind, 0) + _nbytes(output)
+        out[kind] = out.get(kind, 0) + n_bytes
         out["count"] += 1
     return out
+
+
+#: set while DTensor runs an all-to-all as an all-gather and a chunk (its
+#: fallback on a CPU process group); ``LocalCost`` counts it as the
+#: all-to-all it stands for
+_ALL_TO_ALL = [0]
 
 
 class LocalCost(TorchDispatchMode):
@@ -106,13 +127,43 @@ class LocalCost(TorchDispatchMode):
     sees: FLOPs by the registered formulas, bytes as the inputs and
     outputs of every op that is not a view, and each
     ``c10d_functional`` collective's output bytes by kind (waits
-    excluded)."""
+    excluded; the all-gather that stands in for an all-to-all on a CPU
+    group counted as that all-to-all, with its input's bytes, and the
+    chunk after it not counted).  It keeps each collective's kind and
+    byte count, never its output.
+
+    Memory: ``live`` is the bytes of every storage alive on the rank,
+    from the tensors given to ``track`` (the step's arguments) and every
+    op's outputs, each storage counted once and taken off when it is
+    freed; ``peak`` is its highest value."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
         self.bytes = 0
         self.collectives: list = []
+        self.live = 0
+        self.peak = 0
+        self._storages: dict = {}  # key -> (weakref, bytes)
+
+    def track(self, tensors) -> None:
+        for t in tensors:
+            self._add(t)
+
+    def _add(self, t: torch.Tensor, n: Optional[int] = None) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._storages:
+            return
+        n = st.nbytes() if n is None else n
+        self._storages[key] = (weakref.ref(st, lambda _, k=key, n=n:
+                                           self._free(k, n)), n)
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def _free(self, key: int, n: int) -> None:
+        if self._storages.pop(key, None) is not None:
+            self.live -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -122,13 +173,24 @@ class LocalCost(TorchDispatchMode):
         out = func(*args, **kwargs)
         pkt = func._overloadpacket
         if func.namespace == "_c10d_functional":
-            if pkt.__name__ != "wait_tensor":
-                self.collectives.append((pkt.__name__, out))
-            return out
-        if pkt in flop_registry:
-            self.flops += flop_registry[pkt](*args, **kwargs, out_val=out)
-        if not func.is_view:
-            self.bytes += _nbytes((args, kwargs)) + _nbytes(out)
+            name = pkt.__name__
+            if name == "wait_tensor":
+                return args[0]
+            if _ALL_TO_ALL[0]:
+                # the all-to-all's output is as large as its input
+                self.collectives.append(("all_to_all_single",
+                                         _nbytes(args[0])))
+                self._add(out, _nbytes(args[0]))
+                return out
+            self.collectives.append((name, _nbytes(out)))
+        elif not _ALL_TO_ALL[0]:
+            if pkt in flop_registry:
+                self.flops += flop_registry[pkt](*args, **kwargs, out_val=out)
+            if not func.is_view:
+                self.bytes += _nbytes((args, kwargs)) + _nbytes(out)
+        for t in pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self._add(t)
         return out
 
 
@@ -146,6 +208,18 @@ def _greedy(self, src_spec, dst_spec, *args, **kwargs):
     return self.generate_greedy_transform_infos(src_spec, dst_spec)
 
 
+def _counted_as_all_to_all(fn):
+    """DTensor's all-to-all, which on a CPU group runs as an all-gather
+    and a chunk, marked for ``LocalCost`` as the all-to-all it is."""
+    def wrapped(*args, **kwargs):
+        _ALL_TO_ALL[0] += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _ALL_TO_ALL[0] -= 1
+    return wrapped
+
+
 @contextlib.contextmanager
 def _outside_the_count():
     """Adjust three of DTensor's own computations for fake tensors:
@@ -160,9 +234,13 @@ def _outside_the_count():
     * where this release plans a redistribution by a graph search (any
       strided shard), it takes the greedy plan, as it does where the
       search cannot decode a shard: the search prices every candidate
-      layout of every op and takes minutes a step on a 3-D mesh.
+      layout of every op and takes minutes a step on a 3-D mesh;
+    * an all-to-all (``shard_dim_alltoall``, which a CPU group runs as an
+      all-gather and a chunk) is marked, so that ``LocalCost`` counts the
+      all-to-all and not its stand-in.
     """
-    from torch.distributed.tensor import _redistribute, placement_types
+    from torch.distributed.tensor import (_collective_utils, _redistribute,
+                                          placement_types)
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
     meta = ("_propagate_tensor_meta_non_cached"
             if hasattr(ShardingPropagator, "_propagate_tensor_meta_non_cached")
@@ -177,6 +255,11 @@ def _outside_the_count():
             and "generate_graph_based_transform_infos" in vars(planner):
         patched.append((planner, "generate_graph_based_transform_infos",
                         _greedy))
+    a2a = _collective_utils.shard_dim_alltoall
+    for mod in (_collective_utils, _redistribute, placement_types):
+        if getattr(mod, "shard_dim_alltoall", None) is a2a:
+            patched.append((mod, "shard_dim_alltoall",
+                            _counted_as_all_to_all(a2a)))
     saved = [(cls, name, vars(cls)[name], by) for cls, name, by in patched]
     for cls, name, fn, by in saved:
         if by is not None:
@@ -225,27 +308,28 @@ def _params_counts(cfg, model) -> tuple:
 
 
 def _local_tensors(x) -> list:
+    """The local shards of every tensor in ``x`` (nested containers;
+    a module stands for its parameters)."""
     from torch.distributed.tensor import DTensor
-    if isinstance(x, torch.nn.Module):
-        x = list(x.parameters())
-    return [t.to_local() if isinstance(t, DTensor) else t
-            for t in pytree.tree_leaves(x) if isinstance(t, torch.Tensor)]
+    leaves = pytree.tree_leaves(x, is_leaf=lambda v: isinstance(
+        v, torch.nn.Module))
+    tensors = [t for v in leaves for t in (
+        v.parameters() if isinstance(v, torch.nn.Module) else [v])
+        if isinstance(t, torch.Tensor)]
+    return [t.to_local() if isinstance(t, DTensor) else t for t in tensors]
 
 
 def _run_step(spec, strategy: str) -> dict:
-    """One step of ``spec`` under the constrainer, counted."""
-    from torch.distributed._tools.mem_tracker import MemTracker
+    """One step of ``spec`` under the constrainer, counted; an op that
+    DTensor cannot shard raises (``gather_unsharded_ops(strict=True)``)."""
     mesh = spec.args[0].decoder.final_norm.device_mesh
-    cost, tracker = LocalCost(), MemTracker()
-    tracker.track_external(*_local_tensors(spec.args))
-    with cost, tracker, sh.sharded_step(mesh, strategy) as gathered:
+    cost = LocalCost()
+    cost.track(_local_tensors(spec.args))
+    with cost, sh.sharded_step(mesh, strategy, strict=True) as gathered:
         spec.step_fn(*spec.args)
-    peak = tracker.get_tracker_snapshot("peak")
-    coll = collective_bytes(cost.collectives)
     return {"flops": float(cost.flops), "bytes": float(cost.bytes),
-            "coll": coll, "gathered": dict(gathered.ops),
-            "peak": float(max(d["Total"] for d in peak.values())
-                          if peak else 0)}
+            "coll": collective_bytes(cost.collectives),
+            "gathered": dict(gathered.ops), "peak": float(cost.peak)}
 
 
 def _layers(cfg, repeats: int) -> int:
@@ -259,19 +343,23 @@ def run_one(arch: str, shape: str, multi_pod: bool, feel: bool = True,
             mla_absorbed: bool = False, variant: str = "baseline",
             out_path: Optional[str] = "experiments/dryrun.jsonl",
             cfg_overrides: Optional[dict] = None,
-            strategy: str = "tp", full_depth: bool = False) -> dict:
+            strategy: str = "tp", full_depth: bool = True,
+            mesh_shape: Optional[mesh_mod.MeshShape] = None) -> dict:
     """Run (arch x shape) on the production mesh; append its record to
     ``out_path`` (unless None) and return it.
 
-    As the reference does, the step runs with the layer pattern repeated
-    once and twice, and each count is extrapolated to the config's
-    ``n_body`` repeats by F(u) = outside + u * body (flops, bytes, each
-    collective kind, peak memory); ``full_depth`` runs every layer
-    instead.  ``argument_bytes`` and the parameter counts are the full
-    config's.
+    The step runs every layer, as the reference's scanned program does,
+    and every count is that run's.  With ``full_depth=False`` it runs
+    the layer pattern repeated once and twice instead, and extrapolates
+    each count to the config's ``n_body`` repeats by the reference's law
+    F(u) = outside + u * body (flops, bytes, each collective kind, peak
+    memory); such a record says ``full_depth: false`` and
+    ``peak_is_estimate: true``, since the law does not bound a peak.
+    ``argument_bytes`` and the parameter counts are the full config's.
+    ``mesh_shape`` replaces the production mesh (a smaller fake mesh).
     """
     from torch._subclasses.fake_tensor import FakeTensorMode
-    mshape = mesh_mod.production_shape(multi_pod=multi_pod)
+    mshape = mesh_shape or mesh_mod.production_shape(multi_pod=multi_pod)
     rec = {"arch": arch, "shape": shape,
            "mesh": "x".join(str(s) for s in mshape.sizes),
            "multi_pod": multi_pod, "variant": variant, "feel": feel,
@@ -290,7 +378,8 @@ def run_one(arch: str, shape: str, multi_pod: bool, feel: bool = True,
             spec = spec_of(cfg_overrides)
             cfg = spec.cfg
             n_body = _layer_plan(cfg)[1]
-            if full_depth or n_body < 2:
+            full = full_depth or n_body < 2
+            if full:
                 m = _run_step(spec, strategy)
             else:
                 m1, m2 = (_run_step(spec_of({**(cfg_overrides or {}),
@@ -300,7 +389,8 @@ def run_one(arch: str, shape: str, multi_pod: bool, feel: bool = True,
         coll = m["coll"]
         coll_total = sum(v for k, v in coll.items() if k != "count")
         rec.update(
-            ok=True, n_body=n_body, full_depth=full_depth or n_body < 2,
+            ok=True, n_body=n_body, full_depth=full,
+            peak_is_estimate=not full,
             flops_per_device=m["flops"], bytes_per_device=m["bytes"],
             collective_bytes_per_device=coll_total, collectives=coll,
             memory={"argument_bytes": spec.argument_bytes,
@@ -356,7 +446,8 @@ def _extrapolate(m1: dict, m2: dict, n_body: int) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
-    ap.add_argument("--arch", choices=ARCHS + ["all"], default=None)
+    ap.add_argument("--arch", choices=ARCHS + list(ALIASES) + ["all"],
+                    default=None)
     ap.add_argument("--shape", choices=list(SHAPES) + ["all"], default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
@@ -365,13 +456,14 @@ def main(argv=None):
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--strategy", default="tp", choices=["tp", "fsdp"])
     ap.add_argument("--out", default="experiments/dryrun.jsonl")
-    ap.add_argument("--full-depth", action="store_true",
-                    help="run every layer (default: 1 and 2 repeats of the "
-                         "layer pattern, extrapolated)")
+    ap.add_argument("--fit", action="store_true",
+                    help="run the layer pattern repeated once and twice and "
+                         "extrapolate (default: every layer); the peak is "
+                         "then an estimate")
     args = ap.parse_args(argv)
 
     archs = ARCHS if (args.all or args.arch in (None, "all")) \
-        else [args.arch]
+        else [ALIASES.get(args.arch, args.arch)]
     shapes = list(SHAPES) if (args.all or args.shape in (None, "all")) \
         else [args.shape]
 
@@ -386,12 +478,12 @@ def main(argv=None):
                           mla_absorbed=args.mla_absorbed,
                           variant=args.variant, out_path=args.out,
                           strategy=args.strategy,
-                          full_depth=args.full_depth)
+                          full_depth=not args.fit)
             records.append(rec)
             status = "OK  " if rec["ok"] else "FAIL"
-            extra = (f"flops/dev={rec.get('flops_per_device', 0):.3g} "
-                     f"bottleneck={rec.get('bottleneck')} "
-                     f"comparable={rec.get('comparable')}"
+            extra = (f"flops/dev={rec['flops_per_device']:.3g} "
+                     f"peak/dev={rec['memory']['peak_bytes']:.3g} "
+                     f"bottleneck={rec['bottleneck']}"
                      if rec["ok"] else rec.get("error", ""))
             print(f"{status} {arch:>20s} x {shape:<12s} mesh={rec['mesh']} "
                   f"t={rec['t_total_s']}s {extra}", flush=True)

@@ -41,7 +41,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..kernels.local import is_dtensor
 from ..models.config import ArchConfig
-from ..models.shard_ctx import use_constrainer
+from ..models.shard_ctx import use_constrainer, use_relayout
 from ..models.transformer import _layer_plan
 from . import mesh as mesh_mod
 
@@ -364,10 +364,9 @@ def distribute_tree(tree, shardings):
 
 # ---------------------------------------------------------- activations
 
-def activation_constrainer(mesh, strategy: str = "tp"):
-    """Constrainer for ``repro_torch.models.shard_ctx`` logical names: a
-    DTensor is redistributed to the name's placements (the counterpart
-    of ``jax.lax.with_sharding_constraint``); a plain tensor passes."""
+def _activation_specs(mesh, strategy: str = "tp"):
+    """``spec(name, shape)``: the reference's spec of an activation of
+    logical name ``name`` and ``shape``."""
     data_ax = mesh_mod.data_axes(mesh)
     model = mesh_mod.model_size(mesh)
     data = mesh_mod.data_size(mesh)
@@ -411,6 +410,15 @@ def activation_constrainer(mesh, strategy: str = "tp"):
             return spec
         return spec
 
+    return build_spec
+
+
+def activation_constrainer(mesh, strategy: str = "tp"):
+    """Constrainer for ``repro_torch.models.shard_ctx`` logical names: a
+    DTensor is redistributed to the name's placements (the counterpart
+    of ``jax.lax.with_sharding_constraint``); a plain tensor passes."""
+    build_spec = _activation_specs(mesh, strategy)
+
     def constrain(x, name):
         if x.ndim < 2 or not is_dtensor(x):
             return x
@@ -422,9 +430,98 @@ def activation_constrainer(mesh, strategy: str = "tp"):
     return constrain
 
 
+def _leading_dims(old, new) -> Dict[int, int]:
+    """{dim of ``new``: dim of ``old``} for each dim of ``new`` that leads
+    a run of dims whose sizes multiply to the product of a run of
+    ``old``'s (a view's split or merge): a split of that ``new`` dim over
+    n ranks is a split of the ``old`` dim over n."""
+    out: Dict[int, int] = {}
+    i = j = 0
+    while i < len(old) and j < len(new):
+        out[j] = i
+        po, pn = old[i], new[j]
+        i, j = i + 1, j + 1
+        while po != pn:
+            if po < pn:
+                po, i = po * old[i], i + 1
+            else:
+                pn, j = pn * new[j], j + 1
+    return out
+
+
+def _viewable(x, shape) -> tuple:
+    """``x``'s placements with each split that its view as ``shape``
+    cannot keep made ``Replicate``."""
+    from torch.distributed.tensor import Replicate, Shard
+    new_of = {i: j for j, i in _leading_dims(tuple(x.shape), shape).items()}
+    out, used = [], {}
+    for m, pl in enumerate(x.placements):
+        j = new_of.get(pl.dim) if isinstance(pl, Shard) else None
+        n = used.get(j, 1) * x.device_mesh.size(m)
+        if j is not None and shape[j] % n == 0:
+            used[j] = n
+            out.append(pl)
+        else:
+            out.append(Replicate() if isinstance(pl, Shard) else pl)
+    return tuple(out)
+
+
+def activation_relayout(mesh, strategy: str = "tp"):
+    """Relayout for ``repro_torch.models.shard_ctx.relayout``: the port's
+    own layout steps, where the reference's partitioner lays out a view
+    or a small vector by itself.  ``relayout(x, name, shape)`` gives a
+    DTensor ``x`` redistributed:
+      * to a rule's name: so that its view as ``shape`` is laid out as
+        the constraint ``name`` lays out ``shape`` (each split dim takes
+        the entry of the new dim that leads it), the view then running
+        on each rank's shard;
+      * ``"replicated"``: the whole tensor on every rank;
+      * ``"rows"``: its splits of the leading dims kept, its last dim
+        whole (partial sums reduced);
+      * None: each split of ``x`` kept where the view keeps it (a split
+        of a dim that leads its run, into a new dim it divides), the
+        others gathered.
+    A plain tensor passes.  ``relayout.placements(name, shape)``: the
+    placements the constraint ``name`` gives a tensor of ``shape``."""
+    from torch.distributed.tensor import Replicate, Shard
+    build_spec = _activation_specs(mesh, strategy)
+
+    def relayout(x, name, shape=None):
+        if not is_dtensor(x):
+            return x
+        if name == "replicated":
+            placements = (Replicate(),) * x.device_mesh.ndim
+        elif name == "rows":
+            placements = tuple(
+                pl if isinstance(pl, Shard) and pl.dim < x.ndim - 1
+                else Replicate() for pl in x.placements)
+        elif name is None:
+            placements = _viewable(x, tuple(shape))
+        else:
+            shape = tuple(x.shape) if shape is None else tuple(shape)
+            spec = build_spec(name, shape)
+            lead = _leading_dims(tuple(x.shape), shape)
+            old: list = [None] * x.ndim
+            for j, entry in enumerate(spec):
+                if entry is not None and j in lead:
+                    old[lead[j]] = entry
+            placements = to_placements(mesh, tuple(old))
+        if tuple(x.placements) == placements:
+            return x
+        return x.redistribute(x.device_mesh, placements)
+
+    relayout.placements = lambda name, shape: to_placements(
+        mesh, tuple(build_spec(name, tuple(shape))))
+    return relayout
+
+
+@contextlib.contextmanager
 def with_mesh_constraints(mesh, strategy: str = "tp"):
-    """Context manager installing the activation constrainer."""
-    return use_constrainer(activation_constrainer(mesh, strategy))
+    """Context manager installing the activation constrainer and the
+    port's relayout."""
+    with use_constrainer(activation_constrainer(mesh, strategy)), \
+            use_relayout(activation_relayout(mesh, strategy)):
+        yield
 
 
 # ------------------------------------------------ ops with no DTensor rule
@@ -498,13 +595,18 @@ class gather_unsharded_ops(TorchDispatchMode):
     nothing is gathered and the op reads and writes the tensors
     themselves, in place too.
 
+    With ``strict`` it gathers nothing: such an op raises a
+    ``RuntimeError`` that names it and its operands' layouts (the dry
+    run, which counts a partitioned step).
+
     Any Python dispatch mode takes DTensor off its C++ fast path, so a
     step under this one runs slower even where no op falls back; the
     mode keeps its own work per op to a type test and a set lookup.
     """
 
-    def __init__(self):
+    def __init__(self, strict: bool = False):
         super().__init__()
+        self.strict = strict
         from torch.distributed.tensor import DTensor
         self._dtensor = DTensor
         self.ops: Dict[str, int] = collections.Counter()
@@ -529,17 +631,22 @@ class gather_unsharded_ops(TorchDispatchMode):
                                        "its inputs, a malformed output")
             self._failed.add(_key(func, args, kwargs))
             self._failed_funcs.add(func)
+        if self.strict:
+            raise RuntimeError(f"DTensor cannot shard {func} on "
+                               f"{_key(func, args, kwargs)[1]}: it would run "
+                               "on gathered operands")
         self.ops[str(func)] += 1
         return _gathered(func, args, kwargs)
 
 
 @contextlib.contextmanager
-def sharded_step(mesh, strategy: str = "tp"):
-    """The context a step runs in on a mesh: the activation constrainer,
-    plain tensors (made inside the model) taken as replicated, and
-    ``gather_unsharded_ops``, which it yields."""
+def sharded_step(mesh, strategy: str = "tp", strict: bool = False):
+    """The context a step runs in on a mesh: the activation constrainer
+    and relayout, plain tensors (made inside the model) taken as
+    replicated, and ``gather_unsharded_ops(strict)``, which it
+    yields."""
     from torch.distributed.tensor.experimental import implicit_replication
     with contextlib.ExitStack() as stack:
         stack.enter_context(with_mesh_constraints(mesh, strategy))
         stack.enter_context(implicit_replication())
-        yield stack.enter_context(gather_unsharded_ops())
+        yield stack.enter_context(gather_unsharded_ops(strict))

@@ -35,9 +35,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import ops
+from ..kernels import local, ops
 from ..kernels.flash_attention import check_offset
 from .config import ArchConfig
+from .shard_ctx import relayout, replicated
 
 Tensor = torch.Tensor
 
@@ -55,19 +56,67 @@ def linear(x: Tensor, w: Tensor) -> Tensor:
     leading dims: what ``x @ w`` folds to for a contiguous x.  ``@`` on a
     3-D DTensor decides between that and a batched GEMM by the DTensor's
     own strides, which for a size-1 dim (a decode step) need not be a
-    contiguous tensor's, and the batched GEMM rounds otherwise; this way
-    a step on a mesh takes the GEMMs of the step without one."""
+    contiguous tensor's, and the batched GEMM rounds otherwise; on a mesh
+    the GEMM runs partitioned (``matmul``), on each rank's shards."""
+    if local.is_dtensor(x):
+        return _partitioned(_linear, x, w)
+    return _linear(x, w)
+
+
+def _linear(x: Tensor, w: Tensor) -> Tensor:
     return (x.reshape(-1, x.shape[-1]) @ w).view(*x.shape[:-1], w.shape[-1])
+
+
+def matmul(x: Tensor, w: Tensor) -> Tensor:
+    """``x @ w`` for an activation x (..., d_in) and a weight w (d_in,
+    d_out).  On a mesh it runs as one GEMM on each rank's shards: per
+    mesh dim, where x's rows are split, w is read whole; where x's
+    features or w's rows are split, the contraction is (a partial sum
+    out); where w's output features are split, x is read whole.  Folding
+    x's leading dims into rows, as DTensor's own rule for ``@`` does,
+    cannot split a dim that is split inside another (a cache split by
+    sequence within its batch split)."""
+    if local.is_dtensor(x):
+        return _partitioned(torch.matmul, x, w)
+    return x @ w
+
+
+def _partitioned(fn, x: Tensor, w: Tensor) -> Tensor:
+    """``fn(x, w)`` (a GEMM of x's last dim with w's first) on each
+    rank's shards, as ``matmul`` lays them out; the gradients' placements
+    follow (w read whole by split rows: a partial sum)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, last = x.device_mesh, x.ndim - 1
+    w = local.on_mesh(w, mesh)
+    R = Replicate()
+    xp, wp, op, xg, wg = [], [], [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        if isinstance(px, Shard) and px.dim < last:      # rows
+            row = (px, R, Shard(px.dim), px, Partial())
+        elif (isinstance(px, Shard) or isinstance(pw, Shard)
+              and pw.dim == 0):                          # contraction
+            row = (Shard(last), Shard(0), Partial(), Shard(last), Shard(0))
+        elif isinstance(pw, Shard):                      # output features
+            row = (R, pw, Shard(last), Partial(), pw)
+        else:
+            row = (R, R, R, R, R)
+        for acc, pl in zip((xp, wp, op, xg, wg), row):
+            acc.append(pl)
+    return local.call_local(fn, (x, w), (xp, wp), op, mesh,
+                            grad_placements=(xg, wg))
 
 
 # ------------------------------------------------------------------ norms
 
 def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
-    """Computed in fp32 and cast back to the input dtype."""
-    xf = x.float()
+    """Computed in fp32 and cast back to the input dtype.  On a mesh each
+    row is read whole (an MLA latent is split over "model"), and so is
+    the scale (a stacked body's norm is split over "model" by the
+    rules): the norm runs on each rank's rows."""
+    xf = relayout(x, "rows").float()
     var = xf.square().mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * scale.float()).to(x.dtype)
+    return (y * replicated(scale).float()).to(x.dtype)
 
 
 def init_normal(generator: torch.Generator, shape: Tuple[int, ...],
@@ -92,6 +141,140 @@ def init_dense(generator: torch.Generator, d_in: int, d_out: int,
                dtype: torch.dtype, device=None) -> Tensor:
     """(d_in, d_out) normal draws scaled by d_in^-0.5, drawn in fp32."""
     return init_normal(generator, (d_in, d_out), d_in ** -0.5, dtype, device)
+
+
+def write_slots(cache: Tensor, new: Tensor, start: int) -> None:
+    """Write ``new`` (B, n, ...) into slots ``start``..``start + n - 1`` of
+    ``cache`` (B, C, ...), in place, the slots wrapping modulo C (a
+    rolling buffer's last positions).  On a mesh each rank writes the
+    slots that fall in its own shard of the cache, from the new slots
+    laid out as the cache is with their slot dim whole: no rank gathers
+    the cache."""
+    start, n, C = int(start), new.shape[1], cache.shape[1]
+    out, lo_c, hi_c = cache, 0, C
+    if local.is_dtensor(cache):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = cache.device_mesh
+        whole = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+                 for p in cache.placements]
+        new = local.on_mesh(new, mesh).redistribute(mesh, whole).to_local()
+        lo_c, n_c = local.local_range(cache, 1)
+        out, hi_c = cache.to_local(), lo_c + n_c
+    # slot t holds new[:, t - first]: the slots from ``start`` up to C,
+    # then from 0 where they wrap
+    for first in (start, start - C):
+        lo, hi = max(first, lo_c), min(first + n, hi_c)
+        if lo < hi:
+            out[:, lo - lo_c:hi - lo_c] = new[:, lo - first:hi - first]
+
+
+def embedding(table: Tensor, ids: Tensor) -> Tensor:
+    """``table[ids]``: rows of a (V, d) table for integer ids (B, S).  On
+    a mesh it is the lookup of a vocab-parallel table, partitioned: per
+    mesh dim, where the ids' batch is split, each rank looks up its own
+    sequences (the table read whole there); where the vocabulary is, its
+    own rows, the others 0 (a partial sum out); where d is, its own
+    features."""
+    if not local.is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    ids = local.on_mesh(ids, mesh)
+    R = Replicate()
+    tp, ip, op, tg = [], [], [], []
+    for pt, pi in zip(table.placements, ids.placements):
+        if isinstance(pi, Shard) and pi.dim == 0:        # sequences
+            row = (R, pi, Shard(0), Partial())
+        elif isinstance(pt, Shard) and pt.dim == 0:      # vocabulary
+            row = (pt, R, Partial(), pt)
+        elif isinstance(pt, Shard):                      # features
+            row = (pt, R, Shard(ids.ndim), pt)
+        else:
+            row = (R, R, R, R)
+        for acc, pl in zip((tp, ip, op, tg), row):
+            acc.append(pl)
+    v0, n = local.local_range(table, 0, tp)
+    if n == table.shape[0]:
+        def lookup(t, i):
+            return t[i]
+    else:
+        def lookup(t, i):
+            mine = (i >= v0) & (i < v0 + n)
+            return t[(i - v0).clamp(0, n - 1)].masked_fill(~mine[..., None],
+                                                           0)
+    return local.call_local(lookup, (table, ids), (tp, ip), op, mesh,
+                            grad_placements=(tg, ip))
+
+
+def _batch_heads(q: Tensor, *others: Tensor) -> list:
+    """q's placements kept where they split its batch, or its heads when
+    q's and every 4-D operand's heads divide there; ``Replicate()``
+    elsewhere."""
+    B = q.shape[0]
+    heads = [q.shape[2]] + [t.shape[2] for t in others if t.ndim == 4]
+    return local.keep_shards(
+        q, (0, 2), lambda dim, n: (B % n == 0 if dim == 0 else
+                                   all(h % n == 0 for h in heads)))
+
+
+def on_batch_heads(fn, q: Tensor, *others: Tensor) -> Tensor:
+    """``fn(q, *others)``: attention with q (B, Sq, H, .) and operands
+    (B, Sk, Hk, .) or (B, Sk, .).  On a mesh it runs on each rank's
+    shards: its sequences where q's batch is split, its heads where q's
+    and every 4-D operand's heads are split alike and divide, every
+    position whole; the output (B, Sq, H, .) is split as q then is."""
+    if not local.is_dtensor(q):
+        return fn(q, *others)
+    from torch.distributed.tensor import Replicate, Shard
+    pq = _batch_heads(q, *others)
+    batch = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+             for pl in pq]
+    pls = tuple(pq if t.ndim == 4 else batch for t in others)
+    return local.call_local(fn, (q,) + others, (pq,) + pls, pq,
+                            q.device_mesh)
+
+
+def _row_dims(q: Tensor, *others: Tensor) -> list:
+    """The mesh dims (of more than one rank) where attention with q
+    would run whole on every rank, q's batch and heads split on none of
+    them (``_batch_heads``: 24 heads over 16 ranks), when q's rows
+    divide into two blocks per rank across them; else []."""
+    from torch.distributed.tensor import Replicate
+    mesh = q.device_mesh
+    dims = [m for m, p in enumerate(_batch_heads(q, *others))
+            if isinstance(p, Replicate) and mesh.size(m) > 1]
+    n = math.prod(mesh.size(m) for m in dims)
+    return dims if dims and q.shape[1] % (2 * n) == 0 else []
+
+
+def _on_query_rows(fn, q: Tensor, k: Tensor, v: Tensor, q_offset: int,
+                   dims: list) -> Tensor:
+    """``fn(q, k, v, q_offset)``, causal attention, on DTensors, split by
+    q's rows over the mesh dims ``dims`` (``_row_dims``) and as
+    ``on_batch_heads`` over the others.  Of 2n blocks of rows, the i-th
+    of the n ranks across ``dims`` takes blocks i and 2n - 1 - i, so
+    every rank does the same causal work; each attends against every
+    key, and its output holds its rows and zeros elsewhere: a partial
+    sum over ``dims``, as are the gradients of q, k and v."""
+    from torch.distributed.tensor import Partial
+    mesh = q.device_mesh
+    pq = _batch_heads(q, k, v)
+    i, n = 0, 1
+    for m in dims:
+        i, n = i * mesh.size(m) + mesh.get_local_rank(m), n * mesh.size(m)
+    c = q.shape[1] // (2 * n)
+    first, second = i * c, (2 * n - 1 - i) * c
+    part = [Partial() if m in dims else p for m, p in enumerate(pq)]
+
+    def own_rows(q, k, v):
+        a = fn(q[:, first:first + c], k, v, q_offset + first)
+        b = fn(q[:, second:second + c], k, v, q_offset + second)
+        zeros = a.new_zeros(a.shape[0], q.shape[1], a.shape[2], a.shape[3])
+        return torch.cat([zeros[:, :first], a, zeros[:, first + c:second],
+                          b, zeros[:, second + c:]], dim=1)
+
+    return local.call_local(own_rows, (q, k, v), (pq, pq, pq), part, mesh,
+                            grad_placements=(part, part, part))
 
 
 # ------------------------------------------------------------------- rope
@@ -210,6 +393,37 @@ def init_attention(generator: torch.Generator, cfg: ArchConfig,
                      *norms)
 
 
+def kv_heads_for(q: Tensor, kv: Tensor) -> Tensor:
+    """kv (B, Sk, Hk, D) for attention with q (B, Sq, H, Dh).  On a mesh
+    where q's heads are split over a mesh dim and kv's fewer heads are
+    not (gemma3: H = 16 over 16 ranks, Hk = 8), the grouped view of q
+    cannot be taken shard by shard: kv's heads are then repeated to q's,
+    query head h taking kv head h // (H / Hk) as ``_gqa_split`` pairs
+    them, and split as q's are, each rank forming only its own; the
+    attention then runs head by head on every rank.  Anything else
+    (plain tensors among it) comes back as it is."""
+    if not local.is_dtensor(q) or q.shape[2] == kv.shape[2]:
+        return kv
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    split = [m for m, p in enumerate(q.placements)
+             if isinstance(p, Shard) and p.dim == 2]
+    if not split or any(kv.placements[m] == q.placements[m] for m in split):
+        return kv
+    group = q.shape[2] // kv.shape[2]
+    h0, n = local.local_range(q, 2)
+    whole = [Replicate() if m in split else p
+             for m, p in enumerate(kv.placements)]
+    out = [q.placements[m] if m in split else p for m, p in enumerate(whole)]
+
+    def own_heads(t):
+        idx = torch.div(torch.arange(h0, h0 + n, device=t.device), group,
+                        rounding_mode="floor")
+        return t.index_select(2, idx)
+
+    return local.call_local(own_heads, (kv,), (whole,), out, mesh)
+
+
 def _gqa_split(q: Tensor, n_kv: int) -> Tensor:
     """(B, S, H, Dh) -> (B, S, Hk, G, Dh): query head h is group member
     h % G of kv head h // G."""
@@ -263,6 +477,12 @@ def causal_attend(q: Tensor, k: Tensor, v: Tensor,
     if window > 0:
         return causal_attend_chunked(q, k, v, scale, softcap, q_chunk,
                                      q_offset=q_offset, window=window)
+    dims = _row_dims(q, k, v) if local.is_dtensor(q) else []
+    if dims:
+        return _on_query_rows(
+            lambda q, k, v, off: ops.flash_attention_bhsd(
+                q, k, v, causal=True, scale=scale, softcap=softcap,
+                q_offset=off), q, k, v, q_offset, dims)
     return ops.flash_attention_bhsd(q, k, v, causal=True, scale=scale,
                                     softcap=softcap, q_offset=q_offset)
 
@@ -280,6 +500,13 @@ def causal_attend_chunked(q: Tensor, k: Tensor, v: Tensor,
     before a query's position minus ``window``.  Queries go in chunks of
     ``q_chunk`` against every key, so a chunk's fp32 logits are (B, Hk,
     G, q_chunk, Sk), as in the reference."""
+    if local.is_dtensor(q):
+        def attend(q, k, v, off=q_offset):
+            return causal_attend_chunked(q, k, v, scale, softcap, q_chunk,
+                                         off, window)
+        dims = _row_dims(q, k, v)
+        return (_on_query_rows(attend, q, k, v, q_offset, dims) if dims
+                else on_batch_heads(attend, q, k, v))
     S, Hk = q.shape[1], k.shape[2]
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     qg = _gqa_split(q, Hk)
@@ -315,6 +542,9 @@ def local_attend_chunked(q: Tensor, k: Tensor, v: Tensor, window: int,
     backward reads its output: under autograd the cap's product is then
     a new plane, so the train mode keeps one more (B, n, Hk, G, W, 2W)
     plane per layer, and serving none."""
+    if local.is_dtensor(q):
+        return on_batch_heads(lambda q, k, v: local_attend_chunked(
+            q, k, v, window, scale, softcap), q, k, v)
     B, S, H, Dh = q.shape
     Hk, Dv = k.shape[2], v.shape[-1]
     scale = Dh ** -0.5 if scale is None else scale
@@ -356,6 +586,22 @@ def local_attend_chunked(q: Tensor, k: Tensor, v: Tensor, window: int,
     return out.reshape(B, n * W, H, Dv)[:, :S]
 
 
+def _decode_valid(slots: Tensor, cache_index: Union[int, Tensor], C: int,
+                  window: int, rolling: bool) -> Tensor:
+    """Which of the cache ``slots`` (of C) a decode at position
+    ``cache_index`` reads (``decode_attend``'s mask)."""
+    if rolling:
+        pos = cache_index - torch.remainder(cache_index - slots, C)
+        valid = pos >= 0
+        if window > 0:
+            valid &= pos > cache_index - window
+    else:
+        valid = slots <= cache_index
+        if window > 0:
+            valid &= slots > cache_index - window
+    return valid
+
+
 def decode_attend(q: Tensor, k_cache: Tensor, v_cache: Tensor,
                   cache_index: Union[int, Tensor], window: int = 0,
                   rolling: bool = False, scale: Optional[float] = None,
@@ -369,17 +615,72 @@ def decode_attend(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     token i was written at slot i % C: slots of negative positions are
     masked.  ``window > 0`` also masks positions at or before
     i - window.  ``softcap > 0`` caps the logits before the mask."""
-    Hk, C = k_cache.shape[2], k_cache.shape[1]
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    slots = torch.arange(C, device=q.device)
-    if rolling:
-        pos = cache_index - torch.remainder(cache_index - slots, C)
-        valid = pos >= 0
-        if window > 0:
-            valid &= pos > cache_index - window
-    else:
-        valid = slots <= cache_index
-        if window > 0:
-            valid &= slots > cache_index - window
+    if local.is_dtensor(q):
+        return _decode_on_mesh(q, k_cache, v_cache, cache_index, window,
+                               rolling, scale, softcap)
+    Hk, C = k_cache.shape[2], k_cache.shape[1]
+    valid = _decode_valid(torch.arange(C, device=q.device), cache_index, C,
+                          window, rolling)
     return _softmax_attend(_gqa_split(q, Hk), k_cache, v_cache,
                            valid[None, None, None, None, :], scale, softcap)
+
+
+def _decode_on_mesh(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                    cache_index: Union[int, Tensor], window: int,
+                    rolling: bool, scale: float, softcap: float) -> Tensor:
+    """``decode_attend`` on DTensors, by ``on_batch_heads``.  Where the
+    cache's slots are split (a batch too small to split holds a
+    sequence-split cache: long_500k), and where q's batch and heads
+    cannot split (24 heads over 16 ranks) and the slots divide, each
+    rank attends over its own slots, and the ranks' partial softmaxes
+    are merged across the split (each one's max, sum and weighted
+    values, rescaled to the global max), as an SPMD partitioner reduces
+    a softmax over a split dim: no rank gathers the cache, and none
+    attends over another's slots."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, C = q.device_mesh, k_cache.shape[1]
+    pq = _batch_heads(q, k_cache, v_cache)
+    split = [m for m, p in enumerate(k_cache.placements)
+             if isinstance(p, Shard) and p.dim == 1]
+    whole = [m for m, p in enumerate(pq) if m not in split
+             and isinstance(p, Replicate) and mesh.size(m) > 1]
+    if C % math.prod(mesh.size(m) for m in split + whole) == 0:
+        split += whole
+    if not split:
+        return on_batch_heads(lambda q, k, v: decode_attend(
+            q, k, v, cache_index, window, rolling, scale, softcap),
+            q, k_cache, v_cache)
+    pq = [Replicate() if m in split else p for m, p in enumerate(pq)]
+    pkv = [Shard(1) if m in split else p for m, p in enumerate(pq)]
+    first, _ = local.local_range(k_cache, 1, pkv)
+    # each shard's partial results, stacked on a new leading dim
+    stacked = [Shard(0) if m in split else Shard(p.dim + 1)
+               if isinstance(p, Shard) else p for m, p in enumerate(pq)]
+
+    def partial(q, k, v):
+        B, Sq, H, _ = q.shape
+        valid = _decode_valid(torch.arange(first, first + k.shape[1],
+                                           device=q.device),
+                              cache_index, C, window, rolling)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk",
+                              _gqa_split(q, k.shape[2]).float(),
+                              k.float()) * scale
+        if softcap > 0:
+            logits = softcap * torch.tanh(logits / softcap)
+        logits = logits.masked_fill(~valid, _NEG_INF)
+        top = logits.amax(-1, keepdim=True)
+        probs = torch.exp(logits - top)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+
+        def per_head(t):    # (B, Hk, G, Sq, 1) -> (1, B, Sq, H, 1)
+            return t.permute(0, 3, 1, 2, 4).reshape(1, B, Sq, H, 1)
+        return (out.float().reshape(1, B, Sq, H, v.shape[-1]),
+                per_head(probs.sum(-1, keepdim=True)), per_head(top))
+
+    out, total, top = local.call_local(
+        partial, (q, k_cache, v_cache), (pq, pkv, pkv),
+        (stacked, stacked, stacked), mesh)
+    w = torch.exp(top - top.amax(0))
+    out = (out * w).sum(0) / (total * w).sum(0)
+    return out.to(v_cache.dtype).redistribute(mesh, pq)

@@ -34,8 +34,9 @@ from torch import nn
 
 from .config import ArchConfig
 from .layers import (_NEG_INF, apply_rope, causal_attend,
-                     causal_attend_chunked, frozen, init_dense, rmsnorm)
-from .shard_ctx import constrain
+                     causal_attend_chunked, frozen, init_dense, matmul,
+                     on_batch_heads, rmsnorm, write_slots)
+from .shard_ctx import constrain, view_as
 
 Tensor = torch.Tensor
 
@@ -90,10 +91,10 @@ def _queries(cfg: ArchConfig, p: MLA, x: Tensor,
     B, S, _ = x.shape
     nope = cfg.qk_nope_dim
     if cfg.q_lora:
-        q = rmsnorm(x @ p.w_dq, p.q_norm) @ p.w_uq
+        q = matmul(rmsnorm(matmul(x, p.w_dq), p.q_norm), p.w_uq)
     else:
-        q = x @ p.w_q
-    q = q.reshape(B, S, cfg.n_heads, nope + cfg.qk_rope_dim)
+        q = matmul(x, p.w_q)
+    q = view_as(q, (B, S, cfg.n_heads, nope + cfg.qk_rope_dim), "act_bthd")
     return q[..., :nope], apply_rope(q[..., nope:], positions,
                                      cfg.rope_theta)
 
@@ -102,8 +103,9 @@ def _latents(cfg: ArchConfig, p: MLA, x: Tensor,
              positions: Tensor) -> Tuple[Tensor, Tensor]:
     """The normed latent (B, S, kv_lora) and the roped shared key (B, S,
     rope)."""
-    ckv = rmsnorm(x @ p.w_dkv, p.kv_norm)
-    kr = apply_rope((x @ p.w_kr)[:, :, None, :], positions, cfg.rope_theta)
+    ckv = rmsnorm(matmul(x, p.w_dkv), p.kv_norm)
+    kr = apply_rope(matmul(x, p.w_kr)[:, :, None, :], positions,
+                    cfg.rope_theta)
     return ckv, kr[:, :, 0, :]
 
 
@@ -122,42 +124,58 @@ def mla_attention(cfg: ArchConfig, p: MLA, x: Tensor, positions: Tensor,
 
     if mode in ("train", "prefill"):
         if mode == "prefill":
-            cache["ckv"][:, :S] = ckv_new
-            cache["kr"][:, :S] = kr_new
-        k_nope = (ckv_new @ p.w_uk).reshape(B, S, H, nope)
-        v = (ckv_new @ p.w_uv).reshape(B, S, H, vdim)
+            write_slots(cache["ckv"], ckv_new, 0)
+            write_slots(cache["kr"], kr_new, 0)
+        k_nope = view_as(matmul(ckv_new, p.w_uk), (B, S, H, nope),
+                         "act_bthd")
+        v = view_as(matmul(ckv_new, p.w_uv), (B, S, H, vdim), "act_bthd")
         q_eff = torch.cat([q_nope, q_rope], dim=-1)
         k_eff = torch.cat([k_nope, kr_new[:, :, None, :].expand(
             B, S, H, rope_d)], dim=-1)
         attend = causal_attend_chunked if mode == "train" else causal_attend
         out = attend(q_eff, k_eff, v, scale=scale)
-        return out.reshape(B, S, H * vdim) @ p.w_o
+        return matmul(out.reshape(B, S, H * vdim), p.w_o)
     if mode != "decode":
         raise ValueError(f"unknown mode {mode!r}")
 
-    cache["ckv"][:, cache_index:cache_index + S] = ckv_new
-    cache["kr"][:, cache_index:cache_index + S] = kr_new
+    write_slots(cache["ckv"], ckv_new, cache_index)
+    write_slots(cache["kr"], kr_new, cache_index)
     ckv, kr = cache["ckv"], cache["kr"]
     Sc = ckv.shape[1]
+    if not absorbed:
+        k_nope = view_as(matmul(ckv, p.w_uk), (B, Sc, H, nope),
+                         "act_bthd")
+        values = view_as(matmul(ckv, p.w_uv), (B, Sc, H, vdim),
+                         "act_bthd")
+        out = on_batch_heads(
+            lambda q, q_r, k, k_r, v: _naive_decode(q, q_r, k, k_r, v,
+                                                    cache_index, scale),
+            q_nope, q_rope, k_nope, kr, values)
+        return matmul(out.reshape(B, S, H * vdim), p.w_o)
     valid = torch.arange(Sc, device=x.device) <= cache_index
     rope_scores = torch.einsum("bqhd,bkd->bhqk", q_rope.float(), kr.float())
-    if absorbed:
-        q_lat = torch.einsum("bqhn,chn->bqhc", q_nope,
-                             p.w_uk.reshape(cfg.kv_lora, H, nope))
-        q_lat = constrain(q_lat, "act_bthd")
-        scores = torch.einsum("bqhc,bkc->bhqk", q_lat.float(), ckv.float())
-        values = ckv
-    else:
-        k_nope = (ckv @ p.w_uk).reshape(B, Sc, H, nope)
-        values = (ckv @ p.w_uv).reshape(B, Sc, H, vdim)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q_nope.float(),
-                              k_nope.float())
+    q_lat = torch.einsum("bqhn,chn->bqhc", q_nope,
+                         view_as(p.w_uk, (cfg.kv_lora, H, nope), None))
+    q_lat = constrain(q_lat, "act_bthd")
+    scores = torch.einsum("bqhc,bkc->bhqk", q_lat.float(), ckv.float())
+    logits = ((scores + rope_scores) * scale).masked_fill(~valid, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(ckv.dtype)
+    ctx = torch.einsum("bhqk,bkc->bqhc", probs, ckv)  # latent context
+    out = torch.einsum("bqhc,chv->bqhv", ctx,
+                       view_as(p.w_uv, (cfg.kv_lora, H, vdim), None))
+    return matmul(out.reshape(B, S, H * vdim), p.w_o)
+
+
+def _naive_decode(q_nope: Tensor, q_rope: Tensor, k_nope: Tensor,
+                  kr: Tensor, values: Tensor, cache_index: int,
+                  scale: float) -> Tensor:
+    """Naive latent decode attention over the expanded cache: q (B, 1,
+    H, .), k_nope and values (B, Sc, H, .), the shared rotary key kr
+    (B, Sc, rope); slots past ``cache_index`` masked -> (B, 1, H, v)."""
+    valid = torch.arange(kr.shape[1], device=kr.device) <= cache_index
+    rope_scores = torch.einsum("bqhd,bkd->bhqk", q_rope.float(), kr.float())
+    scores = torch.einsum("bqhd,bkhd->bhqk", q_nope.float(),
+                          k_nope.float())
     logits = ((scores + rope_scores) * scale).masked_fill(~valid, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(values.dtype)
-    if absorbed:
-        ctx = torch.einsum("bhqk,bkc->bqhc", probs, values)  # latent context
-        out = torch.einsum("bqhc,chv->bqhv", ctx,
-                           p.w_uv.reshape(cfg.kv_lora, H, vdim))
-    else:
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, values)
-    return out.reshape(B, S, H * vdim) @ p.w_o
+    return torch.einsum("bhqk,bkhd->bqhd", probs, values)

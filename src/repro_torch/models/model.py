@@ -43,8 +43,9 @@ from ..kernels import local, ops
 from ..optim import GradientTransformation, apply_updates
 from .config import ArchConfig
 from . import mla, moe, rglru, ssm
-from .layers import MLP, Attention, frozen, init_dense, init_normal, linear
-from .shard_ctx import constrain
+from .layers import (MLP, Attention, embedding, frozen, init_dense,
+                     init_normal, linear)
+from .shard_ctx import constrain, replicated, view_as
 from .transformer import (Block, Cache, Decoder, MambaBlock, RGLRUBlock,
                           _layer_plan, _uses_moe, apply_decoder,
                           check_supported, init_cache, init_decoder)
@@ -215,11 +216,11 @@ def embed_input(cfg: ArchConfig, model: Model,
         return batch["embeds"].to(cfg.act_dtype)
     toks = batch["tokens"]
     if cfg.modality == "audio":
-        x = model.embed[0][toks[:, 0]]
+        x = embedding(model.embed[0], toks[:, 0])
         for c in range(1, cfg.n_codebooks):
-            x = x + model.embed[c][toks[:, c]]
+            x = x + embedding(model.embed[c], toks[:, c])
         return x.to(cfg.act_dtype)
-    return model.embed[toks].to(cfg.act_dtype)
+    return embedding(model.embed, toks).to(cfg.act_dtype)
 
 
 def _positions(cfg: ArchConfig, batch: Dict[str, Tensor], B: int, S: int,
@@ -241,7 +242,8 @@ def unembed(cfg: ArchConfig, model: Model, hidden: Tensor) -> Tensor:
     else:
         logits = linear(hidden, model.lm_head).float()
     if cfg.modality == "audio":
-        logits = logits.view(*hidden.shape[:-1], cfg.n_codebooks, cfg.vocab)
+        logits = view_as(logits, (*hidden.shape[:-1], cfg.n_codebooks,
+                                  cfg.vocab), "logits_btv")
     return constrain(logits, "logits_btv")
 
 
@@ -312,15 +314,34 @@ def sigma_scores(cfg: ArchConfig, hidden: Tensor, logits: Tensor,
     if cfg.modality != "audio":
         tok = ops.sigma_from_head(h, logits.reshape(B * S, -1),
                                   labels.clamp_min(0).reshape(-1))
-        return ((tok.view(B, S) * valid).sum(-1)
+        return ((view_as(tok, (B, S), None) * valid).sum(-1)
                 / valid.sum(-1).clamp_min(1.0))
+    if local.is_dtensor(logits):
+        # each example's rows whole on the rank that holds it (as the
+        # loss takes them), so that p - y is formed on local tensors
+        mesh = logits.device_mesh
+        pl = local.keep_shards(logits, (0,), lambda dim, n: B % n == 0)
+        p = local.call_local(
+            _audio_p_minus_y, (logits, local.on_mesh(labels, mesh),
+                               local.on_mesh(valid, mesh)),
+            (pl, pl, pl), pl, mesh)
+    else:
+        p = _audio_p_minus_y(logits, labels, valid)
+    tok = ops.gradnorm_sigma(h, p.view(B * S, -1))
+    return (view_as(tok, (B, S), None).sum(-1)
+            / valid[..., 0].sum(-1).clamp_min(1.0))
+
+
+def _audio_p_minus_y(logits: Tensor, labels: Tensor,
+                     valid: Tensor) -> Tensor:
+    """p - y of audio logits (B, S, C, vocab) in place on their fp32
+    softmax, the rows of invalid codebooks zeroed."""
     p = ops.softmax_rows(logits)
     rows = p.view(-1, p.shape[-1])
     rows[torch.arange(rows.shape[0], device=p.device),
          labels.clamp_min(0).reshape(-1).long()] -= 1.0
     p.masked_fill_(~valid[..., None], 0.0)
-    tok = ops.gradnorm_sigma(h, p.view(B * S, -1))
-    return tok.view(B, S).sum(-1) / valid[..., 0].sum(-1).clamp_min(1.0)
+    return p
 
 
 # ----------------------------------------------------------- FEEL wiring
@@ -412,7 +433,8 @@ def make_loss_fn(cfg: ArchConfig, feel: Optional[FeelIntegration] = None
             sigma = sigma_scores(cfg, hidden, logits, batch)
             mark("sigma")
             del logits, hidden
-            sig_k = sigma.reshape(K, per_client)
+            # whole on every rank of a mesh, so that the view is local
+            sig_k = replicated(sigma).reshape(K, per_client)
             if delta is None:
                 delta = exact_selection(feel.system(per_client, sigma.device),
                                         sig_k, torch.ones_like(sig_k))
@@ -485,6 +507,16 @@ def _store_leaf(state, name: str, leaf):
     return leaf
 
 
+def _laid_out_as(g: Tensor, p: Tensor) -> Tensor:
+    """A DTensor gradient laid out as its parameter (a partial sum
+    reduce-scattered to the parameter's split, as a data-parallel step
+    reduces it), so the optimizer steps each rank's own shard; a plain
+    tensor as it is."""
+    if local.is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 @torch.no_grad()
 def apply_optimizer(opt: GradientTransformation, grads: Dict[str, Tensor],
                     state, params: Dict[str, Tensor]):
@@ -510,7 +542,7 @@ def apply_optimizer(opt: GradientTransformation, grads: Dict[str, Tensor],
             continue
         key = group_of.get(name, name)
         members = opt.groups.get(key, (name,))
-        g = {m: grads.pop(m) for m in members}
+        g = {m: _laid_out_as(grads.pop(m), params[m]) for m in members}
         p = {m: params[m] for m in members}
         upd, leaf = opt.update(g, _leaf_state(old, key), p)
         del g

@@ -31,8 +31,8 @@ from torch import nn
 
 from ..kernels import ops
 from .config import ArchConfig
-from .layers import frozen, init_dense
-from .ssm import causal_conv
+from .layers import frozen, init_dense, matmul
+from .ssm import causal_conv, write_conv_tail
 from .shard_ctx import constrain
 
 Tensor = torch.Tensor
@@ -84,8 +84,8 @@ def init_rglru(generator: torch.Generator, cfg: ArchConfig,
 def _gates(p: RGLRU, s: Tensor) -> Tuple[Tensor, Tensor]:
     """(a, sqrt(1 - a^2) * i) in fp32 from the conv output ``s``; the
     reference's clamp of 1 - exp(2 log a) at 1e-12 is kept as written."""
-    r = torch.sigmoid((s @ p.w_r).float())
-    i = torch.sigmoid((s @ p.w_i).float())
+    r = torch.sigmoid(matmul(s, p.w_r).float())
+    i = torch.sigmoid(matmul(s, p.w_i).float())
     log_a = -_C * F.softplus(p.lam) * r
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
@@ -102,9 +102,9 @@ def rglru_mixer(cfg: ArchConfig, p: RGLRU, x: Tensor, mode: str,
         raise ValueError(f"unknown mode {mode!r}")
     S = x.shape[1]
     k = cfg.ssm_conv or 4
-    xs = x @ p.w_x
+    xs = matmul(x, p.w_x)
     # jax.nn.gelu defaults to the tanh approximation
-    gate = F.gelu((x @ p.w_y).float(), approximate="tanh")
+    gate = F.gelu(matmul(x, p.w_y).float(), approximate="tanh")
     xs = constrain(xs, "act_btf")
 
     if mode in ("train", "prefill"):
@@ -114,8 +114,7 @@ def rglru_mixer(cfg: ArchConfig, p: RGLRU, x: Tensor, mode: str,
         h = ops.lru_scan(a, bx)                       # (B, S, w) fp32
         del a, bx
         if mode == "prefill":
-            xp = F.pad(xs, (0, 0, max(k - 1 - S, 0), 0))
-            cache["conv"].copy_(xp[:, xp.shape[1] - (k - 1):, :])
+            write_conv_tail(cache["conv"], xs, k)
             cache["h"].copy_(h[:, -1])
     else:
         conv_buf = torch.cat([cache["conv"], xs.to(cache["conv"].dtype)],
@@ -128,4 +127,4 @@ def rglru_mixer(cfg: ArchConfig, p: RGLRU, x: Tensor, mode: str,
         cache["conv"].copy_(conv_buf[:, 1:, :])
         cache["h"].copy_(h1)
 
-    return (h * gate).to(x.dtype) @ p.w_out
+    return matmul((h * gate).to(x.dtype), p.w_out)

@@ -29,10 +29,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import ops
+from ..kernels import local, ops
 from .config import ArchConfig
-from .layers import frozen, init_dense
-from .shard_ctx import constrain
+from .layers import frozen, init_dense, matmul
+from .shard_ctx import constrain, relayout, view_as
 
 Tensor = torch.Tensor
 
@@ -87,8 +87,11 @@ def _ssm_params(cfg: ArchConfig, p: Mamba, s: Tensor
     """dt (B,S,di), Bmat (B,S,n), Cmat (B,S,n) in fp32 from conv output
     s."""
     dtr, n = cfg.ssm_dt_rank_, cfg.ssm_state
-    dt_raw, Bmat, Cmat = (s @ p.x_proj).split([dtr, n, n], dim=-1)
-    dt = F.softplus(dt_raw.float() @ p.dt_proj.float() + p.dt_bias)
+    # on a mesh the narrow projection is reduced whole before its split,
+    # so that dt's projection splits its output over "model"
+    dt_raw, Bmat, Cmat = relayout(matmul(s, p.x_proj), "rows").split(
+        [dtr, n, n], dim=-1)
+    dt = F.softplus(matmul(dt_raw.float(), p.dt_proj.float()) + p.dt_bias)
     return dt, Bmat.float(), Cmat.float()
 
 
@@ -96,13 +99,72 @@ def causal_conv(p: nn.Module, x: Tensor, k: int) -> Tensor:
     """Depthwise causal conv along seq: x (B, S, C) with the weights
     ``p.conv_w`` (k, C) and ``p.conv_b`` (C,) of a mixer (Mamba or
     RG-LRU), summed tap by tap (j = 0..k-1) in the input dtype as the
-    reference sums."""
+    reference sums.  On a mesh it runs on each rank's sequences and
+    channels (``on_channels``), every position whole."""
+    if local.is_dtensor(x):
+        return on_channels(lambda x, w, b: _causal_conv(x, w, b, k), x,
+                           p.conv_w, p.conv_b)
+    return _causal_conv(x, p.conv_w, p.conv_b, k)
+
+
+def _causal_conv(x: Tensor, w: Tensor, b: Tensor, k: int) -> Tensor:
     S = x.shape[1]
     pad = F.pad(x, (0, 0, k - 1, 0))
     out = 0
     for j in range(k):
-        out = out + pad[:, j:j + S, :] * p.conv_w[j]
-    return out + p.conv_b
+        out = out + pad[:, j:j + S, :] * w[j]
+    return out + b
+
+
+def on_channels(fn, x: Tensor, *per_channel: Tensor) -> Tensor:
+    """``fn(x, *per_channel)`` for x (B, S, C) and tensors whose last dim
+    is the channel, on each rank's shards: its sequences where x's batch
+    is split, its channels where they are, every position whole; the
+    output (B, ., C) split as x then is (a per-channel tensor's gradient
+    a partial sum where the sequences are split)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    last = x.ndim - 1
+    xp = [pl if isinstance(pl, Shard) and pl.dim in (0, last)
+          else Replicate() for pl in x.placements]
+
+    def split(t, where_batch):
+        return [Shard(t.ndim - 1) if isinstance(pl, Shard) and pl.dim
+                else where_batch if isinstance(pl, Shard) else Replicate()
+                for pl in xp]
+
+    ins = (xp,) + tuple(split(t, Replicate()) for t in per_channel)
+    grads = (xp,) + tuple(split(t, Partial()) for t in per_channel)
+    return local.call_local(fn, (x,) + per_channel, ins, xp, x.device_mesh,
+                            grad_placements=grads)
+
+
+def write_conv_tail(cache_conv: Tensor, xs: Tensor, k: int) -> None:
+    """The last k-1 inputs of a prefill (zero-left-padded when S < k-1)
+    into the conv cache (B, k-1, C), in place; on a mesh formed on each
+    rank's sequences and channels."""
+    def tail(x):
+        xp = F.pad(x, (0, 0, max(k - 1 - x.shape[1], 0), 0))
+        return xp[:, xp.shape[1] - (k - 1):, :]
+    if local.is_dtensor(xs):
+        new = on_channels(tail, xs).redistribute(cache_conv.device_mesh,
+                                                 cache_conv.placements)
+        cache_conv.copy_(new)
+        return
+    cache_conv.copy_(tail(xs))
+
+
+def _states_out(h: Tensor, Cmat: Tensor) -> Tensor:
+    """sum_n h (B, S, di, n) * C (B, S, n) -> (B, S, di); on a mesh on
+    each rank's sequences and channels."""
+    def out(h, c):
+        return torch.einsum("bsdn,bsn->bsd", h, c)
+    if not local.is_dtensor(h):
+        return out(h, Cmat)
+    from torch.distributed.tensor import Replicate, Shard
+    hp = local.keep_shards(h, (0, 2), lambda dim, n: True)
+    cp = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+          for pl in hp]
+    return local.call_local(out, (h, Cmat), (hp, cp), hp, h.device_mesh)
 
 
 def mamba_mixer(cfg: ArchConfig, p: Mamba, x: Tensor, mode: str,
@@ -116,7 +178,7 @@ def mamba_mixer(cfg: ArchConfig, p: Mamba, x: Tensor, mode: str,
     B, S, _ = x.shape
     di, n, k = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_conv
     A = -torch.exp(p.A_log)  # (di, n)
-    xs, z = (x @ p.in_proj).chunk(2, dim=-1)
+    xs, z = matmul(x, p.in_proj).chunk(2, dim=-1)
     xs = constrain(xs, "act_btf")
 
     if mode == "train":
@@ -126,8 +188,7 @@ def mamba_mixer(cfg: ArchConfig, p: Mamba, x: Tensor, mode: str,
         dA = torch.exp(dt[..., None] * A)                     # (B,S,di,n)
         dBx = dt[..., None] * Bmat[:, :, None, :] * sf[..., None]
         h = ops.lru_scan(dA.reshape(B, S, di * n), dBx.reshape(B, S, di * n))
-        y = torch.einsum("bsdn,bsn->bsd", h.view(B, S, di, n), Cmat) \
-            + p.D * sf
+        y = _states_out(view_as(h, (B, S, di, n), None), Cmat) + p.D * sf
     elif mode == "prefill":
         s = F.silu(causal_conv(p, xs, k))
         dt, Bmat, Cmat = _ssm_params(cfg, p, s)
@@ -136,12 +197,12 @@ def mamba_mixer(cfg: ArchConfig, p: Mamba, x: Tensor, mode: str,
         # exp_ and mul_ in place are exact and save one plane each
         dA = (dt[..., None] * A).exp_()
         dBx = (dt[..., None] * Bmat[:, :, None, :]).mul_(sf[..., None])
-        h = ops.lru_scan(dA.view(B, S, di * n),
-                         dBx.view(B, S, di * n)).view(B, S, di, n)
+        h = view_as(ops.lru_scan(dA.view(B, S, di * n),
+                                 dBx.view(B, S, di * n)), (B, S, di, n),
+                    None)
         del dA, dBx
-        y = torch.einsum("bsdn,bsn->bsd", h, Cmat) + p.D * sf
-        xp = F.pad(xs, (0, 0, max(k - 1 - S, 0), 0))
-        cache["conv"].copy_(xp[:, xp.shape[1] - (k - 1):, :])
+        y = _states_out(h, Cmat) + p.D * sf
+        write_conv_tail(cache["conv"], xs, k)
         cache["h"].copy_(h[:, -1])
     else:
         conv_buf = torch.cat([cache["conv"], xs.to(cache["conv"].dtype)],
@@ -159,4 +220,4 @@ def mamba_mixer(cfg: ArchConfig, p: Mamba, x: Tensor, mode: str,
         cache["conv"].copy_(conv_buf[:, 1:, :])
         cache["h"].copy_(h1)
 
-    return (y.to(x.dtype) * F.silu(z)) @ p.out_proj
+    return matmul(y.to(x.dtype) * F.silu(z), p.out_proj)

@@ -53,12 +53,12 @@ from torch.utils.checkpoint import checkpoint
 from .config import ArchConfig
 from .layers import (MLP, Attention, apply_rope, causal_attend,
                      causal_attend_chunked, decode_attend, frozen,
-                     init_attention, init_mlp, linear, local_attend_chunked,
-                     mlp, rmsnorm)
+                     init_attention, init_mlp, kv_heads_for, linear,
+                     local_attend_chunked, mlp, rmsnorm, write_slots)
 from .mla import MLA, init_mla, mla_attention
 from .moe import MoE, init_moe, moe_ffn
 from .rglru import RGLRU, init_rglru, rglru_mixer
-from .shard_ctx import constrain
+from .shard_ctx import constrain, relayout, view_as
 from .ssm import Mamba, init_mamba, mamba_mixer
 
 Tensor = torch.Tensor
@@ -146,9 +146,9 @@ def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
     cap = cfg.attn_logit_softcap
     theta = (cfg.rope_theta_local
              if local and cfg.rope_theta_local else cfg.rope_theta)
-    q = linear(x, ap.wq).reshape(B, S, H, Dh)
-    k = linear(x, ap.wk).reshape(B, S, Hk, Dh)
-    v = linear(x, ap.wv).reshape(B, S, Hk, Dh)
+    q = view_as(linear(x, ap.wq), (B, S, H, Dh), "act_bthd")
+    k = view_as(linear(x, ap.wk), (B, S, Hk, Dh), "kv_cache")
+    v = view_as(linear(x, ap.wv), (B, S, Hk, Dh), "kv_cache")
     if cfg.qk_norm:
         q = rmsnorm(q, ap.q_norm)
         k = rmsnorm(k, ap.k_norm)
@@ -157,33 +157,34 @@ def _attn_apply(cfg: ArchConfig, kind: str, p: Block, x: Tensor,
     k = apply_rope(k, positions, theta, cfg.rope_fraction,
                    cfg.mrope_sections)
     q = constrain(q, "act_bthd")
+    if mode in ("train", "prefill"):
+        ka, va = kv_heads_for(q, k), kv_heads_for(q, v)
     if mode == "train":
-        out = (local_attend_chunked(q, k, v, cfg.window, softcap=cap)
-               if local else causal_attend_chunked(q, k, v, softcap=cap))
+        out = (local_attend_chunked(q, ka, va, cfg.window, softcap=cap)
+               if local else causal_attend_chunked(q, ka, va, softcap=cap))
     elif mode == "prefill" and local:
         W = cfg.window
-        out = local_attend_chunked(q, k, v, W, softcap=cap)
+        out = local_attend_chunked(q, ka, va, W, softcap=cap)
         # the rolling cache holds the last W positions p at slot p % W;
         # with S < W the other slots are zero, as in the reference
         take = min(S, W)
-        slots = torch.arange(S - take, S, device=x.device) % W
         for name, t in (("k", k), ("v", v)):
             if take < W:
                 cache[name].zero_()
-            cache[name].index_copy_(1, slots,
-                                    t[:, S - take:].to(cache[name].dtype))
+            write_slots(cache[name], t[:, S - take:].to(cache[name].dtype),
+                        (S - take) % W)
     elif mode == "prefill":
-        out = causal_attend(q, k, v, softcap=cap)
-        cache["k"][:, :S] = constrain(k, "kv_cache")
-        cache["v"][:, :S] = constrain(v, "kv_cache")
+        out = causal_attend(q, ka, va, softcap=cap)
+        write_slots(cache["k"], constrain(k, "kv_cache"), 0)
+        write_slots(cache["v"], constrain(v, "kv_cache"), 0)
     elif mode == "decode":
         slot = cache_index % cfg.window if local else cache_index
-        cache["k"][:, slot:slot + S] = k
-        cache["v"][:, slot:slot + S] = v
-        out = decode_attend(q, constrain(cache["k"], "kv_cache"),
-                            constrain(cache["v"], "kv_cache"), cache_index,
-                            window=cfg.window if local else 0,
-                            rolling=local, softcap=cap)
+        write_slots(cache["k"], k, slot)
+        write_slots(cache["v"], v, slot)
+        out = decode_attend(
+            q, kv_heads_for(q, constrain(cache["k"], "kv_cache")),
+            kv_heads_for(q, constrain(cache["v"], "kv_cache")), cache_index,
+            window=cfg.window if local else 0, rolling=local, softcap=cap)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     return linear(out.reshape(B, S, H * Dh), ap.wo)
@@ -211,6 +212,9 @@ def apply_block(cfg: ArchConfig, kind: str, use_moe: bool,
     else:
         x = x + _attn_apply(cfg, kind, p, h, positions, mode, cache,
                             cache_index)
+    # on a mesh the residual is laid out as a block's output (its sum
+    # with a row-parallel output reduced), before the norm reads it
+    x = relayout(x, "act_btd")
     h = rmsnorm(x, p.ln2)
     if use_moe:
         f, aux = moe_ffn(cfg, p.ffn, h)

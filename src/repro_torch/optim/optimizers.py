@@ -174,6 +174,22 @@ class AdafactorState(NamedTuple):
     vc: Tensors  # column second moment (a 0-d zero for a leaf under 2-D)
 
 
+def _as_rows_of(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """A factored moment ``x`` (size 1 in one of g's trailing two dims)
+    laid out as the gradient ``g`` is, where they are DTensors, so that
+    their product (the second-moment estimate) is split as g is: a
+    moment's own layout (v_r split by rows, v_c by columns) would leave
+    DTensor to split the product by the stack of a group's members, and
+    each member's step would then be gathered whole.  A plain tensor as
+    it is."""
+    if not hasattr(x, "placements"):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    placements = [pl if isinstance(pl, Shard) and x.shape[pl.dim] > 1
+                  else Replicate() for pl in g.placements]
+    return x.redistribute(x.device_mesh, placements)
+
+
 def adafactor(lr: float, eps: float = 1e-30, clip_threshold: float = 1.0,
               decay: float = 0.8, layout: Optional[Layout] = None,
               groups: Optional[Groups] = None) -> GradientTransformation:
@@ -255,7 +271,9 @@ def adafactor(lr: float, eps: float = 1e-30, clip_threshold: float = 1.0,
                 vc = beta * vc + (1 - beta) * torch.mean(g2, dim=-2)
                 denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
                                     min=eps)
-                v_est = vr[..., :, None] * vc[..., None, :] / denom[..., None]
+                v_est = (_as_rows_of(vr[..., :, None], g)
+                         * _as_rows_of(vc[..., None, :], g)
+                         / denom[..., None])
                 step = g / torch.sqrt(v_est + eps)
             else:
                 vr = beta * vr + (1 - beta) * g2
