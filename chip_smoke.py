@@ -25,9 +25,12 @@ exit) if anything in it fails; no failure is caught:
    256); bf16 flash at the zoo's newer prefill shapes, stablelm-12b's
    (d = 160, 32:8 GQA), command-r-35b's (d = 128, 64:8 GQA) and
    deepseek's latent attention (128 heads, q and k at d = 192, v at dv
-   = 128, which the wrapper zero-pads to d; the padding copy timed
+   = 128, which the bf16 wrapper zero-pads to d; the padding copy timed
    alone, and the same heads at d = dv = 128 beside them), and fp32
-   flash at the zoo replays' shapes (d = 160; d = 192 with dv = 128),
+   flash at the zoo replays' shapes (d = 160; d = 192 with dv = 128,
+   v read in place) and at two full-size prefill shapes, llama's GQA
+   and deepseek's latent attention, each fp32 case's SDPA output held
+   against the plain version at the kernel's tolerance (printed),
    every flash case with % of bound; ``gradnorm_sigma`` also at the
    256-device round's (51200, 84) + (51200, 10); the scan, fp32 and
    bf16, also at the seams of its
@@ -389,6 +392,10 @@ FLASH_QWEN = (4, 2048, 12, 2, 128)       # qwen2-vl-2b: a GQA group of 6
 FLASH_MUSICGEN = (4, 2048, 24, 24, 64)   # musicgen-medium: d = 64, MHA
 FLASH_F32_ZOO = [(1, 256, 32, 8, 160), (1, 256, 128, 128, 192, 128),
                  (1, 256, 12, 2, 128), (1, 256, 24, 24, 64)]
+# fp32 flash at two full-size prefill shapes (llama's GQA and deepseek's
+# latent attention), where the kernel's time is not hidden under launch
+# latency
+FLASH_F32_FULL = [FLASH_GQA, FLASH_MLA]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # softcapped attention (phase 3's capped cases and phase 35): Gemma 2's
 # published cap, the q scale of the capped kernel checks, and the
@@ -652,9 +659,14 @@ def phase_flash(torch, fa, ops):
     (shape, dtype, layout).  Each case: (B, S, H, Hk, d[, dv]), dtype,
     causal, and whether it goes through the (BH, S, d) entry (H = Hk,
     folded) or the strided (B, S, H, d) one, there also as views one
-    element past an aligned base ("bshd+1": q, k and v copied into
-    aligned buffers).  A dv < d (latent attention) is a v of its own
-    width, which the wrapper zero-pads to d."""
+    element past an aligned base ("bshd+1": in bf16 q, k and v copied
+    into aligned buffers).  A dv < d (latent attention) is a v of its own
+    width: the fp32 kernel reads it in place, and for bf16 the wrapper
+    zero-pads it to d (that copy timed alone beside the case).  fp32 runs
+    at the replays' shapes and at two full-size ones
+    (``FLASH_F32_FULL``); there SDPA's output, the library call, is held
+    against the plain version at the kernel's tolerance too, and whether
+    it is within it printed (a TF32 yardstick would not be)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     F = torch.nn.functional
     cases = [((bh, s, 1, 1, d), dt, True, "bhsd") for bh, s, d in
@@ -676,7 +688,8 @@ def phase_flash(torch, fa, ops):
               (FLASH_MLA_D128, "bfloat16", True, "bshd"),
               (FLASH_QWEN, "bfloat16", True, "bshd"),
               (FLASH_MUSICGEN, "bfloat16", True, "bshd")]
-    cases += [(shape, "float32", True, "bshd") for shape in FLASH_F32_ZOO]
+    cases += [(shape, "float32", True, "bshd")
+              for shape in FLASH_F32_ZOO + FLASH_F32_FULL]
     recs = {}
     for shape, dt, causal, layout in cases:
         dtype = getattr(torch, dt)
@@ -714,28 +727,41 @@ def phase_flash(torch, fa, ops):
         calls, replays = (5, 3) if big else (50, 5)
         b_ms, b_by = flash_bound(b, s, h, hk, d, causal, q.element_size(),
                                  dv)
+        sdpa = partial(F.scaled_dot_product_attention, qs, ks, vs,
+                       is_causal=causal, enable_gqa=hk != h)
+        sdpa_note = ""
+        if dt == "float32":
+            want = plain()
+            lib_out = sdpa()
+            if layout == "bshd":
+                lib_out = lib_out.transpose(1, 2)
+            lib_out = lib_out.reshape(want.shape)
+            torch.cuda.synchronize()
+            lib_err = float((lib_out - want).abs().max())
+            lib_ok = bool(torch.allclose(lib_out, want, atol=tol, rtol=tol))
+            sdpa_note = (f" | sdpa max_abs_err {lib_err:.3g}, within the "
+                         f"kernel's tol {tol}: {lib_ok}")
+            del want, lib_out
         rec = {"max_abs_err": err,
                "ms": device_ms(torch, run, calls, replays),
                "plain_ms": device_ms(torch, plain, *((2, 2) if big else
                                                      (calls, replays))),
-               "library_ms": device_ms(
-                   torch, lambda: F.scaled_dot_product_attention(
-                       qs, ks, vs, is_causal=causal, enable_gqa=hk != h),
-                   calls, replays),
+               "library_ms": device_ms(torch, sdpa, calls, replays),
                "bound_ms": b_ms, "bound_by": b_by}
         print(f"flash_attention {layout} {shape} {dt} causal={causal}: "
               f"max_abs_err {err:.3g} (tol {tol}) | device ms: kernel "
               f"{rec['ms']:.6f} plain {rec['plain_ms']:.6f} sdpa "
               f"{rec['library_ms']:.6f} bound {b_ms:.6f} ({b_by}) | "
               f"kernel/bound {rec['ms'] / b_ms:.2f}x ({100 * b_ms / rec['ms']:.1f} "
-              f"% of bound) kernel/sdpa {rec['ms'] / rec['library_ms']:.2f}x")
-        if dv < d:
+              f"% of bound) kernel/sdpa {rec['ms'] / rec['library_ms']:.2f}x"
+              + sdpa_note)
+        if dv < d and dt == "bfloat16":
             pad_ms = device_ms(torch, lambda: fa._value_operand(v, d),
                                calls, replays)
             print(f"  of which v zero-padded from {dv} to {d} columns "
                   f"before the launch: {pad_ms:.6f} ms")
         recs[(shape, dt, layout)] = rec
-        del q, k, v, q4, k4, v4, qs, ks, vs
+        del q, k, v, q4, k4, v4, qs, ks, vs, run, plain, sdpa
         torch.cuda.empty_cache()
     return recs
 

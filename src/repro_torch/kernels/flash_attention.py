@@ -21,9 +21,11 @@ mean of v and the kernels 0.  Two entries:
   h // (H / Hk), as ``models.layers._gqa_split`` groups them.  It makes
   no fold copy of q, k or v and no per-head copy of the kv heads, and
   writes a contiguous (B, Sq, H, dv) output.  A v narrower than q and k
-  (multi-head latent attention's prefill: d = 192, dv = 128) is copied
-  with its columns zero-padded to d before the launch, since the
-  kernels take one head width, and the output is cut back to dv.
+  (multi-head latent attention's prefill: d = 192, dv = 128) is read in
+  place by the fp32 kernel, which has a value width of its own; for the
+  bf16 kernel, which takes one head width, it is copied with its columns
+  zero-padded to d before the launch (``_value_operand``), and the
+  output is cut back to dv.
 
 The kernel is the custom op ``repro_torch::flash_attention``
 (``flash_attention_op``) on the serving layout, with a shape-only
@@ -166,15 +168,16 @@ def _fn(dtype: torch.dtype):
     """The C entry point for ``dtype``, its library loaded at first use."""
     if dtype not in _FNS:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # q, k, v, o; B, Sq, Sk, H, Hk, d; strides; causal, scale,
-        # softcap, q_offset
-        args = [p, p, p, p, i, i, i, i, i, i, p, i, f, f, i]
+        # q, k, v, o; B, Sq, Sk, H, Hk, d[, dv]; strides; causal, scale,
+        # softcap, q_offset; stream
+        tail = [p, i, f, f, i, p]
         if dtype == torch.float32:
             fn = ctypes.CDLL(str(build().path)).repro_flash_attention_f32
+            fn.argtypes = [p] * 4 + [i] * 7 + tail
         else:
             fn = ctypes.CDLL(
                 str(build_sm90().path)).repro_flash_attention_bf16
-        fn.argtypes = args + [p]  # stream
+            fn.argtypes = [p] * 4 + [i] * 6 + tail
         fn.restype = ctypes.c_int
         _FNS[dtype] = fn
     return _FNS[dtype]
@@ -241,7 +244,8 @@ def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 o: torch.Tensor) -> tuple:
     """Sizes (B, Sq, Sk, H, Hk, d) and the 12 element strides (batch,
     seq, head of q, k, v, o) that the C entry points take, for (B, Sq,
-    H, d) q and o and (B, Sk, Hk, d) k and v."""
+    H, d) q, (B, Sk, Hk, d) k and v and o of q's first three sizes (v
+    and o may be narrower than d)."""
     B, Sq, H, d = q.shape
     strides = tuple(s for x in (q, k, v, o) for s in x.stride()[:3])
     return (B, Sq, k.shape[1], H, k.shape[2], d), strides
@@ -281,26 +285,30 @@ def _value_operand(v: torch.Tensor, d: int) -> torch.Tensor:
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             scale: Optional[float], softcap: float,
             q_offset: int) -> torch.Tensor:
-    """One kernel launch on (B, Sq, H, d) q and (B, Sk, Hk, d) k, v;
-    returns a contiguous (B, Sq, H, d) output."""
-    d = q.shape[-1]
-    scale = d ** -0.5 if scale is None else float(scale)
-    if q.dtype == torch.bfloat16:
+    """One kernel launch on (B, Sq, H, d) q, (B, Sk, Hk, d) k and (B, Sk,
+    Hk, dv) v (dv == d in bf16); returns a contiguous (B, Sq, H, dv)
+    output."""
+    dv = v.shape[-1]
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    f32 = q.dtype == torch.float32
+    if not f32:
         q, k, v = (_tma_operand(x) for x in (q, k, v))
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape[:3] + ((dv,) if f32 else q.shape[3:]),
+                      dtype=q.dtype, device=q.device)
     if not out.numel():
-        return out[..., :d]
+        return out[..., :dv]
     sizes, strides = kernel_args(q, k, v, out)
+    widths = (dv,) if f32 else ()
     fn = _fn(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         nvcc.raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), *sizes,
+                         out.data_ptr(), *sizes, *widths,
                          (ctypes.c_longlong * 12)(*strides), int(causal),
                          scale, float(softcap), int(q_offset), stream),
                      "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out if out.shape[-1] == d else out[..., :d].contiguous()
+    return out if out.shape[-1] == dv else out[..., :dv].contiguous()
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
@@ -325,7 +333,7 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_bhsd_shapes(q, k, v)
     _check_pair(q, k, v)
     d, dv = q.shape[3], v.shape[3]
-    if dv == d:
+    if dv == d or q.dtype == torch.float32:  # fp32 reads a narrower v
         return _launch(q, k, v, causal, scale, softcap, q_offset)
     return _launch(q, k, _value_operand(v, d), causal, scale, softcap,
                    q_offset)[..., :dv].contiguous()

@@ -300,6 +300,124 @@ def test_cuda_flash_softcap_and_offset_are_deterministic(cuda, dtype):
             assert torch.equal(tail, whole[:, 1024:])
 
 
+# the fp32 kernel's instances: every head-width bucket that the zoo's
+# shapes do not already reach (d = 20 zero-filled into the 32 bucket, 96,
+# stablelm's 160, 192, 224, 256), at S = 1, one past a 64-key tile and
+# past the 16-, 32- and 64-row q tiles, GQA 4:2
+F32_WIDTHS = [20, 96, 160, 192, 224, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 65, 150])
+@pytest.mark.parametrize("d", F32_WIDTHS)
+def test_cuda_flash_f32_head_width_instances(cuda, d, s):
+    q = _normal(d + s, (2, s, 4, d), cuda)
+    k, v = (_normal(d + s + i, (2, s, 2, d), cuda) for i in (1, 2))
+    flash_attention.reset_launch_counts()
+    got = ops.flash_attention_bhsd(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash_attention": 1}
+    torch.testing.assert_close(
+        got, flash_attention.flash_attention_bhsd_plain(q, k, v),
+        atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hk,d,dv", [(2, 130, 4, 4, 192, 128),
+                                           (1, 77, 6, 2, 40, 24)])
+def test_cuda_flash_f32_reads_a_narrower_v_in_place(cuda, monkeypatch, b, s,
+                                                    h, hk, d, dv):
+    """The fp32 kernel takes v at its own width dv < d (latent
+    attention's 128 at 192, and 24 at 40), as a strided view of a wider
+    tensor: no zero-padded copy (``_value_operand`` is never called)."""
+    def no_pad(*args):
+        raise AssertionError("v was copied and zero-padded")
+
+    monkeypatch.setattr(flash_attention, "_value_operand", no_pad)
+    q = _normal(d, (b, s, h, d), cuda)
+    k = _normal(d + 1, (b, s, hk, d), cuda)
+    v = _normal(d + 2, (b, s, hk, dv + 8), cuda)[..., 4:dv + 4]
+    flash_attention.reset_launch_counts()
+    got = ops.flash_attention_bhsd(q, k, v, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash_attention": 1}
+    assert got.shape == (b, s, h, dv) and got.is_contiguous()
+    torch.testing.assert_close(
+        got, flash_attention.flash_attention_bhsd_plain(q, k, v,
+                                                        scale=d ** -0.5),
+        atol=2e-5, rtol=2e-5)
+
+
+# (B, H, Hk): few heads take the kernel's 16-64-row q tiles, many the
+# 128-row one (a grid of at least one block per SM either way)
+F32_HEADS = [(1, 4, 2), (2, 96, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hk", F32_HEADS)
+@pytest.mark.parametrize("d,dv", [(128, 128), (192, 128)])
+@pytest.mark.parametrize("sq,sk,q_offset,softcap", [(100, 300, 200, 50.0),
+                                                    (100, 300, 150, 0.0),
+                                                    (64, 200, 10, 50.0)])
+def test_cuda_flash_f32_offset_and_softcap_at_4x(cuda, sq, sk, q_offset,
+                                                 softcap, d, dv, b, h, hk):
+    """Keys longer than the queries at a query offset, and the softcap
+    with q at 4x scale (where the cap bites), with GQA."""
+    q = 4.0 * _normal(sq + d, (b, sq, h, d), cuda)
+    k = _normal(sk + d, (b, sk, hk, d), cuda)
+    v = _normal(sk + dv, (b, sk, hk, dv), cuda)
+    got = ops.flash_attention_bhsd(q, k, v, softcap=softcap,
+                                   q_offset=q_offset)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, flash_attention.flash_attention_bhsd_plain(
+            q, k, v, softcap=softcap, q_offset=q_offset),
+        atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hk", F32_HEADS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_f32_unaligned_views_take_the_4_byte_copies(cuda, causal,
+                                                              b, h, hk):
+    """Views one element past an aligned base, which the kernel copies 4
+    bytes at a time, give the output of the aligned tensors (16-byte
+    copies) bit for bit, causal or not."""
+    q = _normal(30, (b, 200, h, 128), cuda)
+    k, v = (_normal(i, (b, 200, hk, 128), cuda) for i in (31, 32))
+    got = ops.flash_attention_bhsd(*(_offset(x, 1) for x in (q, k, v)),
+                                   causal=causal)
+    aligned = ops.flash_attention_bhsd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, flash_attention.flash_attention_bhsd_plain(q, k, v,
+                                                        causal=causal),
+        atol=2e-5, rtol=2e-5)
+    assert torch.equal(got, aligned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hk,d,dv", [(8, 300, 32, 8, 128, 128),
+                                           (1, 256, 128, 128, 192, 128),
+                                           (4, 200, 64, 16, 64, 64),
+                                           (2, 150, 96, 32, 20, 20)])
+def test_cuda_flash_f32_many_waves_and_two_calls_bit_identical(cuda, b, s, h,
+                                                               hk, d, dv):
+    """B H large enough for several waves of 128-row blocks (8 x 32 heads
+    x 3 q tiles), deepseek's replay shape, and the 128-row tile at d =
+    64 and 20: each held against the plain version, and two calls give
+    the same bits."""
+    q = _normal(40, (b, s, h, d), cuda)
+    k = _normal(41, (b, s, hk, d), cuda)
+    v = _normal(42, (b, s, hk, dv), cuda)
+    first, second = (ops.flash_attention_bhsd(q, k, v) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        first, flash_attention.flash_attention_bhsd_plain(q, k, v),
+        atol=2e-5, rtol=2e-5)
+    assert torch.equal(first, second)
+
+
 #: sha256 of the bf16 kernel's output at llama's prefill shape on the
 #: inputs below, taken from the kernel before it had a softcap or an
 #: offset (NVIDIA H100 80GB HBM3, CUDA 12.8)

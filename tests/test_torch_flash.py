@@ -137,6 +137,41 @@ def test_flash_attention_bhsd_hands_the_kernel_the_strided_tensors_in_place(
     assert seen == [True, True]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv", [(24, 16), (192, 128)])
+def test_only_bf16_zero_pads_a_narrower_v(monkeypatch, dtype, d, dv):
+    """With the launch replaced: the fp32 kernel has a value width of its
+    own, so ``flash_attention_op`` hands it v itself and never calls
+    ``_value_operand``; the bf16 kernel takes one head width, so v is
+    still copied with its columns zero-padded to d, and the output cut
+    back to dv."""
+    q, k = (torch.from_numpy(x).to(dtype) for x in _qkv(7, (1, 12, 4, d))[:2])
+    k = k[:, :, :2]
+    v = torch.from_numpy(_qkv(8, (1, 12, 2, dv))[0]).to(dtype)
+    seen, padded = [], []
+    pad = flash_attention._value_operand
+
+    def kernel(q_, k_, v_, causal, scale, softcap, q_offset):
+        seen.append(v_)
+        return torch.zeros(q_.shape[:3] + v_.shape[3:], dtype=q_.dtype)
+
+    def value_operand(v_, width):
+        padded.append(v_)
+        return pad(v_, width)
+
+    monkeypatch.setattr(flash_attention, "_on_cpu", lambda **_: False)
+    monkeypatch.setattr(flash_attention, "_launch", kernel)
+    monkeypatch.setattr(flash_attention, "_value_operand", value_operand)
+    assert ops.flash_attention_bhsd(q, k, v).shape == (1, 12, 4, dv)
+    if dtype == torch.float32:
+        assert padded == [] and len(seen) == 1 and seen[0] is v
+    else:
+        assert len(padded) == 1 and padded[0] is v
+        assert seen[0].shape == (1, 12, 2, d)
+        assert torch.equal(seen[0][..., :dv], v)
+        assert not seen[0][..., dv:].any()
+
+
 def _bf16_views(b, h, hk, d, offset=0):
     """q, k, v as (B, 20, H|Hk, d) bf16 views of one fused projection,
     its data starting ``offset`` elements past an aligned base."""

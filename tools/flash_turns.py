@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Time the fp32 flash-attention kernel of two checkouts in turns.
+
+    python3 tools/flash_turns.py OTHER_CHECKOUT
+
+Run on a machine with an NVIDIA GPU, from a checkout of the repository;
+``OTHER_CHECKOUT`` is the root of another one (for an earlier commit:
+``git archive <commit> | tar -x -C _archive``).  Each turn is a
+subprocess that imports ``repro_torch`` from one checkout's ``src``,
+builds that checkout's fp32 kernel and times its
+``ops.flash_attention_bhsd`` (the kernel with whatever its wrapper does
+around it) at the fp32 shapes of ``chip_smoke.py`` phase 3 with its
+timer (CUDA events over a CUDA graph of back-to-back calls), on inputs
+drawn from one seed in every turn, and beside it
+``scaled_dot_product_attention`` on the same inputs without the cap
+(its library call; the same in every turn).  The turns run other, this, this, other, on one card.  Prints the
+card's name and power limit, each turn's build, ptxas lines and times,
+and last one JSON object: {shape label: [kernel ms of each turn]} and
+{shape label: [SDPA ms of each turn]} with the turns' order.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke as cs  # noqa: E402  (stdlib only at import)
+
+
+def cases():
+    """(label, (B, S, H, Hk, d[, dv]), softcap, q scale)."""
+    shapes = [cs.FLASH_F32_REPLAY] + cs.FLASH_F32_ZOO + cs.FLASH_F32_FULL
+    out = [(str(s), s, 0.0, 1.0) for s in shapes]
+    return out + [(f"{cs.FLASH_F32_REPLAY} softcap {cs.SOFTCAP}",
+                   cs.FLASH_F32_REPLAY, cs.SOFTCAP, cs.CAP_Q_SCALE)]
+
+
+def worker() -> None:
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    info = fa.build()
+    lines = [ln.strip() for ln in info.log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    times = {}
+    for label, shape, softcap, q_scale in cases():
+        b, s, h, hk, d = shape[:5]
+        dv = shape[5] if len(shape) > 5 else d
+
+        def randn(heads, width):
+            return torch.randn(b, s, heads, width, generator=gen,
+                               device="cuda")
+
+        q, k, v = randn(h, d) * q_scale, randn(hk, d), randn(hk, dv)
+        kw = {"softcap": softcap} if softcap else {}
+        run = lambda: ops.flash_attention_bhsd(q, k, v, **kw)  # noqa: E731
+        got = run()
+        want = fa.flash_attention_bhsd_plain(q, k, v, **kw)
+        tol = cs.FLASH_TOL["float32"]
+        ok = bool(torch.allclose(got, want, atol=tol, rtol=tol))
+        reps = (5, 3) if s >= 1024 else (50, 5)
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        times[label] = {"ms": cs.device_ms(torch, run, *reps),
+                        "sdpa_ms": cs.device_ms(
+                            torch, lambda: sdpa(qs, ks, vs, is_causal=True,
+                                                enable_gqa=hk != h), *reps),
+                        "max_abs_err": float((got - want).abs().max()),
+                        "ok": ok}
+        del q, k, v, qs, ks, vs, got, want
+        torch.cuda.empty_cache()
+    print(json.dumps({"build_s": info.seconds, "ptxas": lines,
+                      "times": times}))
+
+
+def turn(checkout: Path) -> dict:
+    env = dict(os.environ, PYTHONPATH=str(checkout / "src"))
+    proc = subprocess.run([sys.executable, __file__, "--worker"], env=env,
+                          capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        cs.die(f"turn in {checkout} failed:\n{proc.stdout}{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main() -> None:
+    if sys.argv[1:] == ["--worker"]:
+        worker()
+        return
+    if len(sys.argv) != 2:
+        cs.die("usage: tools/flash_turns.py OTHER_CHECKOUT")
+    other = Path(sys.argv[1]).resolve()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0])
+    order = [("other", other), ("this", ROOT), ("this", ROOT),
+             ("other", other)]
+    table = {label: [] for label, *_ in cases()}
+    library = {label: [] for label, *_ in cases()}
+    for name, checkout in order:
+        res = turn(checkout)
+        print(f"turn {name} ({checkout}): build {res['build_s']:.2f} s")
+        for line in res["ptxas"]:
+            print(f"  ptxas: {line}")
+        for label, rec in res["times"].items():
+            print(f"  {label}: {rec['ms']:.6f} ms, max_abs_err "
+                  f"{rec['max_abs_err']:.3g}, within tol: {rec['ok']}; "
+                  f"sdpa {rec['sdpa_ms']:.6f} ms")
+            table[label].append(rec["ms"])
+            library[label].append(rec["sdpa_ms"])
+            cs.check(rec["ok"], f"{name} {label}: not within tolerance")
+    print(json.dumps({"order": [n for n, _ in order], "ms": table,
+                      "sdpa_ms": library}))
+
+
+if __name__ == "__main__":
+    main()
