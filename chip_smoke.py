@@ -23,10 +23,11 @@ exit) if anything in it fails; no failure is caught:
    serving shape), which TMA cannot read in place and the wrapper pads
    into an aligned copy; bf16 flash at gemma3-12b's global shape (d =
    256); bf16 flash at the zoo's newer prefill shapes, stablelm-12b's
-   (d = 160, 32:8 GQA), command-r-35b's (d = 128, 64:8 GQA) and
-   deepseek's latent attention (128 heads, q and k at d = 192, v at dv
-   = 128, which the bf16 wrapper zero-pads to d; the padding copy timed
-   alone, and the same heads at d = dv = 128 beside them), and fp32
+   (d = 160, 32:8 GQA, the instance <3, 3, 96>), command-r-35b's (d =
+   128, 64:8 GQA) and deepseek's latent attention (128 heads, q and k
+   at d = 192, v at dv = 128 read in place by the instance <3, 2, 128>;
+   the same heads at d = dv = 128 beside them), each bf16 case's
+   instance printed, and fp32
    flash at the zoo replays' shapes (d = 160; d = 192 with dv = 128,
    v read in place) and at two full-size prefill shapes, llama's GQA
    and deepseek's latent attention, each fp32 case's SDPA output held
@@ -219,7 +220,7 @@ exit) if anything in it fails; no failure is caught:
    checked); each timed by stage and profiled as in 25;
 27. train replays: llama3.2-3b and falcon-mamba-7b at full width cut to
    2 layers, fp32 with TF32 off, K = 4, batch 8 x 64: 3 FEEL steps on
-   the card, then 2 more, each replayed on the CPU from the card's
+   the card, then 1 more, replayed on the CPU from the card's
    params, AdamW state and batch (``launch/replay.py``'s rule: loss,
    per-example loss and sigma at rtol 1e-4; each client's smallest
    sigma gap printed, the selections equal where it clears 10x the
@@ -254,9 +255,9 @@ exit) if anything in it fails; no failure is caught:
    151936), musicgen's codebooks folded into (8192, 4 x 2048) rows),
    none of flash or the scan (checked); each timed by stage and
    profiled;
-32. train replays by phase 27's rule: 2 FEEL steps of each arch at full
-   width cut to 2 layers, fp32, after 3 warm-up steps; and 2 adafactor
-   steps of deepseek-v2's smoke decoder cut to 3 layers (a dense head
+32. train replays by phase 27's rule: 1 FEEL step of each arch at full
+   width cut to 2 layers, fp32, after 3 warm-up steps; and 1 adafactor
+   step of deepseek-v2's smoke decoder cut to 3 layers (a dense head
    layer and two body repeats: adafactor steps each stacked body group
    at once, as the reference's on its stacked tree);
 33. llama3.2-3b at full width and depth on a 1x1 ``DeviceMesh``
@@ -294,7 +295,7 @@ exit) if anything in it fails; no failure is caught:
    fp32 on the CPU as phase 17 (the fp32 kernel's softcapped instance
    on the card); (c) FEEL train steps at full width cut to one pattern
    (6 layers), the config's AdamW, one sigma launch a step, step ms,
-   tok/s and peak; (d) 2 train steps of a 2-layer fp32 cut, its
+   tok/s and peak; (d) 1 train step of a 2-layer fp32 cut, its
    vocabulary cut to 32768, replayed on the CPU by phase 27's rule.
 
 Every replay (8, 10, 17, 22, 30, 35) draws its weights on the card from a
@@ -343,6 +344,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -454,7 +456,7 @@ CUT_TRAIN = ((MAMBA, 4, 4), (RGEMMA, 3, 2), (DSV2, 2, 0))
 CUT_BATCH, CUT_SEQ, CUT_STEPS = 8, 512, 3
 REPLAY_TRAIN_ARCHS = (ARCH, MAMBA)
 REPLAY_TRAIN_BATCH, REPLAY_TRAIN_SEQ = 8, 64
-REPLAY_TRAIN_WARM, REPLAY_TRAIN_STEPS = 3, 2
+REPLAY_TRAIN_WARM, REPLAY_TRAIN_STEPS = 3, 1
 # phases 28-32: the vlm and audio modalities at full width and depth,
 # (arch, parameters, layers, vocab); their train steps' sigma shapes
 # (h, p - y), musicgen's codebooks folded into one row; the vlm
@@ -632,6 +634,15 @@ def phase_kernels(torch, gradnorm):
     return main_norm, main_sigma, big_sigma
 
 
+def wgmma_instance(name: str) -> tuple[int, ...] | None:
+    """The template arguments (DC, DVC, BK) of a profiled launch of the
+    bf16 flash kernel, demangled or mangled, or None for another
+    kernel."""
+    m = re.search(r"flash_wgmma_kernel(?:<(\d+), (\d+), (\d+),|"
+                  r"ILi(\d+)ELi(\d+)ELi(\d+)E)", name)
+    return tuple(int(x) for x in m.groups() if x) if m else None
+
+
 def flash_bound(b: int, s: int, h: int, hk: int, d: int, causal: bool,
                 itemsize: int, dv: int | None = None, sk: int | None = None,
                 q_offset: int = 0) -> tuple[float, str]:
@@ -661,8 +672,8 @@ def phase_flash(torch, fa, ops):
     folded) or the strided (B, S, H, d) one, there also as views one
     element past an aligned base ("bshd+1": in bf16 q, k and v copied
     into aligned buffers).  A dv < d (latent attention) is a v of its own
-    width: the fp32 kernel reads it in place, and for bf16 the wrapper
-    zero-pads it to d (that copy timed alone beside the case).  fp32 runs
+    width, which both kernels read in place; each bf16 case prints the
+    instance ``bf16_instance`` names for it.  fp32 runs
     at the replays' shapes and at two full-size ones
     (``FLASH_F32_FULL``); there SDPA's output, the library call, is held
     against the plain version at the kernel's tolerance too, and whether
@@ -755,11 +766,9 @@ def phase_flash(torch, fa, ops):
               f"kernel/bound {rec['ms'] / b_ms:.2f}x ({100 * b_ms / rec['ms']:.1f} "
               f"% of bound) kernel/sdpa {rec['ms'] / rec['library_ms']:.2f}x"
               + sdpa_note)
-        if dv < d and dt == "bfloat16":
-            pad_ms = device_ms(torch, lambda: fa._value_operand(v, d),
-                               calls, replays)
-            print(f"  of which v zero-padded from {dv} to {d} columns "
-                  f"before the launch: {pad_ms:.6f} ms")
+        if dt == "bfloat16":
+            print(f"  instance flash_wgmma_kernel<DC, DVC, BK> = "
+                  f"{fa.bf16_instance(-(-d // 8) * 8, -(-dv // 8) * 8)}")
         recs[(shape, dt, layout)] = rec
         del q, k, v, q4, k4, v4, qs, ks, vs, run, plain, sdpa
         torch.cuda.empty_cache()
@@ -1934,8 +1943,8 @@ def phase_serve_profile(torch, tm, get_config, arch):
     ``torch.profiler`` (after a warm-up of each): device operations,
     device busy time against wall time, the kernels that take the most
     device time, and the scan and flash kernels' device time where the
-    step runs them.  Returns the names of the prefill's flash kernel
-    launches."""
+    step runs them.  Returns (name, device ms) of the prefill's flash
+    kernel launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve as serve_mod
@@ -1977,7 +1986,8 @@ def phase_serve_profile(torch, tm, get_config, arch):
                  "launches" if scans else "")
               + (f"; the flash kernel {sum(flash):.3f} ms in {len(flash)} "
                  "launches" if flash else ""))
-        return [e.name for e in dev if "flash" in e.name]
+        return [(e.name, e.time_range.elapsed_us() / 1e3) for e in dev
+                if "flash" in e.name]
 
     flash_names = step("prefill", lambda: prefill(model, request, cache))
     tok = torch.zeros((SERVE_BATCH,) + ((cfg.n_codebooks,) if
@@ -2484,7 +2494,7 @@ def phase_softcap(torch, serve_mod, train_mod, replay, tm, full_fp32,
           f"{ {k: v['flash_attention'] for k, v in res.launches.items()} }")
     del res
     torch.cuda.empty_cache()
-    names = phase_serve_profile(torch, tm, get_config, cfg)
+    names = [n for n, _ in phase_serve_profile(torch, tm, get_config, cfg)]
     instance = [n for n in names if ("true, true" in n or "Lb1ELb1E" in n)]
     check(len(names) == GEMMA_GLOBAL and len(instance) == len(names),
           f"softcapped {GEMMA}: the profiled prefill's flash launches "
@@ -3030,6 +3040,21 @@ def main() -> None:
               f"launches: {n * rec['ms']:.3f} ms ({n} x the {shape} time)")
         return rec
 
+    def prefill_flash_profile(cfg, n, shape, prefill_s):
+        """Profiles a prefill (``phase_serve_profile``) and checks that its
+        n flash launches are the bf16 instance of the shape's widths."""
+        arch = cfg if isinstance(cfg, str) else cfg.name
+        flash = phase_serve_profile(torch, tm, get_config, cfg)
+        want = flash_attention.bf16_instance(shape[4], shape[-1])
+        got = [wgmma_instance(name) for name, _ in flash]
+        check(len(got) == n and set(got) == {want},
+              f"{arch}: the profiled prefill's flash launches are {got}, "
+              f"expected {n} of the instance {want}")
+        print(f"{arch}: prefill {prefill_s:.6f} s; the profiled prefill's "
+              f"flash kernel {sum(ms for _, ms in flash):.3f} ms in {n} "
+              f"launches of flash_wgmma_kernel<{', '.join(map(str, want))}, "
+              "...>")
+
     torch.cuda.empty_cache()
     stablelm_launches, served = phase_serve(
         torch, serve_mod, kernels, STABLELM, prefill_flash(STABLELM_LAYERS),
@@ -3037,7 +3062,8 @@ def main() -> None:
     check(served.n_params == STABLELM_PARAMS, f"{STABLELM}: "
           f"{served.n_params:,} parameters, expected {STABLELM_PARAMS:,}")
     flash_stablelm_rec = flash_time(STABLELM, STABLELM_LAYERS, FLASH_STABLELM)
-    phase_serve_profile(torch, tm, get_config, STABLELM)
+    prefill_flash_profile(STABLELM, STABLELM_LAYERS, FLASH_STABLELM,
+                          served.prefill_s)
     done("18 stablelm serve")
 
     # -- 19. the command-r-35b serving path -----------------------------
@@ -3074,7 +3100,7 @@ def main() -> None:
     print(f"{DSV2}: naive and absorbed tokens equal "
           f"{torch.equal(naive.tokens, absorbed.tokens)}")
     flash_mla_rec = flash_time(DSV2, DSV2_LAYERS, FLASH_MLA)
-    phase_serve_profile(torch, tm, get_config, dsv2)
+    prefill_flash_profile(dsv2, DSV2_LAYERS, FLASH_MLA, naive.prefill_s)
     done("20 deepseek-v2 serve")
 
     # -- 21. the deepseek-v3-671b serving path, cut to 4 layers ---------
@@ -3085,7 +3111,7 @@ def main() -> None:
     check(served.n_params == DSV3_PARAMS, f"{DSV3} cut to {DSV3_LAYERS} "
           f"layers: {served.n_params:,} parameters, expected {DSV3_PARAMS:,}")
     flash_dsv3_rec = flash_time(DSV3, DSV3_LAYERS, FLASH_MLA)
-    phase_serve_profile(torch, tm, get_config, dsv3)
+    prefill_flash_profile(dsv3, DSV3_LAYERS, FLASH_MLA, served.prefill_s)
     done("21 deepseek-v3 serve")
 
     # -- 22. zoo replays on the CPU -------------------------------------

@@ -3,12 +3,12 @@
 Counterpart of ``repro/configs``.  ``ARCHS`` lists the architectures
 the port runs: all ten of the reference's.  ``smoke_config(name)``
 returns the reduced same-family variant (a few layers, narrow widths)
-the CPU tests use.
+the CPU tests use; ``all_configs()`` every full config by name.
 """
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from ..models.config import ArchConfig
 
@@ -47,3 +47,7 @@ def smoke_config(name: str) -> ArchConfig:
     cfg = _module(name).smoke()
     cfg.validate()
     return cfg
+
+
+def all_configs() -> Dict[str, ArchConfig]:
+    return {a: get_config(a) for a in ARCHS}

@@ -14,11 +14,13 @@
 // as the JAX zoo's `_softmax_attend` casts them to v's dtype.  float32
 // inputs stay on the CUDA-core kernel of flash_attention.cu.
 //
-// Layout.  q and o are (B, Sq, H, d), k and v (B, Sk, Hk, d), each with its
-// own 64-bit element strides for batch, sequence and head and a unit stride
-// over d: the serving path's (B, S, H, d) projections are read in place, and
-// query head h reads kv head h / (H / Hk), the grouping of GQA, with no
-// copy of K or V per query head.  A (BH, S, d) tensor is H = Hk = 1.
+// Layout.  q is (B, Sq, H, d), k (B, Sk, Hk, d), v (B, Sk, Hk, dv) and o
+// (B, Sq, H, dv) with dv <= d (multi-head latent attention's prefill:
+// d = 192, dv = 128), each with its own 64-bit element strides for
+// batch, sequence and head and a unit stride over d: the serving path's
+// (B, S, H, d) projections are read in place, and query head h reads kv
+// head h / (H / Hk), the grouping of GQA, with no copy of K or V per
+// query head.  A (BH, S, d) tensor is H = Hk = 1.
 //
 // Bound.  Causal attention at the llama serving shape (B*H, S, d) =
 // (96, 2048, 128) is ~1.0e11 flops on ~2e8 bytes: bound by operations, at
@@ -33,14 +35,15 @@
 // below refuses such a layout.  One block of two warpgroups owns a 128-row
 // q tile of one (batch, head), each warpgroup 64 rows:
 // - Thread 0 issues TMA loads of the q tile and of a ring of K/V
-//   stages (3 at d <= 128, 2 at d = 256), K and V on their own
+//   stages (3 where they fit, else 2), K and V on their own
 //   mbarriers so Q K^T starts before V lands, and each stage refilled
 //   once both warpgroups have released it through an `empty` mbarrier.
 //   The tensor maps are built on the host per call over the strided
-//   4-D (d, H, S, B) views and passed as __grid_constant__ parameters.
-//   Boxes are 64 columns of d wide with the 128-byte swizzle, so d is
-//   padded to a multiple of 64 in shared memory by TMA's zero fill,
-//   and rows past Sq (q) or Sk (K, V) are zero-filled too.
+//   4-D (d, H, S, B) views (v's and o's of width dv) and passed as
+//   __grid_constant__ parameters.  Boxes are 64 columns wide with the
+//   128-byte swizzle, so d and dv are padded to the instance's chunks in
+//   shared memory by TMA's zero fill (a box wholly past the width is all
+//   zeros), and rows past Sq (q) or Sk (K, V) are zero-filled too.
 // - There is no producer warp, and no `setmaxnreg`: ptxas compiles a
 //   wgmma kernel for whole warpgroups, so a third (producer) warpgroup
 //   would cap every thread at 168 registers, and it keeps that cap for
@@ -65,8 +68,16 @@
 //   rescales by exactly 0; the last tile holds key 0, which every row
 //   sees (so a negative q_offset, rows that see no key, is refused).
 //   The accumulator is rescaled only for rows whose max grew.
-// - Keys per stage: 128 for d <= 128, 64 for d <= 256 (so the q tile
-//   and the K/V stages fit in 227 KB).
+// - Instances <DC, DVC, BK>: DC 64-column chunks of d (q, K), DVC of
+//   the V tile and the O accumulator, BK keys a K/V stage, chosen so the
+//   q tile and the stages fit in 227 KB and the accumulators in 255
+//   registers; the caller names one (the Python wrapper's
+//   `bf16_instance`): <1, 1, 128> for d <= 64 and <2, 2, 128> for
+//   d <= 128 (3 stages), <3, 2, 128> for d <= 192 with dv <= 128 (2
+//   stages of 80 KB; latent attention), <3, 3, 96> for d <= 192 (2
+//   stages of 72 KB; stablelm's 160: 15 % faster there than 3 stages of
+//   64 keys), <4, 4, 64> for d <= 256 (2 stages).  Zero columns of q and
+//   K add nothing to Q K^T, and O's columns past dv are never stored.
 // - Softcap and the offset are template flags (kSoftcap; kOffset: a
 //   query offset or a key length of its own), so the instance with
 //   neither compiles to the code it had before they existed (its
@@ -257,23 +268,30 @@ constexpr int kWgBlockQ = 128;  // q rows per block: 64 per warpgroup
 constexpr int kWgThreads = 256;
 constexpr int kChunk = 64;         // d columns per TMA box (128 swizzled bytes)
 constexpr int kChunkBytes = kChunk * 2;
+constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use
 
 // Shared memory of a block (bytes from a 1024-byte aligned base): the q
-// tile, then K and V stages, each as DC chunks of `rows` x 128 bytes in
-// the 128-byte swizzle TMA writes and wgmma reads; then the mbarriers.
-template <int DC, int BK>
+// tile, then K and V stages, as DC (q, K) or DVC (V) chunks of `rows` x
+// 128 bytes in the 128-byte swizzle TMA writes and wgmma reads; then the
+// mbarriers (q_full, k_full[S], v_full[S], k_empty[S], v_empty[S]) and
+// the slack of the base's alignment.
+template <int DC, int DVC, int BK>
 struct WgSmem {
-  // K/V ring: 3 stages where they fit (a stage is then reloaded only
-  // once both warpgroups are done with the tile before last), 2 at
-  // d = 256
-  static constexpr int kStages = DC == 4 ? 2 : 3;
   static constexpr int kQ = kWgBlockQ * kChunkBytes * DC;
-  static constexpr int kKV = BK * kChunkBytes * DC;
+  static constexpr int kKT = BK * kChunkBytes * DC;   // one K stage
+  static constexpr int kVT = BK * kChunkBytes * DVC;  // one V stage
+  // a stage: K, V and their four mbarriers
+  static constexpr int kStageBytes = kKT + kVT + 4 * 8;
+  static constexpr int kFixed = kQ + 8 + 1024;
+  // K/V ring: 3 stages where they fit (a stage is then reloaded only
+  // once both warpgroups are done with the tile before last), else 2
+  // (d = 256, and d = 192 at 96 or 128 keys a stage)
+  static constexpr int kStages = kFixed + 3 * kStageBytes <= kMaxSmem ? 3 : 2;
   static constexpr int kK = kQ;
-  static constexpr int kV = kK + kStages * kKV;
-  static constexpr int kBar = kV + kStages * kKV;
-  // q_full, k_full[S], v_full[S], k_empty[S], v_empty[S]
-  static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages) + 1024;
+  static constexpr int kV = kK + kStages * kKT;
+  static constexpr int kBar = kV + kStages * kVT;
+  static constexpr int kBytes = kFixed + kStages * kStageBytes;
+  static_assert(kBytes <= kMaxSmem, "the q tile and 2 K/V stages must fit");
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -416,6 +434,34 @@ struct WgmmaSS<128> {
   }
 };
 
+template <>
+struct WgmmaSS<96> {
+  static __device__ __forceinline__ void mma(float (&d)[48], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
 template <int N>
 struct WgmmaRS;
 
@@ -478,6 +524,50 @@ struct WgmmaRS<128> {
 };
 
 template <>
+struct WgmmaRS<192> {
+  static __device__ __forceinline__ void mma(float (&d)[96],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
 struct WgmmaRS<256> {
   static __device__ __forceinline__ void mma(float (&d)[128],
                                              const uint32_t (&a)[4],
@@ -534,14 +624,14 @@ struct WgmmaRS<256> {
 // S = Q K^T over d (4 k-steps of 16 per 64-column chunk), issued and
 // committed.  The scores start from zero, so the last tile's are dead
 // while the product runs and hold no registers across it.
-template <int DC, int BK>
+template <int DC, int DVC, int BK>
 __device__ __forceinline__ void issue_scores(float (&s)[BK / 2],
-                                             float (&acc)[DC * 32],
+                                             float (&acc)[DVC * 32],
                                              uint32_t q_wg, uint32_t k_st) {
 #pragma unroll
   for (int e = 0; e < BK / 2; ++e) s[e] = 0.0f;
   fence_regs<BK / 2>(s);
-  fence_regs<DC * 32>(acc);
+  fence_regs<DVC * 32>(acc);
   wgmma_fence();
 #pragma unroll
   for (int c = 0; c < DC; ++c) {
@@ -558,16 +648,16 @@ __device__ __forceinline__ void issue_scores(float (&s)[BK / 2],
 }
 
 // O += P V, issued and committed: 16 keys per k-step; V rows of 128
-// swizzled bytes, chunks of 64 columns BK * 128 bytes apart.
-template <int DC, int BK>
-__device__ __forceinline__ void issue_pv(float (&acc)[DC * 32],
+// swizzled bytes, DVC chunks of 64 columns BK * 128 bytes apart.
+template <int DVC, int BK>
+__device__ __forceinline__ void issue_pv(float (&acc)[DVC * 32],
                                          const uint32_t (&p)[BK / 16][4],
                                          uint32_t v_st) {
 #pragma unroll
   for (int kt = 0; kt < BK / 16; ++kt) {
     const uint64_t dv =
         sw128_desc(v_st + kt * 16 * kChunkBytes, BK * kChunkBytes, 1024);
-    WgmmaRS<DC * 64>::mma(acc, p[kt], dv);
+    WgmmaRS<DVC * 64>::mma(acc, p[kt], dv);
   }
   wgmma_commit();
 }
@@ -588,55 +678,58 @@ __device__ __forceinline__ void pack_probs(uint32_t (&p)[BK / 16][4],
 // The TMA side of the pipeline, run by thread 0 between its own tiles:
 // each K and V tile into its stage of the ring once both warpgroups have
 // released the tile that held the stage before.
-template <int DC, int BK>
+template <int DC, int DVC, int BK>
 struct Loader {
-  using L = WgSmem<DC, BK>;
+  using L = WgSmem<DC, DVC, BK>;
   const CUtensorMap* tm_k;
   const CUtensorMap* tm_v;
   uint32_t k_s, v_s, k_full, v_full, k_empty, v_empty;
   int n_kv, hk, b;
-  static constexpr uint32_t kBytes = WgSmem<DC, BK>::kKV;
 
-  // tile t of the block's walk (from the last key tile down)
+  // tile t of the block's walk (from the last key tile down): C chunks
+  // of 64 columns (TMA zero-fills those past the tensor's width)
+  template <int C>
   __device__ __forceinline__ void load(const CUtensorMap* map, uint32_t tiles,
                                        uint32_t full, uint32_t empty,
                                        int t) const {
+    constexpr uint32_t kBytes = BK * kChunkBytes * C;
     if (t >= n_kv) return;
     const int stage = t % L::kStages;
     mbar_wait(empty + 8 * stage, ((t / L::kStages) & 1) ^ 1);  // stage free
     mbar_expect_tx(full + 8 * stage, kBytes);
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
+    for (int c = 0; c < C; ++c) {
       tma_load_4d(tiles + stage * kBytes + c * BK * kChunkBytes, map,
                   full + 8 * stage, c * kChunk, hk, (n_kv - 1 - t) * BK, b);
     }
   }
   __device__ __forceinline__ void load_k(int t) const {
-    load(tm_k, k_s, k_full, k_empty, t);
+    load<DC>(tm_k, k_s, k_full, k_empty, t);
   }
   __device__ __forceinline__ void load_v(int t) const {
-    load(tm_v, v_s, v_full, v_empty, t);
+    load<DVC>(tm_v, v_s, v_full, v_empty, t);
   }
 };
 
 // grid: one block per (batch * H + head, q tile), in `block_work` order.
-// DC: 64-column chunks of d; BK: keys per K/V stage; kSoftcap: the
-// logits are softcapped (scale_a, scale_b as in `softmax_tile`);
-// kOffset: q_offset and seq_k are read (else 0 and seq_q).
-template <int DC, int BK, bool kSoftcap, bool kOffset>
+// DC: 64-column chunks of d (q and K); DVC: of dv (V and O); BK: keys
+// per K/V stage; kSoftcap: the logits are softcapped (scale_a, scale_b
+// as in `softmax_tile`); kOffset: q_offset and seq_k are read (else 0
+// and seq_q).
+template <int DC, int DVC, int BK, bool kSoftcap, bool kOffset>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    bf16* __restrict__ o, Strides st, int seq_q, int seq_k_in,
                    int q_offset_in, int n_bh, int group_heads, int n_heads,
-                   int group, int d, int causal, float scale_a,
+                   int group, int dv, int causal, float scale_a,
                    float scale_b) {
-  using L = WgSmem<DC, BK>;
+  using L = WgSmem<DC, DVC, BK>;
   const int seq_k = kOffset ? seq_k_in : seq_q;
   const int q_offset = kOffset ? q_offset_in : 0;
   constexpr int NS = BK / 2;       // score floats per thread (m64nBK)
-  constexpr int NO = DC * 32;      // accumulator floats per thread
+  constexpr int NO = DVC * 32;     // accumulator floats per thread
 
   extern __shared__ uint8_t smem_wg[];
   const uint32_t base = (smem_addr(smem_wg) + 1023u) & ~1023u;
@@ -650,7 +743,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // key tiles up to the q tile's last position (its rows past seq_q are
   // never stored)
   const int k_end = causal ? min(seq_k, q_offset + q0 + kWgBlockQ) : seq_k;
-  Loader<DC, BK> ld;
+  Loader<DC, DVC, BK> ld;
   ld.tm_k = &tm_k;
   ld.tm_v = &tm_v;
   ld.k_s = base + L::kK;
@@ -747,7 +840,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   {
     const int stage = n_skip % L::kStages;
     mbar_wait(ld.k_full + 8 * stage, (n_skip / L::kStages) & 1);
-    issue_scores<DC, BK>(s, acc, q_wg, ld.k_s + stage * L::kKV);
+    issue_scores<DC, DVC, BK>(s, acc, q_wg, ld.k_s + stage * L::kKT);
     wgmma_wait<0>();
     fence_regs<NS>(s);
     REPRO_RELEASE(ld.k_empty + 8 * stage);
@@ -759,8 +852,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int stage = t % L::kStages, prev = (t - 1) % L::kStages;
     mbar_wait(ld.k_full + 8 * stage, (t / L::kStages) & 1);
     mbar_wait(ld.v_full + 8 * prev, ((t - 1) / L::kStages) & 1);
-    issue_scores<DC, BK>(s, acc, q_wg, ld.k_s + stage * L::kKV);
-    issue_pv<DC, BK>(acc, p, ld.v_s + prev * L::kKV);
+    issue_scores<DC, DVC, BK>(s, acc, q_wg, ld.k_s + stage * L::kKT);
+    issue_pv<DVC, BK>(acc, p, ld.v_s + prev * L::kVT);
     wgmma_wait<1>();  // the scores are in; P V still runs
     fence_regs<NS>(s);
     REPRO_RELEASE(ld.k_empty + 8 * stage);
@@ -777,7 +870,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(ld.v_full + 8 * last, ((n_kv - 1) / L::kStages) & 1);
     fence_regs<NO>(acc);
     wgmma_fence();
-    issue_pv<DC, BK>(acc, p, ld.v_s + last * L::kKV);
+    issue_pv<DVC, BK>(acc, p, ld.v_s + last * L::kVT);
     wgmma_wait<0>();
     fence_regs<NO>(acc);
   }
@@ -792,8 +885,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int e = 0; e < NO; e += 2) {
     const bool first = e % 4 < 2;
     const int row = first ? row_a : row_a + 8;
-    const int col = 8 * (e / 4) + 2 * (lane % 4);  // even; d % 8 == 0
-    if (row < seq_q && col < d) {
+    const int col = 8 * (e / 4) + 2 * (lane % 4);  // even; dv % 8 == 0
+    if (row < seq_q && col < dv) {
       const float inv = first ? inv_a : inv_b;
       *reinterpret_cast<uint32_t*>(o_bh + row * st.os + col) =
           pack_bf16(acc[e] * inv, acc[e + 1] * inv);
@@ -864,16 +957,17 @@ bool tma_ok(const void* p, int batch, int seq, int heads, long long sb,
          stride_ok(seq, ss) && stride_ok(heads, sh);
 }
 
-template <int DC, int BK, bool kSoftcap, bool kOffset>
+template <int DC, int DVC, int BK, bool kSoftcap, bool kOffset>
 int launch_wgmma(const void* q, const void* k, const void* v, bf16* o,
                  const Strides& st, int batch, int seq_q, int seq_k,
-                 int q_offset, int n_heads, int n_kv_heads, int d, int causal,
-                 float scale_a, float scale_b, cudaStream_t stream) {
-  constexpr int smem = WgSmem<DC, BK>::kBytes;
+                 int q_offset, int n_heads, int n_kv_heads, int d, int dv,
+                 int causal, float scale_a, float scale_b,
+                 cudaStream_t stream) {
+  constexpr int smem = WgSmem<DC, DVC, BK>::kBytes;
   static bool opted_in = false;  // above 48 KB a kernel must opt in
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_wgmma_kernel<DC, BK, kSoftcap, kOffset>,
+        flash_wgmma_kernel<DC, DVC, BK, kSoftcap, kOffset>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
@@ -883,59 +977,63 @@ int launch_wgmma(const void* q, const void* k, const void* v, bf16* o,
               kWgBlockQ) ||
       !encode(&tm_k, k, batch, seq_k, n_kv_heads, d, st.kb, st.ks, st.kh,
               BK) ||
-      !encode(&tm_v, v, batch, seq_k, n_kv_heads, d, st.vb, st.vs, st.vh,
+      !encode(&tm_v, v, batch, seq_k, n_kv_heads, dv, st.vb, st.vs, st.vh,
               BK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_qt = (seq_q + kWgBlockQ - 1) / kWgBlockQ;
   const int n_bh = batch * n_heads;
-  flash_wgmma_kernel<DC, BK, kSoftcap, kOffset>
+  flash_wgmma_kernel<DC, DVC, BK, kSoftcap, kOffset>
       <<<n_bh * n_qt, kWgThreads, smem, stream>>>(
           tm_q, tm_k, tm_v, o, st, seq_q, seq_k, q_offset, n_bh,
-          heads_per_group(n_qt, n_bh), n_heads, n_heads / n_kv_heads, d,
+          heads_per_group(n_qt, n_bh), n_heads, n_heads / n_kv_heads, dv,
           causal, scale_a, scale_b);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The instance for the call: softcapped (with the offset read), offset
 // only, or neither.
-template <int DC, int BK>
+template <int DC, int DVC, int BK>
 int dispatch(const void* q, const void* k, const void* v, bf16* o,
              const Strides& st, int batch, int seq_q, int seq_k, int q_offset,
-             int n_heads, int n_kv_heads, int d, int causal, float scale_a,
-             float scale_b, bool capped, cudaStream_t stream) {
+             int n_heads, int n_kv_heads, int d, int dv, int causal,
+             float scale_a, float scale_b, bool capped, cudaStream_t stream) {
   if (capped) {
-    return launch_wgmma<DC, BK, true, true>(
+    return launch_wgmma<DC, DVC, BK, true, true>(
         q, k, v, o, st, batch, seq_q, seq_k, q_offset, n_heads, n_kv_heads,
-        d, causal, scale_a, scale_b, stream);
+        d, dv, causal, scale_a, scale_b, stream);
   }
   if (q_offset != 0 || seq_k != seq_q) {
-    return launch_wgmma<DC, BK, false, true>(
+    return launch_wgmma<DC, DVC, BK, false, true>(
         q, k, v, o, st, batch, seq_q, seq_k, q_offset, n_heads, n_kv_heads,
-        d, causal, scale_a, scale_b, stream);
+        d, dv, causal, scale_a, scale_b, stream);
   }
-  return launch_wgmma<DC, BK, false, false>(
+  return launch_wgmma<DC, DVC, BK, false, false>(
       q, k, v, o, st, batch, seq_q, seq_k, q_offset, n_heads, n_kv_heads, d,
-      causal, scale_a, scale_b, stream);
+      dv, causal, scale_a, scale_b, stream);
 }
 
 }  // namespace
 
-// q, o: (batch, seq_q, n_heads, d); k, v: (batch, seq_k, n_kv_heads, d);
-// strides: 12 element strides (batch, seq, head) of q, k, v, o; query row
-// i at position q_offset + i; softcap > 0 takes the softcapped instance.
-// A layout TMA cannot read, or a negative offset, returns
-// cudaErrorInvalidValue (see the header).
+// q: (batch, seq_q, n_heads, d); k: (batch, seq_k, n_kv_heads, d); v:
+// (batch, seq_k, n_kv_heads, dv); o: (batch, seq_q, n_heads, dv), dv <=
+// d; strides: 12 element strides (batch, seq, head) of q, k, v, o; query
+// row i at position q_offset + i; softcap > 0 takes the softcapped
+// instance; (dc, dvc, bk) the instance <DC, DVC, BK> the caller chose
+// (the Python wrapper's `bf16_instance`).  A layout TMA cannot read, a
+// negative offset, or an instance that is not built or too narrow for
+// d or dv returns cudaErrorInvalidValue (see the header).
 extern "C" int repro_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o, int batch,
-    int seq_q, int seq_k, int n_heads, int n_kv_heads, int d,
-    const long long* strides, int causal, float scale, float softcap,
-    int q_offset, void* stream) {
+    int seq_q, int seq_k, int n_heads, int n_kv_heads, int d, int dv,
+    int dc, int dvc, int bk, const long long* strides, int causal,
+    float scale, float softcap, int q_offset, void* stream) {
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
   if (batch <= 0 || seq_q <= 0 || seq_k <= 0 || q_offset < 0 || d <= 0 ||
-      d > 256 || d % 8 != 0 || n_heads <= 0 || n_kv_heads <= 0 ||
+      d > 64 * dc || d % 8 != 0 || dv <= 0 || dv > d || dv > 64 * dvc ||
+      dv % 8 != 0 || n_heads <= 0 || n_kv_heads <= 0 ||
       n_heads % n_kv_heads != 0 ||
       static_cast<long long>(batch) * n_heads *
               ((seq_q + kWgBlockQ - 1) / kWgBlockQ) > 2147483647LL ||
@@ -954,13 +1052,20 @@ extern "C" int repro_flash_attention_bf16(
   const float scale_b = capped ? softcap * kLog2e : 0.0f;
   bf16* ob = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_WG(DC, BK)                                              \
-  return dispatch<DC, BK>(q, k, v, ob, st, batch, seq_q, seq_k, q_offset,   \
-                          n_heads, n_kv_heads, d, causal, scale_a, scale_b, \
-                          capped, s)
-  if (d <= 64) REPRO_FLASH_WG(1, 128);
-  if (d <= 128) REPRO_FLASH_WG(2, 128);
-  REPRO_FLASH_WG(4, 64);
+  // the instances built (see the header); TMA zero-fills the columns past
+  // d and dv, so a narrower v is read in place by each of them
+#define REPRO_FLASH_WG(DC, DVC, BK)                                        \
+  if (dc == DC && dvc == DVC && bk == BK) {                                \
+    return dispatch<DC, DVC, BK>(q, k, v, ob, st, batch, seq_q, seq_k,     \
+                                 q_offset, n_heads, n_kv_heads, d, dv,     \
+                                 causal, scale_a, scale_b, capped, s);     \
+  }
+  REPRO_FLASH_WG(1, 1, 128)
+  REPRO_FLASH_WG(2, 2, 128)
+  REPRO_FLASH_WG(3, 2, 128)
+  REPRO_FLASH_WG(3, 3, 96)
+  REPRO_FLASH_WG(4, 4, 64)
 #undef REPRO_FLASH_WG
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -22,10 +22,10 @@ mean of v and the kernels 0.  Two entries:
   no fold copy of q, k or v and no per-head copy of the kv heads, and
   writes a contiguous (B, Sq, H, dv) output.  A v narrower than q and k
   (multi-head latent attention's prefill: d = 192, dv = 128) is read in
-  place by the fp32 kernel, which has a value width of its own; for the
-  bf16 kernel, which takes one head width, it is copied with its columns
-  zero-padded to d before the launch (``_value_operand``), and the
-  output is cut back to dv.
+  place by both kernels, each with a value width of its own: the bf16
+  kernel's V tiles are as wide as its instance's (``bf16_instance``),
+  TMA zero-filling the columns past dv, so every pair dv <= d <= 256
+  has an instance and no zero-padded copy of v is made.
 
 The kernel is the custom op ``repro_torch::flash_attention``
 (``flash_attention_op``) on the serving layout, with a shape-only
@@ -36,8 +36,8 @@ reads.  On DTensors
 a batch or head sharding is kept, any other is redistributed first.
 
 On CUDA tensors, bf16 launches the TMA + wgmma tensor-core kernel of
-``csrc/flash_attention_sm90.cu`` (its softcapped instance when
-``softcap > 0``) and fp32 the CUDA-core kernel of
+``csrc/flash_attention_sm90.cu`` (the instance ``bf16_instance(d, dv)``,
+softcapped when ``softcap > 0``) and fp32 the CUDA-core kernel of
 ``csrc/flash_attention.cu``; both are built for sm_90a with nvcc at
 first use and loaded with ctypes.  TMA reads a bf16 operand in place
 when d % 8 == 0 and its pointer and strides are 16-byte aligned, as on
@@ -168,8 +168,8 @@ def _fn(dtype: torch.dtype):
     """The C entry point for ``dtype``, its library loaded at first use."""
     if dtype not in _FNS:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # q, k, v, o; B, Sq, Sk, H, Hk, d[, dv]; strides; causal, scale,
-        # softcap, q_offset; stream
+        # q, k, v, o; B, Sq, Sk, H, Hk, d, dv[, the bf16 instance's DC,
+        # DVC, BK]; strides; causal, scale, softcap, q_offset; stream
         tail = [p, i, f, f, i, p]
         if dtype == torch.float32:
             fn = ctypes.CDLL(str(build().path)).repro_flash_attention_f32
@@ -177,7 +177,7 @@ def _fn(dtype: torch.dtype):
         else:
             fn = ctypes.CDLL(
                 str(build_sm90().path)).repro_flash_attention_bf16
-            fn.argtypes = [p] * 4 + [i] * 6 + tail
+            fn.argtypes = [p] * 4 + [i] * 10 + tail
         fn.restype = ctypes.c_int
         _FNS[dtype] = fn
     return _FNS[dtype]
@@ -273,37 +273,47 @@ def _tma_operand(x: torch.Tensor) -> torch.Tensor:
     return buf
 
 
-def _value_operand(v: torch.Tensor, d: int) -> torch.Tensor:
-    """v (B, S, Hk, dv) as a fresh contiguous copy with its columns
-    zero-padded to d: zero columns of V add nothing to P V, and the
-    output's padded columns are dropped."""
-    buf = v.new_zeros(v.shape[:-1] + (d,))
-    buf[..., :v.shape[-1]] = v
-    return buf
+def bf16_instance(d: int, dv: int) -> tuple[int, int, int]:
+    """The bf16 kernel's instance for head width d and value width dv <=
+    d (after ``_tma_operand``: multiples of 8 up to 256), which
+    ``_launch`` hands the C entry: ``flash_wgmma_kernel<DC, DVC, BK,
+    ...>``'s 64-column chunks of d (q, K) and of the V tile, and keys
+    per K/V stage.  At 128 < d <= 192 a dv <= 128 (latent attention's
+    192 / 128) takes a V tile of 128 columns, which leaves shared memory
+    for 128 keys a stage, and a wider one (stablelm's 160) 96 keys a
+    stage; everywhere else the V tile is as wide as q's."""
+    if d <= 64:
+        return 1, 1, 128
+    if d <= 128:
+        return 2, 2, 128
+    if d <= 192:
+        return (3, 2, 128) if dv <= 128 else (3, 3, 96)
+    return 4, 4, 64
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             scale: Optional[float], softcap: float,
             q_offset: int) -> torch.Tensor:
     """One kernel launch on (B, Sq, H, d) q, (B, Sk, Hk, d) k and (B, Sk,
-    Hk, dv) v (dv == d in bf16); returns a contiguous (B, Sq, H, dv)
+    Hk, dv) v, dv <= d, each read in place (in bf16 unless TMA cannot
+    read it: ``_tma_operand``); returns a contiguous (B, Sq, H, dv)
     output."""
     dv = v.shape[-1]
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
-    f32 = q.dtype == torch.float32
-    if not f32:
+    instance = ()
+    if q.dtype == torch.bfloat16:
         q, k, v = (_tma_operand(x) for x in (q, k, v))
-    out = torch.empty(q.shape[:3] + ((dv,) if f32 else q.shape[3:]),
-                      dtype=q.dtype, device=q.device)
+        instance = bf16_instance(q.shape[-1], v.shape[-1])
+    out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
+                      device=q.device)
     if not out.numel():
         return out[..., :dv]
     sizes, strides = kernel_args(q, k, v, out)
-    widths = (dv,) if f32 else ()
     fn = _fn(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         nvcc.raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), *sizes, *widths,
+                         out.data_ptr(), *sizes, out.shape[-1], *instance,
                          (ctypes.c_longlong * 12)(*strides), int(causal),
                          scale, float(softcap), int(q_offset), stream),
                      "flash_attention")
@@ -332,11 +342,7 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_tensor(name, x, 4)
     _check_bhsd_shapes(q, k, v)
     _check_pair(q, k, v)
-    d, dv = q.shape[3], v.shape[3]
-    if dv == d or q.dtype == torch.float32:  # fp32 reads a narrower v
-        return _launch(q, k, v, causal, scale, softcap, q_offset)
-    return _launch(q, k, _value_operand(v, d), causal, scale, softcap,
-                   q_offset)[..., :dv].contiguous()
+    return _launch(q, k, v, causal, scale, softcap, q_offset)
 
 
 @flash_attention_op.register_fake

@@ -176,7 +176,7 @@ def test_cuda_flash_gqa_at_the_gemma3_global_shape(cuda):
 
 # (B, S, H, Hk, d, dv): stablelm-12b's head width d = 160 with GQA, and
 # multi-head latent attention's q, k at d = 192 with v at dv = 128 (v
-# zero-padded to d by the wrapper), each at its fp32 replay's shape (256
+# read in place by both kernels), each at its fp32 replay's shape (256
 # tokens) and at a small one past a tile edge; dv < d with GQA and d %
 # 8 != 0 besides
 FLASH_WIDTHS = [(1, 256, 32, 8, 160, 160), (2, 129, 4, 2, 160, 160),
@@ -322,6 +322,23 @@ def test_cuda_flash_f32_head_width_instances(cuda, d, s):
         atol=2e-5, rtol=2e-5)
 
 
+def _spy_value_pointers(monkeypatch):
+    """The v pointers the C entry points receive, one per launch."""
+    seen = []
+    entry = flash_attention._fn
+
+    def spied(dtype):
+        fn = entry(dtype)
+
+        def call(*args):
+            seen.append(args[2])
+            return fn(*args)
+        return call
+
+    monkeypatch.setattr(flash_attention, "_fn", spied)
+    return seen
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,hk,d,dv", [(2, 130, 4, 4, 192, 128),
                                            (1, 77, 6, 2, 40, 24)])
@@ -329,11 +346,8 @@ def test_cuda_flash_f32_reads_a_narrower_v_in_place(cuda, monkeypatch, b, s,
                                                     h, hk, d, dv):
     """The fp32 kernel takes v at its own width dv < d (latent
     attention's 128 at 192, and 24 at 40), as a strided view of a wider
-    tensor: no zero-padded copy (``_value_operand`` is never called)."""
-    def no_pad(*args):
-        raise AssertionError("v was copied and zero-padded")
-
-    monkeypatch.setattr(flash_attention, "_value_operand", no_pad)
+    tensor: no copy (the kernel gets v's own pointer)."""
+    seen = _spy_value_pointers(monkeypatch)
     q = _normal(d, (b, s, h, d), cuda)
     k = _normal(d + 1, (b, s, hk, d), cuda)
     v = _normal(d + 2, (b, s, hk, dv + 8), cuda)[..., 4:dv + 4]
@@ -341,6 +355,7 @@ def test_cuda_flash_f32_reads_a_narrower_v_in_place(cuda, monkeypatch, b, s,
     got = ops.flash_attention_bhsd(q, k, v, scale=d ** -0.5)
     torch.cuda.synchronize()
     assert flash_attention.LAUNCHES == {"flash_attention": 1}
+    assert seen == [v.data_ptr()]
     assert got.shape == (b, s, h, dv) and got.is_contiguous()
     torch.testing.assert_close(
         got, flash_attention.flash_attention_bhsd_plain(q, k, v,
@@ -436,6 +451,173 @@ def test_cuda_unsoftcapped_flash_is_bit_identical_to_the_parent(cuda):
     digest = hashlib.sha256(
         out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
     assert digest == PARENT_LLAMA_SHA256
+
+
+#: sha256 of the bf16 kernel's output at gemma3's global shape (d = 256)
+#: and musicgen's (d = 64) on the inputs of ``_parent_case``, taken from
+#: the kernel before it had a value width of its own (NVIDIA H100 80GB
+#: HBM3, CUDA 12.8)
+PARENT_SHA256 = {
+    "gemma3": ("5eb6196345b83c8d355cf70df347cfcbe9d6db5f64b394c69f9260e12"
+               "366e788"),
+    "musicgen": ("e9dda5cb2021a88f3cf78434763deead931f8028fe1916933ddce610"
+                 "62369773"),
+}
+
+
+def _parent_case(name, device):
+    """q, k, v of the parent hashes: gemma3-12b's global layers (as in
+    ``test_cuda_flash_gqa_at_the_gemma3_global_shape``) and
+    musicgen-medium's MHA at d = 64."""
+    if name == "gemma3":
+        q = _normal(5, (4, 2048, 16, 256), device).bfloat16()
+        kv = [_normal(i, (4, 2048, 8, 256), device).bfloat16() for i in (6, 7)]
+    else:
+        q = _normal(0, (4, 2048, 24, 64), device).bfloat16()
+        kv = [_normal(i, (4, 2048, 24, 64), device).bfloat16() for i in (1, 2)]
+    return q, *kv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PARENT_SHA256))
+def test_cuda_old_bf16_instances_are_bit_identical_to_the_parent(cuda, name):
+    """The d <= 64 and d = 256 instances (dv = d) compute what they
+    computed before the kernel had a value width of its own, bit for
+    bit (the d <= 128 one: ``PARENT_LLAMA_SHA256`` above)."""
+    import hashlib
+    out = ops.flash_attention_bhsd(*_parent_case(name, cuda))
+    digest = hashlib.sha256(
+        out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    assert digest == PARENT_SHA256[name]
+
+
+# (d, dv) pairs of every bf16 instance <DC, DVC, BK>: the new 192-column
+# ones at stablelm's 160, latent attention's 192 / 128 and 192; a v
+# narrower than its instance's V tile at d = 40 and 256
+BF16_PAIRS = [(64, 64), (128, 128), (160, 160), (192, 128), (192, 192),
+              (176, 64), (256, 256), (256, 128), (40, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", BF16_PAIRS)
+def test_cuda_flash_bf16_launches_the_instance_of_bf16_instance(cuda, d, dv):
+    """The profiled launch is ``flash_wgmma_kernel<DC, DVC, BK, ...>`` of
+    ``bf16_instance(d, dv)``, v read in place at its own width, and the
+    output matches the plain version (GQA 4:2, 200 tokens)."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    q = _normal(d, (2, 200, 4, d), cuda).bfloat16()
+    k = _normal(d + 1, (2, 200, 2, d), cuda).bfloat16()
+    v = _normal(d + 2, (2, 200, 2, dv), cuda).bfloat16()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = ops.flash_attention_bhsd(q, k, v)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "flash_wgmma_kernel" in e.name]
+    assert len(names) == 1, names
+    # demangled or mangled template arguments <DC, DVC, BK, ...>
+    args = re.search(r"flash_wgmma_kernel(?:<(\d+), (\d+), (\d+),|"
+                     r"ILi(\d+)ELi(\d+)ELi(\d+)E)", names[0])
+    assert tuple(int(x) for x in args.groups() if x) == \
+        flash_attention.bf16_instance(d, dv)
+    assert got.shape == (2, 200, 4, dv)
+    torch.testing.assert_close(
+        got.float(), flash_attention.flash_attention_bhsd_plain(
+            q, k, v).float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", [(160, 160), (192, 128), (192, 192)])
+@pytest.mark.parametrize("sq,sk,q_offset,softcap", FLASH_CAPPED)
+def test_cuda_flash_bf16_dc3_softcap_and_offset_match_plain(
+        cuda, sq, sk, q_offset, softcap, d, dv):
+    """The 192-column instances' softcapped and offset forms against the
+    plain version, GQA 4:2, logits at scale ~3 so that a cap of 5
+    bites."""
+    q = (3 * _normal(sq + d, (2, sq, 4, d), cuda)).bfloat16()
+    k = _normal(sk + d, (2, sk, 2, d), cuda).bfloat16()
+    v = _normal(sk + d + 1, (2, sk, 2, dv), cuda).bfloat16()
+    flash_attention.reset_launch_counts()
+    got = ops.flash_attention_bhsd(q, k, v, softcap=softcap,
+                                   q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash_attention": 1}
+    assert got.shape == (2, sq, 4, dv)
+    torch.testing.assert_close(
+        got.float(), flash_attention.flash_attention_bhsd_plain(
+            q, k, v, softcap=softcap, q_offset=q_offset).float(),
+        atol=2e-2, rtol=2e-2)
+
+
+# stablelm-12b's and latent attention's prefill shapes: (q, k, v)
+DC3_SERVING = [((4, 2048, 32, 160), (4, 2048, 8, 160), (4, 2048, 8, 160)),
+               ((4, 2048, 128, 192), (4, 2048, 128, 192),
+                (4, 2048, 128, 128))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("shape", DC3_SERVING)
+def test_cuda_flash_bf16_dc3_two_calls_bit_identical(cuda, shape, softcap):
+    """Two calls of a 192-column instance give the same bits at the
+    serving shapes, capped or not; the last 1024 queries at offset 1024
+    are rows 1024.. of the one-shot output bit for bit."""
+    q, k, v = (_normal(10 + i, x, cuda).bfloat16()
+               for i, x in enumerate(shape))
+    first, second = (ops.flash_attention_bhsd(q, k, v, softcap=softcap)
+                     for _ in range(2))
+    tail = ops.flash_attention_bhsd(q[:, 1024:], k, v, softcap=softcap,
+                                    q_offset=1024)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(tail, first[:, 1024:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hk,d,dv", [(1, 256, 128, 128, 192, 128),
+                                           (2, 130, 4, 4, 192, 128),
+                                           (1, 77, 6, 2, 40, 24)])
+def test_cuda_flash_bf16_reads_a_narrower_v_in_place(cuda, monkeypatch, b, s,
+                                                     h, hk, d, dv):
+    """The bf16 kernel takes v at its own width dv < d (latent
+    attention's 128 at 192, and 24 at 40) as a strided view of a wider
+    tensor, 16-byte aligned: the kernel gets v's own pointer (no
+    zero-padded copy), and the output is (B, S, H, dv)."""
+    seen = _spy_value_pointers(monkeypatch)
+    q = _normal(d, (b, s, h, d), cuda).bfloat16()
+    k = _normal(d + 1, (b, s, hk, d), cuda).bfloat16()
+    v = _normal(d + 2, (b, s, hk, dv + 16), cuda).bfloat16()[..., 8:dv + 8]
+    flash_attention.reset_launch_counts()
+    got = ops.flash_attention_bhsd(q, k, v, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash_attention": 1}
+    assert seen == [v.data_ptr()]
+    assert got.shape == (b, s, h, dv) and got.is_contiguous()
+    torch.testing.assert_close(
+        got.float(), flash_attention.flash_attention_bhsd_plain(
+            q, k, v, scale=d ** -0.5).float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv,instance", [(64, 72, (2, 2, 128)),
+                                           (64, 60, (1, 1, 128)),
+                                           (160, 160, (2, 2, 128)),
+                                           (192, 192, (3, 2, 128)),
+                                           (64, 64, (1, 1, 64))])
+def test_cuda_bf16_entry_refuses_a_bad_v_or_instance(cuda, d, dv, instance):
+    """The bf16 C entry refuses, without a launch, dv > d, a dv that is
+    not a multiple of 8, an instance too narrow for d or dv, and one
+    that is not built."""
+    fn = flash_attention._fn(torch.bfloat16)
+    q = _normal(0, (1, 64, 2, d), cuda).bfloat16()
+    v = _normal(1, (1, 64, 2, dv + 8), cuda).bfloat16()[..., :dv]
+    o = torch.empty((1, 64, 2, dv), dtype=torch.bfloat16, device=cuda)
+    sizes, strides = flash_attention.kernel_args(q, q, v, o)
+    flash_attention.reset_launch_counts()
+    err = fn(q.data_ptr(), q.data_ptr(), v.data_ptr(), o.data_ptr(), *sizes,
+             dv, *instance, (ctypes.c_longlong * 12)(*strides), 1, 1.0, 0.0,
+             0, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 @pytest.mark.cuda
@@ -575,7 +757,8 @@ def test_cuda_flash_rejects_what_the_kernel_does_not_take(cuda):
         o = torch.empty_like(x)
         sizes, strides = flash_attention.kernel_args(x, x, x, o)
         err = fn(x.data_ptr(), x.data_ptr(), x.data_ptr(), o.data_ptr(),
-                 *sizes, (ctypes.c_longlong * 12)(*strides), 1, 1.0, 0.0, 0,
+                 *sizes, d, *flash_attention.bf16_instance(d, d),
+                 (ctypes.c_longlong * 12)(*strides), 1, 1.0, 0.0, 0,
                  torch.cuda.current_stream().cuda_stream)
         assert err != 0
     empty = torch.empty((0, 8, 32), device=cuda)

@@ -140,36 +140,70 @@ def test_flash_attention_bhsd_hands_the_kernel_the_strided_tensors_in_place(
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,dv", [(24, 16), (192, 128)])
 def test_only_bf16_zero_pads_a_narrower_v(monkeypatch, dtype, d, dv):
-    """With the launch replaced: the fp32 kernel has a value width of its
-    own, so ``flash_attention_op`` hands it v itself and never calls
-    ``_value_operand``; the bf16 kernel takes one head width, so v is
-    still copied with its columns zero-padded to d, and the output cut
-    back to dv."""
+    """With the launch replaced: both kernels have a value width of
+    their own (the bf16 one reads v into its instance's V tile,
+    ``bf16_instance``), so ``flash_attention_op`` hands the launch v
+    itself, in either dtype: no zero-padded copy, and the output is
+    (..., dv)."""
     q, k = (torch.from_numpy(x).to(dtype) for x in _qkv(7, (1, 12, 4, d))[:2])
     k = k[:, :, :2]
     v = torch.from_numpy(_qkv(8, (1, 12, 2, dv))[0]).to(dtype)
-    seen, padded = [], []
-    pad = flash_attention._value_operand
+    seen = []
 
     def kernel(q_, k_, v_, causal, scale, softcap, q_offset):
         seen.append(v_)
         return torch.zeros(q_.shape[:3] + v_.shape[3:], dtype=q_.dtype)
 
-    def value_operand(v_, width):
-        padded.append(v_)
-        return pad(v_, width)
+    def no_copy(*args, **kwargs):
+        raise AssertionError("a zero-padded copy of v")
 
     monkeypatch.setattr(flash_attention, "_on_cpu", lambda **_: False)
     monkeypatch.setattr(flash_attention, "_launch", kernel)
-    monkeypatch.setattr(flash_attention, "_value_operand", value_operand)
-    assert ops.flash_attention_bhsd(q, k, v).shape == (1, 12, 4, dv)
-    if dtype == torch.float32:
-        assert padded == [] and len(seen) == 1 and seen[0] is v
-    else:
-        assert len(padded) == 1 and padded[0] is v
-        assert seen[0].shape == (1, 12, 2, d)
-        assert torch.equal(seen[0][..., :dv], v)
-        assert not seen[0][..., dv:].any()
+    monkeypatch.setattr(torch.Tensor, "new_zeros", no_copy)
+    got = ops.flash_attention_bhsd(q, k, v)
+    assert got.shape == (1, 12, 4, dv) and got.dtype == dtype
+    assert len(seen) == 1 and seen[0] is v
+
+
+# (d, dv) -> the bf16 instance <DC, DVC, BK> the C entry dispatches to
+BF16_INSTANCES = [(8, 8, (1, 1, 128)), (64, 24, (1, 1, 128)),
+                  (64, 64, (1, 1, 128)), (72, 72, (2, 2, 128)),
+                  (128, 128, (2, 2, 128)), (136, 136, (3, 3, 96)),
+                  (160, 160, (3, 3, 96)), (176, 64, (3, 2, 128)),
+                  (192, 128, (3, 2, 128)), (192, 136, (3, 3, 96)),
+                  (192, 192, (3, 3, 96)), (200, 200, (4, 4, 64)),
+                  (256, 128, (4, 4, 64)), (256, 256, (4, 4, 64))]
+
+
+@pytest.mark.parametrize("d,dv,want", BF16_INSTANCES)
+def test_bf16_instance(d, dv, want):
+    """stablelm's d = 160 and latent attention's 192 / 128 take the
+    192-column instances, the other widths the instances they had."""
+    assert flash_attention.bf16_instance(d, dv) == want
+
+
+def test_bf16_instances_cover_every_pair_and_fit_the_card():
+    """Every d <= 256 and dv <= d (multiples of 8, as ``_tma_operand``
+    leaves them) has an instance whose q/K tile holds d and V tile holds
+    dv with no more than 64 columns to spare over q's, and each
+    instance's q tile and K/V stages (the ``WgSmem`` layout: 128 q rows,
+    BK keys, 128 bytes a 64-column chunk row, 3 stages where they fit,
+    else 2, and 32 bytes of mbarriers a stage) fit in 227 KB."""
+    seen = set()
+    for d in range(8, 257, 8):
+        for dv in range(8, d + 1, 8):
+            dc, dvc, bk = flash_attention.bf16_instance(d, dv)
+            assert (dc - 1) * 64 < d <= dc * 64 and dv <= dvc * 64 <= dc * 64
+            seen.add((dc, dvc, bk))
+    assert seen == {(1, 1, 128), (2, 2, 128), (3, 2, 128), (3, 3, 96),
+                    (4, 4, 64)}
+    stages = {}
+    for dc, dvc, bk in seen:
+        fixed, stage = 128 * 128 * dc + 8 + 1024, bk * 128 * (dc + dvc) + 32
+        stages[dc, dvc, bk] = 3 if fixed + 3 * stage <= 232448 else 2
+        assert fixed + stages[dc, dvc, bk] * stage <= 232448
+    assert stages == {(1, 1, 128): 3, (2, 2, 128): 3, (3, 2, 128): 2,
+                      (3, 3, 96): 2, (4, 4, 64): 2}
 
 
 def _bf16_views(b, h, hk, d, offset=0):

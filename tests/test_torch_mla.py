@@ -200,11 +200,14 @@ def test_flash_bhsd_plain_with_narrower_v_matches_causal_attend(h, hk, d,
 
 
 def test_zero_padded_v_leaves_attention_unchanged():
-    """What the card's route relies on for dv < d: v zero-padded to d
-    gives the same first dv columns and zeros in the rest."""
+    """What the card's route relies on for dv < d: the bf16 kernel reads
+    v into a V tile as wide as its instance's (``bf16_instance``), TMA
+    zero-filling the columns past dv, and drops the output's columns
+    past dv; attention over v zero-padded gives the same first dv
+    columns and zeros in the rest."""
     q, k = (torch.from_numpy(_normal(i, (1, 33, 4, 24))) for i in (4, 5))
     v = torch.from_numpy(_normal(6, (1, 33, 4, 16)))
-    pad = flash_attention._value_operand(v, 24)
+    pad = torch.nn.functional.pad(v, (0, 8))
     assert pad.shape == (1, 33, 4, 24) and pad.is_contiguous()
     got = flash_attention.flash_attention_bhsd_plain(q, k, pad)
     want = flash_attention.flash_attention_bhsd_plain(q, k, v)

@@ -23,6 +23,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.configs import all_configs as j_all_configs  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.configs import smoke_config as j_smoke_config  # noqa: E402
 from repro.models import init_model as j_init_model  # noqa: E402
@@ -30,7 +31,8 @@ from repro.models import make_cache as j_make_cache  # noqa: E402
 from repro.models import make_decode_step as j_make_decode_step  # noqa: E402
 from repro.models import make_prefill_step as j_make_prefill_step  # noqa: E402
 from repro.models import param_count as j_param_count  # noqa: E402
-from repro_torch.configs import ARCHS, get_config, smoke_config  # noqa: E402
+from repro_torch.configs import (ARCHS, all_configs, get_config,  # noqa: E402
+                                smoke_config)
 from repro_torch.kernels import flash_attention  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
@@ -87,6 +89,19 @@ def test_configs_carry_the_reference_dims(arch):
     if arch in DEEPSEEK:
         assert (full.qk_nope_dim + full.qk_rope_dim, full.v_head_dim) == (
             192, 128)
+
+
+@pytest.mark.parametrize("arch", sorted(j_all_configs()))
+def test_all_configs_is_the_references_twin(arch):
+    """``all_configs()`` names the reference's architectures, each
+    config equal to the reference's field for field."""
+    import dataclasses
+    got, want = all_configs(), j_all_configs()
+    assert sorted(got) == sorted(want)
+    fields = [f.name for f in dataclasses.fields(want[arch])]
+    assert [f.name for f in dataclasses.fields(got[arch])] == fields
+    for name in fields:
+        assert getattr(got[arch], name) == getattr(want[arch], name), name
 
 
 @pytest.mark.parametrize("arch", ARCHS)

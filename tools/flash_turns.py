@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
-"""Time the fp32 flash-attention kernel of two checkouts in turns.
+"""Time the flash-attention kernels of two checkouts in turns.
 
-    python3 tools/flash_turns.py OTHER_CHECKOUT
+    python3 tools/flash_turns.py OTHER_CHECKOUT [fp32|bf16]
 
 Run on a machine with an NVIDIA GPU, from a checkout of the repository;
 ``OTHER_CHECKOUT`` is the root of another one (for an earlier commit:
 ``git archive <commit> | tar -x -C _archive``).  Each turn is a
 subprocess that imports ``repro_torch`` from one checkout's ``src``,
-builds that checkout's fp32 kernel and times its
+builds that checkout's fp32 and bf16 kernels and times its
 ``ops.flash_attention_bhsd`` (the kernel with whatever its wrapper does
-around it) at the fp32 shapes of ``chip_smoke.py`` phase 3 with its
-timer (CUDA events over a CUDA graph of back-to-back calls), on inputs
-drawn from one seed in every turn, and beside it
+around it) with ``chip_smoke.py``'s timer (CUDA events over a CUDA graph
+of back-to-back calls), on inputs drawn from one seed in every turn:
+fp32 at the shapes of ``chip_smoke.py`` phase 3, bf16 at stablelm-12b's
+and deepseek's latent attention's prefill shapes (the d = 160 and d =
+192 / dv = 128 instances) and at llama's and gemma3's (the d = 128 and
+d = 256 ones, as controls).  Beside each it times
 ``scaled_dot_product_attention`` on the same inputs without the cap
-(its library call; the same in every turn).  The turns run other, this, this, other, on one card.  Prints the
-card's name and power limit, each turn's build, ptxas lines and times,
-and last one JSON object: {shape label: [kernel ms of each turn]} and
-{shape label: [SDPA ms of each turn]} with the turns' order.
+(its library call; the same in every turn).  The turns run other,
+this, this, other, on one card; a second argument keeps one dtype's
+cases.  Prints the card's name and power limit, each turn's builds,
+ptxas lines and times, and last one JSON object: {shape label: [kernel
+ms of each turn]} and {shape label: [SDPA ms of each turn]} with the
+turns' order.
 """
 from __future__ import annotations
 
@@ -31,38 +36,47 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (stdlib only at import)
 
 
-def cases():
-    """(label, (B, S, H, Hk, d[, dv]), softcap, q scale)."""
+#: bf16 cases: the d = 160 and d = 192 / dv = 128 instances at their
+#: serving shapes, and llama's and gemma3's as controls
+BF16_SHAPES = [cs.FLASH_STABLELM, cs.FLASH_MLA, cs.FLASH_GQA, cs.FLASH_GEMMA]
+
+
+def cases(dtype: str = "all"):
+    """(label, (B, S, H, Hk, d[, dv]), dtype, softcap, q scale)."""
     shapes = [cs.FLASH_F32_REPLAY] + cs.FLASH_F32_ZOO + cs.FLASH_F32_FULL
-    out = [(str(s), s, 0.0, 1.0) for s in shapes]
-    return out + [(f"{cs.FLASH_F32_REPLAY} softcap {cs.SOFTCAP}",
-                   cs.FLASH_F32_REPLAY, cs.SOFTCAP, cs.CAP_Q_SCALE)]
+    f32 = [(str(s), s, "float32", 0.0, 1.0) for s in shapes]
+    f32.append((f"{cs.FLASH_F32_REPLAY} softcap {cs.SOFTCAP}",
+                cs.FLASH_F32_REPLAY, "float32", cs.SOFTCAP, cs.CAP_Q_SCALE))
+    bf16 = [(f"{s} bf16", s, "bfloat16", 0.0, 1.0) for s in BF16_SHAPES]
+    return {"all": f32 + bf16, "fp32": f32, "bf16": bf16}[dtype]
 
 
-def worker() -> None:
+def worker(dtype: str) -> None:
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    info = fa.build()
-    lines = [ln.strip() for ln in info.log.splitlines()
+    builds = {"fp32": (fa.build,), "bf16": (fa.build_sm90,),
+              "all": (fa.build, fa.build_sm90)}[dtype]
+    infos = [fn() for fn in builds]
+    lines = [ln.strip() for info in infos for ln in info.log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(3)
     times = {}
-    for label, shape, softcap, q_scale in cases():
+    for label, shape, dt, softcap, q_scale in cases(dtype):
         b, s, h, hk, d = shape[:5]
         dv = shape[5] if len(shape) > 5 else d
 
         def randn(heads, width):
             return torch.randn(b, s, heads, width, generator=gen,
-                               device="cuda")
+                               device="cuda").to(getattr(torch, dt))
 
         q, k, v = randn(h, d) * q_scale, randn(hk, d), randn(hk, dv)
         kw = {"softcap": softcap} if softcap else {}
         run = lambda: ops.flash_attention_bhsd(q, k, v, **kw)  # noqa: E731
-        got = run()
-        want = fa.flash_attention_bhsd_plain(q, k, v, **kw)
-        tol = cs.FLASH_TOL["float32"]
+        got = run().float()
+        want = fa.flash_attention_bhsd_plain(q, k, v, **kw).float()
+        tol = cs.FLASH_TOL[dt]
         ok = bool(torch.allclose(got, want, atol=tol, rtol=tol))
         reps = (5, 3) if s >= 1024 else (50, 5)
         qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -74,36 +88,39 @@ def worker() -> None:
                         "ok": ok}
         del q, k, v, qs, ks, vs, got, want
         torch.cuda.empty_cache()
-    print(json.dumps({"build_s": info.seconds, "ptxas": lines,
-                      "times": times}))
+    print(json.dumps({"build_s": sum(i.seconds for i in infos),
+                      "ptxas": lines, "times": times}))
 
 
-def turn(checkout: Path) -> dict:
+def turn(checkout: Path, dtype: str) -> dict:
     env = dict(os.environ, PYTHONPATH=str(checkout / "src"))
-    proc = subprocess.run([sys.executable, __file__, "--worker"], env=env,
-                          capture_output=True, text=True, check=False)
+    proc = subprocess.run([sys.executable, __file__, "--worker", dtype],
+                          env=env, capture_output=True, text=True,
+                          check=False)
     if proc.returncode != 0:
         cs.die(f"turn in {checkout} failed:\n{proc.stdout}{proc.stderr}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def main() -> None:
-    if sys.argv[1:] == ["--worker"]:
-        worker()
+    if sys.argv[1:2] == ["--worker"]:
+        worker(sys.argv[2])
         return
-    if len(sys.argv) != 2:
-        cs.die("usage: tools/flash_turns.py OTHER_CHECKOUT")
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["fp32"],
+                                                           ["bf16"]):
+        cs.die("usage: tools/flash_turns.py OTHER_CHECKOUT [fp32|bf16]")
     other = Path(sys.argv[1]).resolve()
+    dtype = sys.argv[2] if len(sys.argv) == 3 else "all"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
     order = [("other", other), ("this", ROOT), ("this", ROOT),
              ("other", other)]
-    table = {label: [] for label, *_ in cases()}
-    library = {label: [] for label, *_ in cases()}
+    table = {label: [] for label, *_ in cases(dtype)}
+    library = {label: [] for label, *_ in cases(dtype)}
     for name, checkout in order:
-        res = turn(checkout)
+        res = turn(checkout, dtype)
         print(f"turn {name} ({checkout}): build {res['build_s']:.2f} s")
         for line in res["ptxas"]:
             print(f"  ptxas: {line}")
