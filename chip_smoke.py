@@ -11,7 +11,10 @@ exit) if anything in it fails; no failure is caught:
 2. build: ``kernels/csrc/gradnorm.cu``, ``kernels/csrc/flash_attention.cu``
    (fp32), ``kernels/csrc/flash_attention_sm90.cu`` (bf16, tensor cores)
    and ``kernels/csrc/lru_scan.cu`` compiled with nvcc for sm_90a, one
-   nvcc each, started together; ptxas's register and spill lines;
+   nvcc each, started together; ptxas's register, spill and warning
+   lines, and a check that no instance of the bf16 kernel
+   (``flash_wgmma_kernel``) spills or has its wgmmas serialised, and that
+   ptxas honoured its ``setmaxnreg``;
 3. kernels: each CUDA entry point against its plain PyTorch version on
    the card, at the test shapes and at the main paths' shapes, with
    device times (CUDA events over a CUDA graph of back-to-back calls),
@@ -164,7 +167,9 @@ exit) if anything in it fails; no failure is caught:
    decode step under ``torch.profiler``;
 19. command-r-35b serving path: the same at full width and depth (40
    layers, 32,380,690,432 parameters, ~60 GiB of bf16 weights), 40 flash
-   launches per prefill at 64:8 GQA, with its peak memory; profiled;
+   launches per prefill at 64:8 GQA, with its peak memory; profiled,
+   its prefill's flash launches checked to be 40 of ``bf16_instance``'s
+   instance and their device ms printed beside the prefill's wall time;
 20. deepseek-v2-236b serving path at full width cut to 8 layers (its
    dense layer and 7 MoE layers of 160 experts, 29,556,294,656
    parameters), phase 7's request: each layer's prefill latent attention
@@ -236,12 +241,14 @@ exit) if anything in it fails; no failure is caught:
    positions after a warm-up request, then 32 greedy steps from zero
    embeddings at text positions; each layer's prefill attention
    through the bf16 flash kernel at its 12:2 GQA (a group of 6), 28
-   launches per prefill and none in decode; profiled;
+   launches per prefill and none in decode; profiled, the prefill's
+   flash launches checked and timed as in phase 19;
 29. musicgen-medium served at full width and depth (48 layers,
    1,837,254,144 parameters), 4 x 4 codebooks x 2048 tokens, greedy
    per codebook; prefill attention through the bf16 flash kernel at
    24:24 MHA and d = 64 (its d <= 64 instance), 48 launches per
-   prefill and none in decode; profiled;
+   prefill and none in decode; profiled, its 48 flash launches checked
+   and timed as in phase 19;
 30. modality replays: both archs at full width cut to 2 layers, fp32
    with TF32 off, card against CPU as phase 8 (prefill logits, the KV
    caches, 8 greedy steps); the vlm prompt's three M-RoPE rows differ
@@ -2780,7 +2787,8 @@ def main() -> None:
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.core import matching, selection
     from repro_torch.device import full_fp32
-    from repro_torch.kernels import flash_attention, gradnorm, lru_scan, ops
+    from repro_torch.kernels import (flash_attention, gradnorm, lru_scan,
+                                     nvcc, ops)
     from repro_torch.launch import dryrun, replay, sharding, shapes
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import serve as serve_mod
@@ -2817,8 +2825,19 @@ def main() -> None:
         print(f"build: {info.path.name} in {info.seconds:.2f} s")
         for line in info.log.splitlines():
             if "Compiling entry" in line or "registers" in line \
-                    or "spill" in line or "smem" in line:
+                    or "spill" in line or "smem" in line \
+                    or "warning" in line.lower():
                 print(f"  ptxas: {line.strip()}")
+    sm90_log = infos[builds.index(flash_attention.build_sm90)].log
+    wgmma = [e for e in nvcc.ptxas_report(sm90_log)
+             if "flash_wgmma_kernel" in e.name]
+    check(len(wgmma) == 15 and all(e.spill_stores == e.spill_loads == 0
+                                   for e in wgmma),
+          f"bf16 flash: 15 flash_wgmma_kernel instances without spills "
+          f"expected, ptxas reports {wgmma}")
+    warned = [w for w in nvcc.ptxas_warnings(sm90_log)
+              if "wgmma" in w or "setmaxnreg" in w]
+    check(not warned, f"bf16 flash: ptxas warns {warned}")
     done("2 build")
 
     # -- 3. kernels against their plain versions ------------------------
@@ -3075,7 +3094,8 @@ def main() -> None:
           f"{served.n_params:,} parameters, expected {COMMAND_R_PARAMS:,}")
     flash_command_r_rec = flash_time(COMMAND_R, COMMAND_R_LAYERS,
                                      FLASH_COMMAND_R)
-    phase_serve_profile(torch, tm, get_config, COMMAND_R)
+    prefill_flash_profile(COMMAND_R, COMMAND_R_LAYERS, FLASH_COMMAND_R,
+                          served.prefill_s)
     done("19 command-r serve")
 
     # -- 20. the deepseek-v2-236b serving path, cut to 8 layers ---------
@@ -3190,9 +3210,10 @@ def main() -> None:
         check(served.n_params == n_params, f"{arch}: {served.n_params:,} "
               f"parameters, expected {n_params:,}")
         flash_time(arch, layers, shape)
+        prefill_s = served.prefill_s
         del served
         torch.cuda.empty_cache()
-        phase_serve_profile(torch, tm, get_config, arch)
+        prefill_flash_profile(arch, layers, shape, prefill_s)
         done(f"{28 if arch == QWEN[0] else 29} {arch} serve")
 
     # -- 30. modality replays on the CPU ---------------------------------

@@ -32,24 +32,30 @@
 // bytes; the Python wrapper copies any other operand into an aligned buffer
 // with d zero-padded to a multiple of 8 (zero columns add nothing to
 // q k^T, and the padded output columns are dropped), and the entry point
-// below refuses such a layout.  One block of two warpgroups owns a 128-row
-// q tile of one (batch, head), each warpgroup 64 rows:
-// - Thread 0 issues TMA loads of the q tile and of a ring of K/V
-//   stages (3 where they fit, else 2), K and V on their own
-//   mbarriers so Q K^T starts before V lands, and each stage refilled
-//   once both warpgroups have released it through an `empty` mbarrier.
-//   The tensor maps are built on the host per call over the strided
-//   4-D (d, H, S, B) views (v's and o's of width dv) and passed as
-//   __grid_constant__ parameters.  Boxes are 64 columns wide with the
-//   128-byte swizzle, so d and dv are padded to the instance's chunks in
-//   shared memory by TMA's zero fill (a box wholly past the width is all
-//   zeros), and rows past Sq (q) or Sk (K, V) are zero-filled too.
-// - There is no producer warp, and no `setmaxnreg`: ptxas compiles a
-//   wgmma kernel for whole warpgroups, so a third (producer) warpgroup
-//   would cap every thread at 168 registers, and it keeps that cap for
-//   the consumers even after `setmaxnreg.inc` (CUDA 12.8: the same
-//   spills with and without it).  The loop below needs ~215 registers
-//   at d = 128; two warpgroups may use up to 255.
+// below refuses such a layout.  One block of three warpgroups (FA3's
+// schedule) owns a 128-row q tile of one (batch, head):
+// - Warpgroup 2 is the producer.  One of its threads issues the TMA
+//   loads of the q tile and of a ring of K/V stages (3 where they fit,
+//   else 2), K and V on their own mbarriers so Q K^T starts before V
+//   lands; it is the only thread that waits on the `empty` mbarriers, and
+//   it refills a stage as soon as both consumer warpgroups have released
+//   it, with no consumer waiting for that.  The tensor maps are built on
+//   the host per call over the strided 4-D (d, H, S, B) views (v's and
+//   o's of width dv) and passed as __grid_constant__ parameters.  Boxes
+//   are 64 columns wide with the 128-byte swizzle, so d and dv are padded
+//   to the instance's chunks in shared memory by TMA's zero fill (a box
+//   wholly past the width is all zeros), and rows past Sq (q) or Sk (K,
+//   V) are zero-filled too.
+// - Warpgroups 0 and 1 consume, 64 q rows each.  `__launch_bounds__(384,
+//   1)` gives every thread 168 registers; the producer gives registers
+//   back (`setmaxnreg.dec` to 24) and the consumers take them
+//   (`setmaxnreg.inc` to 240; the loop below uses up to 224).  ptxas
+//   honours `setmaxnreg` only where it can tell each warpgroup's code
+//   apart: the barriers are set up and fenced before one if/else on the
+//   warpgroup index (made warp-uniform by `__shfl_sync`), and its two
+//   branches never meet again (nothing runs after them).  A loader
+//   inside a consumer warpgroup would wait there for both warpgroups to
+//   release a stage, holding the two in lockstep.
 // - S = Q K^T is a `wgmma` with both operands in swizzled shared memory
 //   (K-major); the online softmax runs on the fp32 accumulator in
 //   registers with exp2 and scale * log2(e) folded in (with softcap, the
@@ -59,6 +65,13 @@
 //   MN-major.  A warpgroup issues S_t and then P_{t-1} V_{t-1}, waits
 //   for S_t alone, and runs the softmax of tile t while P_{t-1} V_{t-1}
 //   is still on the tensor cores.
+// - Ping-pong: the consumers take turns to issue their products (two
+//   named barriers), so one warpgroup's softmax runs while the other's
+//   products keep the tensor cores busy.  At d = 64 an exponential costs
+//   an SM as much as a score's two products (16 `ex2` a clock against
+//   ~2048 bf16 multiply-adds), so the softmaxes must not run side by
+//   side.  The order of operations of a row is unchanged, so the output
+//   does not depend on the schedule.
 // - The K tiles are walked from the last to the first, so the only
 //   tiles that need a mask (the causal diagonal and the tail past Sk)
 //   come first; with `causal`, tiles wholly after the q tile's last
@@ -67,10 +80,13 @@
 //   takes garbage weights there, which the first tile it sees a key in
 //   rescales by exactly 0; the last tile holds key 0, which every row
 //   sees (so a negative q_offset, rows that see no key, is refused).
-//   The accumulator is rescaled only for rows whose max grew.
+//   The tiles that need a mask are walked by a loop of their own, so
+//   the others (all but the first one or two of a row) carry none of
+//   its instructions.  The accumulator is rescaled only for rows whose
+//   max grew.
 // - Instances <DC, DVC, BK>: DC 64-column chunks of d (q, K), DVC of
 //   the V tile and the O accumulator, BK keys a K/V stage, chosen so the
-//   q tile and the stages fit in 227 KB and the accumulators in 255
+//   q tile and the stages fit in 227 KB and the accumulators in 240
 //   registers; the caller names one (the Python wrapper's
 //   `bf16_instance`): <1, 1, 128> for d <= 64 and <2, 2, 128> for
 //   d <= 128 (3 stages), <3, 2, 128> for d <= 192 with dv <= 128 (2
@@ -80,7 +96,7 @@
 //   K add nothing to Q K^T, and O's columns past dv are never stored.
 // - Softcap and the offset are template flags (kSoftcap; kOffset: a
 //   query offset or a key length of its own), so the instance with
-//   neither compiles to the code it had before they existed (its
+//   neither does the arithmetic it did before they existed (its
 //   q_offset is the constant 0 and its key length the query length).
 // It launches one block per (batch, head, q tile), heads taken in groups
 // of about one wave and the longest q tiles of a group first
@@ -157,10 +173,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // scale / softcap and scale_b = softcap * log2 e: tanh y = 1 - 2 / (1 +
 // e^(2y)) on two special-function ops, an absolute error of a few float32
 // ulps of scale_b (an overflowing 2^ gives +inf and the cap exactly).
-// Returns the factors the accumulator is rescaled by.
-template <int N, bool kSoftcap>
-__device__ __forceinline__ float2 softmax_tile(float (&s)[N], bool masked,
-                                               int key0, int pos_a,
+// kMasked: the tile may hold keys at or past seq_k or, with `causal`,
+// after a row's position, which get the logit -1e30; a template flag, so
+// that the tiles that need no mask (all but the first one or two of a
+// row's walk) carry no instruction of it.  Returns the factors the
+// accumulator is rescaled by.
+template <int N, bool kSoftcap, bool kMasked>
+__device__ __forceinline__ float2 softmax_tile(float (&s)[N], int key0,
+                                               int pos_a,
                                                int seq_k, bool causal,
                                                float scale_a, float scale_b,
                                                float& m_a, float& m_b,
@@ -176,7 +196,7 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[N], bool masked,
     } else {
       x = s[e] * scale_a;
     }
-    if (masked) {
+    if constexpr (kMasked) {
       const int key = key0 + 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
       const int pos = (e % 4 < 2) ? pos_a : pos_a + 8;
       if (key >= seq_k || (causal && key > pos)) x = kNegInf;
@@ -263,9 +283,14 @@ int heads_per_group(int n_qt, int n_bh) {
 
 // ================================================ TMA + wgmma (sm_90a)
 
-constexpr int kWgBlockQ = 128;  // q rows per block: 64 per warpgroup
-// two warpgroups and no producer warp (see the header)
-constexpr int kWgThreads = 256;
+constexpr int kWgBlockQ = 128;  // q rows per block: 64 per consumer warpgroup
+constexpr int kConsumerThreads = 256;  // two consumer warpgroups
+constexpr int kWgThreads = 384;        // and the producer warpgroup
+// registers a thread after `setmaxnreg`: 128 * 24 + 256 * 240 = 64512 of
+// the SM's 65536 (each thread starts with 168 = 65536 / 384, rounded
+// down to a multiple of 8)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 constexpr int kChunk = 64;         // d columns per TMA box (128 swizzled bytes)
 constexpr int kChunkBytes = kChunk * 2;
 constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use
@@ -283,9 +308,8 @@ struct WgSmem {
   // a stage: K, V and their four mbarriers
   static constexpr int kStageBytes = kKT + kVT + 4 * 8;
   static constexpr int kFixed = kQ + 8 + 1024;
-  // K/V ring: 3 stages where they fit (a stage is then reloaded only
-  // once both warpgroups are done with the tile before last), else 2
-  // (d = 256, and d = 192 at 96 or 128 keys a stage)
+  // K/V ring: 3 stages where they fit, else 2 (d = 256, and d = 192 at
+  // 96 or 128 keys a stage)
   static constexpr int kStages = kFixed + 3 * kStageBytes <= kMaxSmem ? 3 : 2;
   static constexpr int kK = kQ;
   static constexpr int kV = kK + kStages * kKT;
@@ -326,6 +350,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "}\n" ::"r"(bar),
       "r"(parity)
       : "memory");
+}
+
+// Named barrier `id` (1 or 2; 0 is __syncthreads') over the two consumer
+// warpgroups: `bar_sync` waits until the other warpgroup has arrived,
+// `bar_arrive` arrives without waiting.
+__device__ __forceinline__ void bar_sync(uint32_t id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumerThreads)
+               : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint32_t id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumerThreads)
+               : "memory");
 }
 
 // One box of a 4-D tensor map into shared memory, completing on `bar`.
@@ -675,47 +711,27 @@ __device__ __forceinline__ void pack_probs(uint32_t (&p)[BK / 16][4],
   }
 }
 
-// The TMA side of the pipeline, run by thread 0 between its own tiles:
-// each K and V tile into its stage of the ring once both warpgroups have
-// released the tile that held the stage before.
-template <int DC, int DVC, int BK>
-struct Loader {
-  using L = WgSmem<DC, DVC, BK>;
-  const CUtensorMap* tm_k;
-  const CUtensorMap* tm_v;
-  uint32_t k_s, v_s, k_full, v_full, k_empty, v_empty;
-  int n_kv, hk, b;
-
-  // tile t of the block's walk (from the last key tile down): C chunks
-  // of 64 columns (TMA zero-fills those past the tensor's width)
-  template <int C>
-  __device__ __forceinline__ void load(const CUtensorMap* map, uint32_t tiles,
-                                       uint32_t full, uint32_t empty,
-                                       int t) const {
-    constexpr uint32_t kBytes = BK * kChunkBytes * C;
-    if (t >= n_kv) return;
-    const int stage = t % L::kStages;
-    mbar_wait(empty + 8 * stage, ((t / L::kStages) & 1) ^ 1);  // stage free
-    mbar_expect_tx(full + 8 * stage, kBytes);
+// One K or V tile of the block's walk into its stage: C chunks of 64
+// columns (TMA zero-fills those past the tensor's width) of `rows` keys
+// of kv head `hk`, completing on `full`.
+template <int C, int BK>
+__device__ __forceinline__ void load_tile(const CUtensorMap* map,
+                                          uint32_t dst, uint32_t full,
+                                          int hk, int row0, int b) {
+  mbar_expect_tx(full, BK * kChunkBytes * C);
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      tma_load_4d(tiles + stage * kBytes + c * BK * kChunkBytes, map,
-                  full + 8 * stage, c * kChunk, hk, (n_kv - 1 - t) * BK, b);
-    }
+  for (int c = 0; c < C; ++c) {
+    tma_load_4d(dst + c * BK * kChunkBytes, map, full, c * kChunk, hk, row0,
+                b);
   }
-  __device__ __forceinline__ void load_k(int t) const {
-    load<DC>(tm_k, k_s, k_full, k_empty, t);
-  }
-  __device__ __forceinline__ void load_v(int t) const {
-    load<DVC>(tm_v, v_s, v_full, v_empty, t);
-  }
-};
+}
 
 // grid: one block per (batch * H + head, q tile), in `block_work` order.
 // DC: 64-column chunks of d (q and K); DVC: of dv (V and O); BK: keys
 // per K/V stage; kSoftcap: the logits are softcapped (scale_a, scale_b
 // as in `softmax_tile`); kOffset: q_offset and seq_k are read (else 0
-// and seq_q).
+// and seq_q).  Warpgroups 0 and 1 consume (64 q rows each), warpgroup 2
+// produces (one thread issues every TMA load).
 template <int DC, int DVC, int BK, bool kSoftcap, bool kOffset>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -726,6 +742,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    int group, int dv, int causal, float scale_a,
                    float scale_b) {
   using L = WgSmem<DC, DVC, BK>;
+  constexpr int S = L::kStages;
   const int seq_k = kOffset ? seq_k_in : seq_q;
   const int q_offset = kOffset ? q_offset_in : 0;
   constexpr int NS = BK / 2;       // score floats per thread (m64nBK)
@@ -733,163 +750,196 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   extern __shared__ uint8_t smem_wg[];
   const uint32_t base = (smem_addr(smem_wg) + 1023u) & ~1023u;
-  const uint32_t q_s = base;
   const uint32_t q_full = base + L::kBar;
+  const uint32_t k_full = q_full + 8;  // + 8 * stage
+  const uint32_t v_full = k_full + 8 * S;
+  const uint32_t k_empty = v_full + 8 * S;
+  const uint32_t v_empty = k_empty + 8 * S;
   int q_tile, bh;
   block_work(blockIdx.x, (seq_q + kWgBlockQ - 1) / kWgBlockQ, n_bh,
              group_heads, q_tile, bh);
   const int q0 = q_tile * kWgBlockQ;
   const int h = bh % n_heads;
+  const int b = bh / n_heads;
   // key tiles up to the q tile's last position (its rows past seq_q are
   // never stored)
   const int k_end = causal ? min(seq_k, q_offset + q0 + kWgBlockQ) : seq_k;
-  Loader<DC, DVC, BK> ld;
-  ld.tm_k = &tm_k;
-  ld.tm_v = &tm_v;
-  ld.k_s = base + L::kK;
-  ld.v_s = base + L::kV;
-  ld.k_full = q_full + 8;  // + 8 * stage
-  ld.v_full = ld.k_full + 8 * L::kStages;
-  ld.k_empty = ld.v_full + 8 * L::kStages;
-  ld.v_empty = ld.k_empty + 8 * L::kStages;
-  ld.n_kv = (k_end + BK - 1) / BK;
-  ld.hk = h / group;  // the kv head of this q head (GQA)
-  ld.b = bh / n_heads;
-  const int n_kv = ld.n_kv;
-
-  const int tid = threadIdx.x % 128;
-  const int wg = threadIdx.x / 128;
-  const int lane = tid % 32;
-  const bool loader = threadIdx.x == 0;
-  if (loader) {
+  const int n_kv = (k_end + BK - 1) / BK;
+  // the warpgroup, as a value ptxas knows is uniform over each warp
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int i = 0; i < L::kStages; ++i) {
-      mbar_init(ld.k_full + 8 * i, 1);
-      mbar_init(ld.v_full + 8 * i, 1);
-      mbar_init(ld.k_empty + 8 * i, 8);  // one arrival per warp
-      mbar_init(ld.v_empty + 8 * i, 8);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(k_full + 8 * i, 1);
+      mbar_init(v_full + 8 * i, 1);
+      mbar_init(k_empty + 8 * i, 8);  // one arrival per consumer warp
+      mbar_init(v_empty + 8 * i, 8);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(q_full, L::kQ);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      tma_load_4d(q_s + c * kWgBlockQ * kChunkBytes, &tm_q, q_full,
-                  c * kChunk, h, q0, ld.b);
-    }
-    ld.load_k(0);
-    ld.load_v(0);
-    ld.load_k(1);
   }
   __syncthreads();
 
-  // Per tile t (walked from the last key tile down, so the only tiles
-  // that need a mask come first), iteration t issues S_t = Q K_t^T and
-  // then O += P_{t-1} V_{t-1} (the previous tile's probabilities), waits
-  // for S_t alone and runs the softmax of tile t while P_{t-1} V_{t-1}
-  // is still on the tensor cores.  A warp releases K_t once S_t is in and
-  // V_{t-1} once its product is done; then thread 0 loads K_{t+2} and
-  // V_{t+1} into the stages that frees, a whole iteration ahead of use.
-  const int wg_row0 = q0 + 64 * wg;
-  const int wg_pos0 = q_offset + wg_row0;  // its first row's position
-  const int row_a = wg_row0 + 16 * (tid / 32) + lane / 4;  // and row_a + 8
-  float acc[NO];
+  // One if/else on the warpgroup whose branches never meet again, so
+  // that ptxas honours `setmaxnreg` (see the header).
+  if (wg == 2) {
+    // The producer: the q tile, then tile t's K and V (walked from the
+    // last key tile down) into stage t % S as soon as both consumer
+    // warpgroups have released the tile the stage held before.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (threadIdx.x == kConsumerThreads) {
+      mbar_expect_tx(q_full, L::kQ);
 #pragma unroll
-  for (int e = 0; e < NO; ++e) acc[e] = 0.0f;
-  float s[NS];
-  uint32_t p[BK / 16][4];
-  float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
-  const uint32_t q_wg = q_s + 64 * wg * kChunkBytes;  // this warpgroup's rows
+      for (int c = 0; c < DC; ++c) {
+        tma_load_4d(base + c * kWgBlockQ * kChunkBytes, &tm_q, q_full,
+                    c * kChunk, h, q0, b);
+      }
+      const int hk = h / group;  // the kv head of this q head (GQA)
+      for (int t = 0; t < n_kv; ++t) {
+        const int stage = t % S;
+        const uint32_t parity = ((t / S) & 1) ^ 1;  // the stage is free
+        const int row0 = (n_kv - 1 - t) * BK;
+        mbar_wait(k_empty + 8 * stage, parity);
+        load_tile<DC, BK>(&tm_k, base + L::kK + stage * L::kKT,
+                          k_full + 8 * stage, hk, row0, b);
+        mbar_wait(v_empty + 8 * stage, parity);
+        load_tile<DVC, BK>(&tm_v, base + L::kV + stage * L::kVT,
+                           v_full + 8 * stage, hk, row0, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+    // Per tile t, iteration t issues S_t = Q K_t^T and then O += P_{t-1}
+    // V_{t-1} (the previous tile's probabilities), waits for S_t alone
+    // and runs the softmax of tile t while P_{t-1} V_{t-1} is still on
+    // the tensor cores.  A warp releases K_t once S_t is in and V_{t-1}
+    // once its product is done.  The two warpgroups take turns to issue
+    // (named barriers 1 and 2, warpgroup 0 first): each issues its
+    // products, passes the turn, and runs its softmax while the other's
+    // products run.  Every tile of the block is a turn of each
+    // warpgroup, a tile that a warpgroup skips too, so both take n_kv
+    // turns; warpgroup 1 does not pass its last one on, so no arrival is
+    // left over.
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const uint32_t turn = 1 + wg, next_turn = 2 - wg;
+    const int wg_row0 = q0 + 64 * wg;
+    const int wg_pos0 = q_offset + wg_row0;  // its first row's position
+    const int row_a = wg_row0 + 16 * (tid / 32) + lane / 4;  // and row_a + 8
+    float acc[NO];
+#pragma unroll
+    for (int e = 0; e < NO; ++e) acc[e] = 0.0f;
+    float s[NS];
+    uint32_t p[BK / 16][4];
+    float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
+    const uint32_t q_wg = base + 64 * wg * kChunkBytes;  // its rows
+    const uint32_t k_s = base + L::kK, v_s = base + L::kV;
 
 #define REPRO_RELEASE(bar)             \
   do {                                 \
     __syncwarp();                      \
     if (lane == 0) mbar_arrive(bar);   \
   } while (0)
-#define REPRO_LOAD_AFTER(t)  \
-  do {                       \
-    if (loader) {            \
-      ld.load_k((t) + 2);    \
-      ld.load_v((t) + 1);    \
-    }                        \
-    __syncwarp();            \
+#define REPRO_PASS_TURN(t)                                   \
+  do {                                                       \
+    if (wg == 0 || (t) + 1 < n_kv) bar_arrive(next_turn);    \
   } while (0)
-#define REPRO_SOFTMAX(t)                                                    \
-  softmax_tile<NS, kSoftcap>(                                               \
-      s,                                                                    \
-      (n_kv - (t)) * BK > seq_k ||                                          \
-          (causal && (n_kv - (t)) * BK - 1 > wg_pos0),                      \
-      (n_kv - 1 - (t)) * BK, q_offset + row_a, seq_k, causal, scale_a,      \
+#define REPRO_SOFTMAX(t, kMasked)                                           \
+  softmax_tile<NS, kSoftcap, kMasked>(                                      \
+      s, (n_kv - 1 - (t)) * BK, q_offset + row_a, seq_k, causal, scale_a,   \
       scale_b, m_a, m_b, l_a, l_b)
+// iteration t of the walk past the first tile
+#define REPRO_STEP(t, kMasked)                                              \
+  do {                                                                      \
+    const int stage = (t) % S, prev = ((t) - 1) % S;                        \
+    mbar_wait(k_full + 8 * stage, ((t) / S) & 1);                           \
+    mbar_wait(v_full + 8 * prev, (((t) - 1) / S) & 1);                      \
+    bar_sync(turn);                                                         \
+    issue_scores<DC, DVC, BK>(s, acc, q_wg, k_s + stage * L::kKT);          \
+    issue_pv<DVC, BK>(acc, p, v_s + prev * L::kVT);                         \
+    REPRO_PASS_TURN(t);                                                     \
+    wgmma_wait<1>(); /* the scores are in; P V still runs */                \
+    fence_regs<NS>(s);                                                      \
+    REPRO_RELEASE(k_empty + 8 * stage);                                     \
+    const float2 alpha = REPRO_SOFTMAX(t, kMasked);                         \
+    wgmma_wait<0>();                                                        \
+    fence_regs<NO>(acc);                                                    \
+    REPRO_RELEASE(v_empty + 8 * prev);                                      \
+    rescale<NO>(acc, alpha);                                                \
+    pack_probs<BK>(p, s);                                                   \
+  } while (0)
 
-  mbar_wait(q_full, 0);
-  // with `causal` and 64-key tiles, the first tile (the diagonal of
-  // warpgroup 1) lies wholly after warpgroup 0's rows: it gives zero
-  // weight there, so warpgroup 0 only releases it
-  const int n_skip = causal ? max(0, n_kv - 1 - (wg_pos0 + 63) / BK) : 0;
-  for (int t = 0; t < n_skip; ++t) {
-    const int stage = t % L::kStages;
-    const uint32_t parity = (t / L::kStages) & 1;
-    mbar_wait(ld.k_full + 8 * stage, parity);
-    REPRO_RELEASE(ld.k_empty + 8 * stage);
-    mbar_wait(ld.v_full + 8 * stage, parity);
-    REPRO_RELEASE(ld.v_empty + 8 * stage);
-    REPRO_LOAD_AFTER(t);
-  }
+    if (wg == 0) bar_arrive(turn);  // warpgroup 0 takes the first turn
+    mbar_wait(q_full, 0);
+    // with `causal` and 64-key tiles, the first tile (the diagonal of
+    // warpgroup 1) lies wholly after warpgroup 0's rows: it gives zero
+    // weight there, so warpgroup 0 only releases it
+    const int n_skip = causal ? max(0, n_kv - 1 - (wg_pos0 + 63) / BK) : 0;
+    for (int t = 0; t < n_skip; ++t) {
+      const int stage = t % S;
+      const uint32_t parity = (t / S) & 1;
+      mbar_wait(k_full + 8 * stage, parity);
+      REPRO_RELEASE(k_empty + 8 * stage);
+      mbar_wait(v_full + 8 * stage, parity);
+      REPRO_RELEASE(v_empty + 8 * stage);
+      bar_sync(turn);
+      REPRO_PASS_TURN(t);
+    }
+    // Tile t holds keys (n_kv - 1 - t) BK ..; it needs a mask unless its
+    // keys all lie before seq_k and, with `causal`, at or before the
+    // warpgroup's first row.  Those tiles come first in the walk.
+    const int j_clear =
+        min(seq_k, causal ? wg_pos0 + 1 : seq_k) / BK;  // tiles from key 0
+    const int t_clear = max(n_skip + 1, n_kv - j_clear);
 
-  // the first tile: scores and probabilities only (O is still zero)
-  {
-    const int stage = n_skip % L::kStages;
-    mbar_wait(ld.k_full + 8 * stage, (n_skip / L::kStages) & 1);
-    issue_scores<DC, DVC, BK>(s, acc, q_wg, ld.k_s + stage * L::kKT);
-    wgmma_wait<0>();
-    fence_regs<NS>(s);
-    REPRO_RELEASE(ld.k_empty + 8 * stage);
-    REPRO_SOFTMAX(n_skip);
-    pack_probs<BK>(p, s);
-    REPRO_LOAD_AFTER(n_skip);
-  }
-  for (int t = n_skip + 1; t < n_kv; ++t) {
-    const int stage = t % L::kStages, prev = (t - 1) % L::kStages;
-    mbar_wait(ld.k_full + 8 * stage, (t / L::kStages) & 1);
-    mbar_wait(ld.v_full + 8 * prev, ((t - 1) / L::kStages) & 1);
-    issue_scores<DC, DVC, BK>(s, acc, q_wg, ld.k_s + stage * L::kKT);
-    issue_pv<DVC, BK>(acc, p, ld.v_s + prev * L::kVT);
-    wgmma_wait<1>();  // the scores are in; P V still runs
-    fence_regs<NS>(s);
-    REPRO_RELEASE(ld.k_empty + 8 * stage);
-    const float2 alpha = REPRO_SOFTMAX(t);
-    wgmma_wait<0>();
-    fence_regs<NO>(acc);
-    REPRO_RELEASE(ld.v_empty + 8 * prev);
-    rescale<NO>(acc, alpha);
-    pack_probs<BK>(p, s);
-    REPRO_LOAD_AFTER(t);
-  }
-  {
-    const int last = (n_kv - 1) % L::kStages;
-    mbar_wait(ld.v_full + 8 * last, ((n_kv - 1) / L::kStages) & 1);
-    fence_regs<NO>(acc);
-    wgmma_fence();
-    issue_pv<DVC, BK>(acc, p, ld.v_s + last * L::kVT);
-    wgmma_wait<0>();
-    fence_regs<NO>(acc);
-  }
+    // the first tile: scores and probabilities only (O is still zero)
+    {
+      const int stage = n_skip % S;
+      mbar_wait(k_full + 8 * stage, (n_skip / S) & 1);
+      bar_sync(turn);
+      issue_scores<DC, DVC, BK>(s, acc, q_wg, k_s + stage * L::kKT);
+      REPRO_PASS_TURN(n_skip);
+      wgmma_wait<0>();
+      fence_regs<NS>(s);
+      REPRO_RELEASE(k_empty + 8 * stage);
+      if (n_skip < n_kv - j_clear) {
+        REPRO_SOFTMAX(n_skip, true);
+      } else {
+        REPRO_SOFTMAX(n_skip, false);
+      }
+      pack_probs<BK>(p, s);
+    }
+    int t = n_skip + 1;
+    for (; t < t_clear; ++t) REPRO_STEP(t, true);
+    for (; t < n_kv; ++t) REPRO_STEP(t, false);
+    {
+      const int last = (n_kv - 1) % S;
+      mbar_wait(v_full + 8 * last, ((n_kv - 1) / S) & 1);
+      fence_regs<NO>(acc);
+      wgmma_fence();
+      issue_pv<DVC, BK>(acc, p, v_s + last * L::kVT);
+      wgmma_wait<0>();
+      fence_regs<NO>(acc);
+    }
 #undef REPRO_RELEASE
-#undef REPRO_LOAD_AFTER
+#undef REPRO_PASS_TURN
 #undef REPRO_SOFTMAX
+#undef REPRO_STEP
 
-  const float inv_a = 1.0f / fmaxf(quad_sum(l_a), 1e-30f);
-  const float inv_b = 1.0f / fmaxf(quad_sum(l_b), 1e-30f);
-  bf16* o_bh = o + static_cast<long long>(ld.b) * st.ob + h * st.oh;
+    const float inv_a = 1.0f / fmaxf(quad_sum(l_a), 1e-30f);
+    const float inv_b = 1.0f / fmaxf(quad_sum(l_b), 1e-30f);
+    bf16* o_bh = o + static_cast<long long>(b) * st.ob + h * st.oh;
 #pragma unroll
-  for (int e = 0; e < NO; e += 2) {
-    const bool first = e % 4 < 2;
-    const int row = first ? row_a : row_a + 8;
-    const int col = 8 * (e / 4) + 2 * (lane % 4);  // even; dv % 8 == 0
-    if (row < seq_q && col < dv) {
-      const float inv = first ? inv_a : inv_b;
-      *reinterpret_cast<uint32_t*>(o_bh + row * st.os + col) =
-          pack_bf16(acc[e] * inv, acc[e + 1] * inv);
+    for (int e = 0; e < NO; e += 2) {
+      const bool first = e % 4 < 2;
+      const int row = first ? row_a : row_a + 8;
+      const int col = 8 * (e / 4) + 2 * (lane % 4);  // even; dv % 8 == 0
+      if (row < seq_q && col < dv) {
+        const float inv = first ? inv_a : inv_b;
+        *reinterpret_cast<uint32_t*>(o_bh + row * st.os + col) =
+            pack_bf16(acc[e] * inv, acc[e + 1] * inv);
+      }
     }
   }
 }

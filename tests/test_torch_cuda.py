@@ -28,7 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import flash_attention, gradnorm, lru_scan, ops  # noqa: E402
+from repro_torch.kernels import flash_attention, gradnorm, lru_scan, nvcc, ops  # noqa: E402
 
 SHAPES = [(10, 50), (300, 700), (8, 4096), (1000, 130)]
 MAIN_PATH = [(2000, 84), (2000, 10)]  # K*D̂ rows of h and of p - y
@@ -618,6 +618,76 @@ def test_cuda_bf16_entry_refuses_a_bad_v_or_instance(cuda, d, dv, instance):
              dv, *instance, (ctypes.c_longlong * 12)(*strides), 1, 1.0, 0.0,
              0, torch.cuda.current_stream().cuda_stream)
     assert err != 0
+
+
+# command-r-35b's 64:8 GQA at d = 128 and musicgen-medium's 24:24 MHA at
+# d = 64, the prefill shapes that trailed SDPA the most before the bf16
+# kernel had a producer warpgroup: (q, k and v)
+PRODUCER_SERVING = [((4, 2048, 64, 128), (4, 2048, 8, 128)),
+                    ((4, 2048, 24, 64), (4, 2048, 24, 64))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PRODUCER_SERVING)
+def test_cuda_flash_bf16_command_r_and_musicgen_two_calls_bit_identical(
+        cuda, shape):
+    """At command-r's and musicgen's serving shapes the bf16 kernel
+    matches the plain version, and two calls give the same bits (the
+    consumers' turns change when they issue, not what a row
+    computes)."""
+    q = _normal(20, shape[0], cuda).bfloat16()
+    k, v = (_normal(21 + i, shape[1], cuda).bfloat16() for i in range(2))
+    flash_attention.reset_launch_counts()
+    first, second = (ops.flash_attention_bhsd(q, k, v) for _ in range(2))
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash_attention": 2}
+    assert torch.equal(first, second)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(
+        first.float(),
+        flash_attention.flash_attention_bhsd_plain(q, k, v).float(),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 160, 256])
+@pytest.mark.parametrize("s", [130, 200])
+def test_cuda_flash_bf16_partial_last_stage_under_gqa_8(cuda, s, d):
+    """Causal, 16:2 GQA (a group of 8), S not a multiple of 128: the
+    producer's last K/V stage is partly past the keys (TMA zero-fills
+    it), and at S = 130 warpgroup 1 of the last q tile has no row to
+    store but still takes its turns and releases every stage."""
+    q = _normal(s + d, (2, s, 16, d), cuda).bfloat16()
+    k, v = (_normal(s + d + i, (2, s, 2, d), cuda).bfloat16()
+            for i in (1, 2))
+    flash_attention.reset_launch_counts()
+    got = ops.flash_attention_bhsd(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash_attention": 1}
+    assert got.shape == q.shape
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(
+        got.float(),
+        flash_attention.flash_attention_bhsd_plain(q, k, v).float(),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_build_has_no_spill_or_serialised_wgmma(cuda):
+    """ptxas's report of the bf16 build (``nvcc.BuildInfo.log``, kept
+    beside the library): every ``flash_wgmma_kernel`` instance (5
+    instances, each plain, with an offset and softcapped) without a
+    spilled byte, and no warning that it serialised the wgmmas or
+    ignored ``setmaxnreg``."""
+    log = flash_attention.build_sm90().log
+    entries = [e for e in nvcc.ptxas_report(log)
+               if "flash_wgmma_kernel" in e.name]
+    assert len(entries) == 15, entries
+    for e in entries:
+        assert e.spill_stores == 0 and e.spill_loads == 0, e
+    warned = [w for w in nvcc.ptxas_warnings(log)
+              if "wgmma" in w or "setmaxnreg" in w]
+    assert not warned, warned
 
 
 @pytest.mark.cuda

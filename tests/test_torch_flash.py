@@ -335,6 +335,73 @@ def test_flash_sources_build_into_distinct_libraries():
     assert flash_attention.SOURCE_SM90.exists()
 
 
+def _fake_nvcc(monkeypatch, returncode, output):
+    """nvcc stood in for by a function that writes the library it is
+    asked for and prints ``output``; returns the commands it ran."""
+    import subprocess
+    from pathlib import Path
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"\0")
+        return subprocess.CompletedProcess(cmd, returncode, output, "")
+
+    monkeypatch.setattr(nvcc, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(nvcc.subprocess, "run", run)
+    return calls
+
+
+PTXAS_LOG = (
+    "ptxas info    : 0 bytes gmem\n"
+    "ptxas info    : Compiling entry function '_Z18flash_wgmma_kernelv' "
+    "for 'sm_90a'\n"
+    "ptxas info    : Function properties for _Z18flash_wgmma_kernelv\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 168 registers, used 3 barriers, 392 bytes "
+    "cmem[0]\n"
+    "ptxas warning : (C7508) setmaxnreg ignored; unable to determine "
+    "register count at entry\n"
+    "ptxas info    : Compiling entry function '_Z4scanv' for 'sm_90a'\n"
+    "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+    "ptxas info    : Used 32 registers\n")
+
+
+def test_build_keeps_the_log_beside_the_library(monkeypatch, tmp_path):
+    """A reused library returns the compiler output of the build that
+    made it (the ptxas report the card's tests read), and a failed
+    build leaves neither the library nor its log."""
+    src = tmp_path / "k.cu"
+    src.write_text("// k\n")
+    out = tmp_path / "build"
+    calls = _fake_nvcc(monkeypatch, 0, PTXAS_LOG)
+    first = nvcc.build(src, nvcc.BASE_FLAGS, out)
+    again = nvcc.build(src, nvcc.BASE_FLAGS, out)
+    assert len(calls) == 1 and again.seconds == 0.0
+    assert first.log == again.log == PTXAS_LOG
+    assert sorted(p.name for p in out.iterdir()) == [
+        first.path.with_suffix(".log").name, first.path.name]
+    src.write_text("// broken\n")
+    _fake_nvcc(monkeypatch, 1, "error")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        nvcc.build(src, nvcc.BASE_FLAGS, out)
+    assert len(list(out.iterdir())) == 2
+
+
+def test_ptxas_report_reads_each_entry():
+    """Registers, barriers and spill bytes per entry function, in
+    ptxas's order, and its warnings line by line."""
+    entries = nvcc.ptxas_report(PTXAS_LOG)
+    assert [(e.name, e.registers, e.barriers, e.spill_stores,
+             e.spill_loads) for e in entries] == [
+        ("_Z18flash_wgmma_kernelv", 168, 3, 0, 0),
+        ("_Z4scanv", 32, 0, 4, 8)]
+    assert nvcc.ptxas_warnings(PTXAS_LOG) == [
+        "ptxas warning : (C7508) setmaxnreg ignored; unable to determine "
+        "register count at entry"]
+    assert nvcc.ptxas_report("") == [] and nvcc.ptxas_warnings("") == []
+
+
 def test_build_key_hashes_source_and_flags(tmp_path):
     src = tmp_path / "k.cu"
     src.write_text("// one\n")
