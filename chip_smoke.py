@@ -10,11 +10,13 @@ exit) if anything in it fails; no failure is caught:
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: ``kernels/csrc/gradnorm.cu``, ``kernels/csrc/flash_attention.cu``
    (fp32), ``kernels/csrc/flash_attention_sm90.cu`` (bf16, tensor cores)
-   and ``kernels/csrc/lru_scan.cu`` compiled with nvcc for sm_90a, one
+   and ``kernels/csrc/lru_scan.cu`` (the scan and its backward kernel)
+   compiled with nvcc for sm_90a, one
    nvcc each, started together; ptxas's register, spill and warning
    lines, and a check that no instance of the bf16 kernel
-   (``flash_wgmma_kernel``) spills or has its wgmmas serialised, and that
-   ptxas honoured its ``setmaxnreg``;
+   (``flash_wgmma_kernel``) spills or has its wgmmas serialised, that
+   ptxas honoured its ``setmaxnreg``, and that none of the scan's four
+   instances (forward and backward, fp32 and bf16) spills;
 3. kernels: each CUDA entry point against its plain PyTorch version on
    the card, at the test shapes and at the main paths' shapes, with
    device times (CUDA events over a CUDA graph of back-to-back calls),
@@ -40,17 +42,22 @@ exit) if anything in it fails; no failure is caught:
    bf16, also at the seams of its
    chunk of L
    steps (S of 1, L - 1, L, L + 1; C of 1 and 130; a view 4 bytes past
-   a 16-byte boundary; a batch of 70000; gates in (0.999, 1) at S =
-   2048), every case called twice and bit-identical, and timed at
+   a 16-byte boundary, in bf16 also 2; a batch of 70000; gates in
+   (0.999, 1) at S = 2048), every case called twice and bit-identical,
+   the backward kernel at every case the bits of the route it replaced
+   (the forward kernel on time-reversed copies, flips and the product,
+   rebuilt inline) and within 1e-5 of the plain loop, and timed at
    mamba's (4, 2048, 131072), recurrentgemma-9b's (4, 2048, 4096) and
    the same at batch 1, with % of bound and GB/s; the train shapes:
    ``gradnorm_sigma`` at llama's train step, (8192, 3072) + (8192,
    128256), beside ``vector_norm`` of both operands, and the scan at
    mamba's and recurrentgemma's train steps, (8, 512, 131072) and (8,
-   512, 4096), with its gradient through the kernel
-   (``ops.lru_scan``) held against autograd through the plain
-   loop on the card and its backward call timed against the bytes
-   bound; ``gradnorm_sigma`` also at qwen2-vl-2b's and musicgen-medium's
+   512, 4096), with its gradient through the kernels
+   (``ops.lru_scan``: one forward and one backward launch) held
+   against autograd through the plain loop on the card, and the
+   backward kernel the replaced route's bits, timed in turns with that
+   route beside the plain loop and its own bound (20 B an element);
+   ``gradnorm_sigma`` also at qwen2-vl-2b's and musicgen-medium's
    train steps, (8192, 1536) + (8192, 151936) and (8192, 1536) +
    (8192, 8192), each operand's ``einsum("nd,nd->n")`` timed beside it;
    bf16 flash at qwen2-vl-2b's (12:2 GQA, d = 128) and
@@ -220,9 +227,11 @@ exit) if anything in it fails; no failure is caught:
    recurrentgemma-9b to one pattern (rglru, rglru, attn_local) and
    deepseek-v2-236b to 2 layers (its dense layer and one MoE layer of
    160 experts, with the config's adafactor); step ms, peak memory, the
-   summed MoE aux loss, and the scan's launches a step, 3 a recurrent
-   layer (the forward, its recompute under remat, the backward;
-   checked); each timed by stage and profiled as in 25;
+   summed MoE aux loss, and the scan's launches a step, 2 of
+   ``lru_scan`` a recurrent layer (the forward, its recompute under
+   remat) and 1 of ``lru_scan_backward`` (checked); each timed by stage
+   and profiled as in 25; for mamba and recurrentgemma the backward
+   stage's ms and the peak printed on a line of their own;
 27. train replays: llama3.2-3b and falcon-mamba-7b at full width cut to
    2 layers, fp32 with TF32 off, K = 4, batch 8 x 64: 3 FEEL steps on
    the card, then 1 more, replayed on the CPU from the card's
@@ -234,7 +243,8 @@ exit) if anything in it fails; no failure is caught:
    params at 1e-6 + 1e-5 |w|, or, on AdamW's entries at gradient
    noise, at the card's own update + lr (1 + wd |w|)); each side's
    sigma against a float64 recompute; the mamba replay runs the scan's
-   backward on the card;
+   backward kernel on the card (2 scan and 1 backward launch a layer,
+   checked);
 28. qwen2-vl-2b served at full width and depth (28 layers,
    1,543,656,960 parameters; embeddings in, M-RoPE), the reference's
    request: 4 x 2048 random embeddings with their (4, 3, 2048)
@@ -328,7 +338,10 @@ recurrentgemma's at batch 4 and 1; the train paths with their own
 runs' launches: ``gradnorm_sigma@train-llama3.2-3b`` (phase 25, at its
 train shape), ``lru_scan@train-falcon-mamba-7b`` and
 ``lru_scan@train-recurrentgemma-9b`` (phase 26, at their train
-shapes); the vlm and audio paths with their own runs' launches:
+shapes), ``lru_scan_backward@train-falcon-mamba-7b`` and
+``lru_scan_backward@train-recurrentgemma-9b`` (the backward kernel,
+phase 26's launches, at the same shapes, its ms the median of its
+turns); the vlm and audio paths with their own runs' launches:
 ``flash_attention@serve-qwen2-vl-2b`` (phase 28),
 ``flash_attention@serve-musicgen-medium`` (29),
 ``gradnorm_sigma@train-qwen2-vl-2b`` and
@@ -909,9 +922,10 @@ def scan_cases(lru):
     """Phase 3's scan checks as (shape, dtype, gates, offset): the
     reference's test shapes, S at the chunk's seams (1, L - 1, L, L + 1
     for the schedule's L = W * P) at a narrow C, C of 1 and 130, a
-    contiguous view ``offset`` elements (4 bytes) past a 16-byte
-    boundary, a batch past the old grid's 65535, gates in (0.999, 1) at
-    S = 2048, in fp32 and bf16; then the three serving shapes in fp32."""
+    contiguous view ``offset`` elements (4 bytes; in bf16 also 2) past
+    a 16-byte boundary, a batch past the old grid's 65535, gates in
+    (0.999, 1) at S = 2048, in fp32 and bf16; then the three serving
+    shapes in fp32 (mamba's operands past 2^31 bytes)."""
     chunk = lru.WARPS * lru.STEPS
     shapes = SCAN_TEST_SHAPES + [(2, s, 8) for s in (1, chunk - 1, chunk,
                                                      chunk + 1)] + [
@@ -921,6 +935,7 @@ def scan_cases(lru):
         cases += [(shape, dt, "uniform", 0) for shape in shapes]
         cases += [((2, 300, 130), dt, "uniform", 1 if dt == "float32" else 2),
                   (SCAN_NEAR1, dt, "near1", 0)]
+    cases.append(((2, 300, 130), "bfloat16", "uniform", 1))
     return cases + [(shape, "float32", "uniform", 0) for shape in SCAN_TIMED]
 
 
@@ -945,10 +960,62 @@ def scan_bound(shape, itemsize):
     return (*bound(n_bytes, 2.0 * n), n_bytes)
 
 
+def scan_backward_bound(shape, itemsize):
+    """The gradient's a (``itemsize``), h and gbar (fp32) read once and
+    dL/da and dL/db (fp32) written once: 20 B an element with fp32 a, 18
+    with bf16; 3 flops per element (the adjoint's multiply and add,
+    dL/da's multiply) on the fp32 CUDA cores.  Returns (ms, bound_by,
+    bytes)."""
+    n = math.prod(shape)
+    n_bytes = n * (itemsize + 4 * 4)
+    return (*bound(n_bytes, 3.0 * n), n_bytes)
+
+
+def scan_backward_parent(torch, lru, a, h, gbar):
+    """The route the backward kernel replaced, rebuilt as the yardstick:
+    the forward kernel on time-reversed contiguous copies of gbar and of
+    a shifted by one step, flipped back, then dL/da = g h_{t-1}."""
+    S = a.shape[1]
+    a_rev = torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+    a_rev[:, 1:] = a[:, 1:].flip(1)
+    g = lru.lru_scan(a_rev, gbar.float().flip(1)).flip(1)
+    del a_rev
+    grad_a = torch.zeros_like(g)
+    grad_a[:, 1:] = g[:, 1:] * h[:, :S - 1]
+    return grad_a, g
+
+
+def check_scan_backward(torch, lru, a, h, gbar, label, scaled):
+    """The backward kernel at (a, h, gbar): the parent route's bits
+    (``torch.equal``) and within SCAN_TOL of the plain loop (with an
+    atol of SCAN_TOL times max |g| where ``scaled``: gates near 1).
+    Returns the max abs err against the plain version."""
+    got = lru.lru_scan_backward_op(a, h, gbar)
+    want = scan_backward_parent(torch, lru, a, h, gbar)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("da", "db"), got, want):
+        check(bool(torch.equal(g, w)), f"{label}: the backward kernel's "
+              f"dL/{name} is not the parent route's bit for bit (max abs "
+              f"diff {float((g - w).abs().max()):.3g})")
+    del want
+    plain = lru.lru_scan_backward_plain(a, h, gbar)
+    err = 0.0
+    for name, g, w in zip(("da", "db"), got, plain):
+        e = float((g - w).abs().max())
+        atol = SCAN_TOL * (float(w.abs().max()) if scaled else 1.0)
+        check(bool(torch.allclose(g, w, atol=atol, rtol=SCAN_TOL)),
+              f"{label}: backward dL/{name} max abs err {e:.3g} against the "
+              f"plain loop, above atol {atol:.3g}, rtol {SCAN_TOL}")
+        err = max(err, e)
+    return err
+
+
 def phase_scan(torch, lru, ops):
     """The scan kernel against its plain version (``scan_cases``): each
     within SCAN_TOL, the a == 0 identity exact, two calls bit-identical;
-    and the three serving shapes timed.  Gates in (0.999, 1) over 2048
+    the backward kernel at each case against the route it replaced, bit
+    for bit, and the plain loop (``check_scan_backward``); and the
+    three serving shapes timed.  Gates in (0.999, 1) over 2048
     steps are held at rtol SCAN_TOL with an atol of SCAN_TOL times the
     largest |h|: there two sequential fp32 loops (the reference's jnp
     scan and the plain version) already differ above 1e-5 where h
@@ -997,7 +1064,16 @@ def phase_scan(torch, lru, ops):
                     f"{100 * b_ms / rec['ms']:.1f} % of bound, "
                     f"{n_bytes / rec['ms'] / 1e6:.1f} GB/s")
             recs[shape] = rec
-        print(msg)
+        # after the timing, which the backward check's large temporaries
+        # would otherwise precede
+        h = lru.lru_scan(a, b)
+        gbar = torch.randn(math.prod(shape) + offset, generator=gen,
+                           device="cuda")[offset:].view(shape)
+        bwd_err = check_scan_backward(torch, lru, a, h, gbar, label,
+                                      gates == "near1")
+        del h, gbar
+        print(f"{msg}; the backward kernel the parent route's bits, "
+              f"max_abs_err {bwd_err:.3g} against the plain loop")
         del a, b
     torch.cuda.empty_cache()
     return recs
@@ -1281,7 +1357,8 @@ def phase_options(rt, torch, data, init_sd, kernels, gradnorm):
         launches = kernel_launches(kernels)
         want = per_round * (OPTION_ROUNDS + (label == "c"))
         check(launches == {"rownorm2": 0, "gradnorm_sigma": want,
-                           "flash_attention": 0, "lru_scan": 0},
+                           "flash_attention": 0, "lru_scan": 0,
+                           "lru_scan_backward": 0},
               f"{name}: launches {launches}")
         print(f"{name}: launches {launches}")
         for k, v in launches.items():
@@ -1323,7 +1400,8 @@ def phase_k256(rt, torch, init_sd, kernels, gradnorm):
             rec0 = round_record(tr)
     launches = kernel_launches(kernels)
     check(launches == {"rownorm2": 0, "gradnorm_sigma": ROUNDS256,
-                       "flash_attention": 0, "lru_scan": 0},
+                       "flash_attention": 0, "lru_scan": 0,
+                       "lru_scan_backward": 0},
           f"K={K256}: launches {launches}")
     later = [stage_ms(rt.obs, tele, i) for i in range(1, ROUNDS256)]
     print(f"K={K256}: launches {launches}; rounds 1-{ROUNDS256 - 1} wall ms "
@@ -1373,7 +1451,8 @@ def phase_schemes(rt, torch, data, init_sd, kernels, gradnorm):
         del tr
     launches = kernel_launches(kernels)
     check(launches == {"rownorm2": 0, "gradnorm_sigma": 4 * ROUNDS,
-                       "flash_attention": 0, "lru_scan": 0},
+                       "flash_attention": 0, "lru_scan": 0,
+                       "lru_scan_backward": 0},
           f"launches on the schemes' path {launches}")
     print(f"schemes path launches: {launches}")
     return launches, base1
@@ -1454,7 +1533,8 @@ def phase_ccp_round(rt, torch, data, init_sd, kernels, gradnorm):
     m = tr.run_round(0)
     launches = kernel_launches(kernels)
     check(launches == {"rownorm2": 0, "gradnorm_sigma": 1,
-                       "flash_attention": 0, "lru_scan": 0},
+                       "flash_attention": 0, "lru_scan": 0,
+                       "lru_scan_backward": 0},
           f"launches on the CCP round {launches}")
     st, dec = tr.last_state, tr.last_decision
     check(all(bool(torch.isfinite(p).all()) for p in tr.params.values()),
@@ -1575,7 +1655,8 @@ def phase_traced(rt, torch, data, init_sd, kernels, gradnorm, gpu0,
               f"launched {n} times, {n_prof} of them profiling")
     check(launches == {"rownorm2": 0,
                        "gradnorm_sigma": sum(per_round) + ROUNDS,
-                       "flash_attention": 0, "lru_scan": 0},
+                       "flash_attention": 0, "lru_scan": 0,
+                       "lru_scan_backward": 0},
           f"launches on the traced and untraced rounds {launches}")
     kernel_flops, kernel_bytes = gradnorm.cost(K * D_HAT, 84, 10)
     rounds = [e for e in events if isinstance(e, obs.RoundEvent)]
@@ -1795,7 +1876,8 @@ def phase_resilience(rt, torch, data, init_sd, kernels, gradnorm):
     launches = kernel_launches(kernels)
     check(launches == {"rownorm2": 0,
                        "gradnorm_sigma": 2 * FAULT_ROUNDS - RESUME_AT,
-                       "flash_attention": 0, "lru_scan": 0},
+                       "flash_attention": 0, "lru_scan": 0,
+                       "lru_scan_backward": 0},
           f"launches on the resilience path {launches}")
     for a, b in zip(ms[RESUME_AT:], ms_b):
         check(all(getattr(a, f) == getattr(b, f) for f in RESILIENCE_FIELDS)
@@ -1823,7 +1905,8 @@ def phase_resilience(rt, torch, data, init_sd, kernels, gradnorm):
     launches = kernel_launches(kernels)
     check(launches == {"rownorm2": 0,
                        "gradnorm_sigma": 3 * FAULT_ROUNDS - 2 * RESUME_AT,
-                       "flash_attention": 0, "lru_scan": 0},
+                       "flash_attention": 0, "lru_scan": 0,
+                       "lru_scan_backward": 0},
           f"launches on the resilience path {launches}")
     worst = max(float((tr.params[n] - free.params[n]).detach().abs().max())
                 for n in tr.params)
@@ -2183,12 +2266,13 @@ def phase_train_kernels(torch, gradnorm, lru, ops, device="cuda"):
     ``torch.linalg.vector_norm`` of both operands and each operand's
     ``einsum("nd,nd->n")`` (``rownorm2``'s function in one call); the
     scan at the train shapes (``SCAN_TRAIN``) timed, and its gradient
-    through the kernel (``ops.lru_scan``) against autograd
-    through the plain loop on the card, with the backward call
-    (``lru_scan_backward``: one reversed-scan launch, flips and dL/da)
-    timed against the bytes bound of a and gbar read and g written once
-    (fp32).  Returns (the sigma records by shape, the scan records by
-    shape)."""
+    through the kernels (``ops.lru_scan``) against autograd
+    through the plain loop on the card; the backward kernel against the
+    route it replaced (bit for bit) and the plain loop, then timed in
+    turns with that route (route, kernel, kernel, route, twice) beside
+    the plain loop and its own bound (``scan_backward_bound``: 20 B an
+    element).  Returns (the sigma records by shape, the scan records by
+    shape, the backward kernel's records by shape)."""
     gen = torch.Generator(device=device).manual_seed(7)
     sigma_recs = {}
     for shape, label in ((SIGMA_TRAIN, "llama3.2-3b"),
@@ -2231,15 +2315,26 @@ def phase_train_kernels(torch, gradnorm, lru, ops, device="cuda"):
         del h, d
         torch.cuda.empty_cache()
 
-    scan_recs = {}
+    scan_recs, bwd_recs = {}, {}
     for shape in SCAN_TRAIN:
         big = shape[2] > 8192
         a = torch.rand(shape, generator=gen, device=device)
         b = torch.randn(shape, generator=gen, device=device)
         w = torch.randn(shape, generator=gen, device=device)
+        # the forward timed first, before the checks' large temporaries
+        b_ms, b_by, n_bytes = scan_bound(shape, 4)
+        rec = {"ms": device_ms(torch, lambda: lru.lru_scan(a, b),
+                               *((5, 3) if big else (50, 5))),
+               "plain_ms": device_ms(torch, lambda: lru.lru_scan_plain(a, b),
+                                     *((1, 2) if big else (5, 3))),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         a1, b1 = a.clone().requires_grad_(), b.clone().requires_grad_()
+        lru.reset_launch_counts()
         h = ops.lru_scan(a1, b1)
         got = torch.autograd.grad((h * w).sum(), (a1, b1))
+        torch.cuda.synchronize()
+        check(lru.LAUNCHES == {"lru_scan": 1, "lru_scan_backward": 1},
+              f"lru_scan gradient {shape}: launches {lru.LAUNCHES}")
         del a1, b1, h
         a2, b2 = a.clone().requires_grad_(), b.clone().requires_grad_()
         want = torch.autograd.grad((lru.lru_scan_plain(a2, b2) * w).sum(),
@@ -2252,28 +2347,50 @@ def phase_train_kernels(torch, gradnorm, lru, ops, device="cuda"):
                   f"lru_scan gradient {shape} d/d{name}: max abs err "
                   f"{errs[-1]:.3g}")
         del got, want
+        rec["max_abs_err"] = max(errs)
         fwd = lru.lru_scan(a, b)
-        b_ms, b_by, n_bytes = scan_bound(shape, 4)
-        rec = {"max_abs_err": max(errs),
-               "ms": device_ms(torch, lambda: lru.lru_scan(a, b),
-                               *((5, 3) if big else (50, 5))),
-               "plain_ms": device_ms(torch, lambda: lru.lru_scan_plain(a, b),
-                                     *((1, 2) if big else (5, 3))),
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        bwd_ms = device_ms(torch, lambda: lru.lru_scan_backward(a, fwd, w),
-                           *((2, 2) if big else (20, 3)))
+        label = f"lru_scan_backward {shape} fp32 (a train step's)"
+        bwd_err = check_scan_backward(torch, lru, a, fwd, w, label, False)
+        reps = (2, 2) if big else (20, 3)
+
+        def kernel():
+            return lru.lru_scan_backward_op(a, fwd, w)
+
+        def route():
+            return scan_backward_parent(torch, lru, a, fwd, w)
+
+        turns = []  # route, kernel, kernel, route, twice
+        for fn in (route, kernel, kernel, route) * 2:
+            turns.append(device_ms(torch, fn, *reps))
+            torch.cuda.empty_cache()
+        k_ms = sorted(turns[1:3] + turns[5:7])
+        r_ms = sorted(turns[0:1] + turns[3:5] + turns[7:8])
+        bb_ms, bb_by, bb_bytes = scan_backward_bound(shape, 4)
+        bwd = {"max_abs_err": bwd_err, "ms": (k_ms[1] + k_ms[2]) / 2,
+               "parent_ms": (r_ms[1] + r_ms[2]) / 2,
+               "plain_ms": device_ms(
+                   torch, lambda: lru.lru_scan_backward_plain(a, fwd, w),
+                   *((1, 2) if big else (5, 3))),
+               "bound_ms": bb_ms, "bound_by": bb_by, "library_ms": None}
         print(f"lru_scan {shape} fp32 (a train step's): gradient through "
-              f"the kernel against autograd through the plain loop, max abs "
+              f"the kernels against autograd through the plain loop, max abs "
               f"err d/da {errs[0]:.3g} d/db {errs[1]:.3g} | device ms: "
               f"kernel {rec['ms']:.6f} plain {rec['plain_ms']:.6f} bound "
-              f"{b_ms:.6f} ({b_by}), {100 * b_ms / rec['ms']:.1f} % of bound "
-              f"| backward call {bwd_ms:.6f} ms against the same bound "
-              f"({100 * b_ms / bwd_ms:.1f} %: one reversed scan, and the "
-              "flips and dL/da around it)")
-        scan_recs[shape] = rec
+              f"{b_ms:.6f} ({b_by}), {100 * b_ms / rec['ms']:.1f} % of bound")
+        print(f"{label}: the parent route's bits, max_abs_err "
+              f"{bwd_err:.3g} against the plain loop | device ms in turns "
+              "(route / kernel / kernel / route, twice): "
+              + " / ".join(f"{t:.6f}" for t in turns)
+              + f" | kernel (median) {bwd['ms']:.6f} route (median) "
+              f"{bwd['parent_ms']:.6f} ({bwd['parent_ms'] / bwd['ms']:.2f}x) "
+              f"plain {bwd['plain_ms']:.6f} bound {bb_ms:.6f} ({bb_by}, "
+              f"{bb_bytes:,} B) | {100 * bb_ms / bwd['ms']:.1f} % of bound, "
+              f"{bb_bytes / bwd['ms'] / 1e6:.1f} GB/s; the route "
+              f"{100 * bb_ms / bwd['parent_ms']:.1f} %")
+        scan_recs[shape], bwd_recs[shape] = rec, bwd
         del a, b, w, fwd
-    torch.cuda.empty_cache()
-    return sigma_recs, scan_recs
+        torch.cuda.empty_cache()
+    return sigma_recs, scan_recs, bwd_recs
 
 
 def profile_train_step(torch, train_mod, cfg, label, batch, seq):
@@ -2283,7 +2400,8 @@ def profile_train_step(torch, train_mod, cfg, label, batch, seq):
     selection, backward with the remat recompute inside it, optimizer),
     then one step under ``torch.profiler``: device operations, busy time
     against wall time, GEMMs' share, the kernels that take most device
-    time, and the sigma and scan kernels' time."""
+    time, and the sigma and scan kernels' time (the scan's forward and
+    backward kernels apart).  Returns the stages' ms by name."""
     from torch.profiler import ProfilerActivity, profile
     model, _, state, step = train_mod.setup(cfg, 0, "cuda", True,
                                             TRAIN_CLIENTS)
@@ -2332,7 +2450,8 @@ def profile_train_step(torch, train_mod, cfg, label, batch, seq):
     gemm = sum(ms for n, ms in by_name.items()
                if any(k in n for k in ("gemm", "nvjet", "xmma", "cutlass")))
     mine = {k: [e.time_range.elapsed_us() / 1e3 for e in dev if k in e.name]
-            for k in ("gradnorm_sigma_kernel", "lru_scan_kernel")}
+            for k in ("gradnorm_sigma_kernel", "lru_scan_kernel",
+                      "lru_scan_backward_kernel")}
     print(f"{label} train step under the profiler: {len(dev)} device "
           f"operations, device busy {busy:.3f} ms of wall {wall:.3f} ms, "
           f"device idle share {1 - busy / wall:.4f}; GEMMs {gemm:.3f} ms "
@@ -2342,6 +2461,7 @@ def profile_train_step(torch, train_mod, cfg, label, batch, seq):
                     for k, v in mine.items() if v))
     del model, state, held, b
     torch.cuda.empty_cache()
+    return dict(stages)
 
 
 def phase_train(torch, train_mod, kernels, cfg, batch, seq, steps,
@@ -2427,7 +2547,8 @@ def phase_train_replay(torch, train_mod, replay, tm, full_fp32, get_config,
             for k, v in got.items():
                 launches[k] = launches.get(k, 0) + v
             check(got["gradnorm_sigma"] == 1
-                  and got["lru_scan"] == 3 * scan_layers
+                  and got["lru_scan"] == 2 * scan_layers
+                  and got["lru_scan_backward"] == scan_layers
                   and got["flash_attention"] == 0,
                   f"{arch} replay step {i}: card launches {got}")
             p, gaps = rep["params"], rep["gaps"]
@@ -2527,7 +2648,8 @@ def phase_softcap(torch, serve_mod, train_mod, replay, tm, full_fp32,
     try:
         out["train"], res = phase_train(
             torch, train_mod, kernels, cut, CUT_BATCH, CUT_SEQ, CUT_STEPS,
-            {"gradnorm_sigma": 1, "flash_attention": 0, "lru_scan": 0},
+            {"gradnorm_sigma": 1, "flash_attention": 0, "lru_scan": 0,
+             "lru_scan_backward": 0},
             f"{GEMMA} softcap {SOFTCAP} cut to {SOFTCAP_TRAIN_LAYERS} "
             f"layers {list(cut.layer_pattern)}")
         del res
@@ -2641,7 +2763,8 @@ def phase_host_mesh(torch, serve_mod, train_mod, replay, kernels, mesh_mod,
         torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
         torch.backends.cudnn.deterministic = saved[2]
         sharding._gathered = gather
-    per_step = {"gradnorm_sigma": 1, "flash_attention": 0, "lru_scan": 0}
+    per_step = {"gradnorm_sigma": 1, "flash_attention": 0, "lru_scan": 0,
+                "lru_scan_backward": 0}
     for i, got in enumerate(meshed.launches):
         check(got == per_step, f"host mesh train step {i}: launches {got}, "
               f"expected {per_step}")
@@ -2838,6 +2961,11 @@ def main() -> None:
     warned = [w for w in nvcc.ptxas_warnings(sm90_log)
               if "wgmma" in w or "setmaxnreg" in w]
     check(not warned, f"bf16 flash: ptxas warns {warned}")
+    scan = nvcc.ptxas_report(infos[builds.index(lru_scan.build)].log)
+    check(len(scan) == 4 and all(e.spill_stores == e.spill_loads == 0
+                                 for e in scan),
+          f"lru_scan: the forward and backward kernels' fp32 and bf16 "
+          f"instances without spills expected, ptxas reports {scan}")
     done("2 build")
 
     # -- 3. kernels against their plain versions ------------------------
@@ -2849,7 +2977,7 @@ def main() -> None:
     capped_recs = phase_flash_capped(torch, flash_attention, ops)
     scan_recs = phase_scan(torch, lru_scan, ops)
     scan_rec = scan_recs[SCAN_SLICE]
-    sigma_train_recs, scan_train_recs = phase_train_kernels(
+    sigma_train_recs, scan_train_recs, scan_bwd_recs = phase_train_kernels(
         torch, gradnorm, lru_scan, ops)
     sigma_train_rec = sigma_train_recs[SIGMA_TRAIN]
     done("3 kernels")
@@ -2890,7 +3018,8 @@ def main() -> None:
             gpu0 = round_record(tr)
     feel_launches = kernel_launches(kernels)
     check(feel_launches == {"rownorm2": 0, "gradnorm_sigma": ROUNDS,
-                            "flash_attention": 0, "lru_scan": 0},
+                            "flash_attention": 0, "lru_scan": 0,
+                            "lru_scan_backward": 0},
           f"launches on the FEEL path {feel_launches} in {ROUNDS} rounds")
     print(f"FEEL path launches: {feel_launches}")
     done("4 FEEL path")
@@ -3162,7 +3291,8 @@ def main() -> None:
     llama = get_config(ARCH)
     llama_train_launches, res = phase_train(
         torch, train_mod, kernels, llama, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS,
-        {"gradnorm_sigma": 1, "flash_attention": 0, "lru_scan": 0}, ARCH)
+        {"gradnorm_sigma": 1, "flash_attention": 0, "lru_scan": 0,
+         "lru_scan_backward": 0}, ARCH)
     check(res.n_params == 3_606_752_256, f"{ARCH}: {res.n_params:,} params")
     print(f"gradnorm_sigma device time of one step's launch at "
           f"{SIGMA_TRAIN}: {sigma_train_rec['ms']:.6f} ms (phase 3)")
@@ -3178,18 +3308,30 @@ def main() -> None:
         cut_launches[arch], res = phase_train(
             torch, train_mod, kernels, cfg, CUT_BATCH, CUT_SEQ, CUT_STEPS,
             {"gradnorm_sigma": 1, "flash_attention": 0,
-             "lru_scan": 3 * scans},
+             "lru_scan": 2 * scans, "lru_scan_backward": scans},
             f"{arch} cut to {layers} layers {list(cfg.layer_pattern)}")
-        print(f"{arch} cut to {layers} layers: {3 * scans} scan launches a "
-              f"step = 3 x {scans} recurrent layers (the forward, its "
-              "recompute under remat, the backward); optimizer "
-              f"{cfg.optimizer}")
+        print(f"{arch} cut to {layers} layers: {2 * scans} scan and "
+              f"{scans} scan-backward launches a step for {scans} recurrent "
+              "layers (the forward and its recompute under remat, then the "
+              f"backward kernel); optimizer {cfg.optimizer}")
         if cfg.n_experts:
             check(all(a > 0 for a in res.aux_loss),
                   f"{arch}: the summed MoE aux loss {res.aux_loss}")
+        peak = torch.cuda.max_memory_allocated()
+        ms = sorted(t * 1e3 for t in res.step_s[1:])
         del res
-        profile_train_step(torch, train_mod, cfg, f"{arch} cut to {layers}",
-                           CUT_BATCH, CUT_SEQ)
+        stages = profile_train_step(torch, train_mod, cfg,
+                                    f"{arch} cut to {layers}", CUT_BATCH,
+                                    CUT_SEQ)
+        if scans:
+            bwd = scan_bwd_recs[SCAN_TRAIN[0] if arch == MAMBA
+                                else SCAN_TRAIN[1]]
+            print(f"{arch} cut to {layers} layers, train step: median "
+                  f"{ms[len(ms) // 2]:.3f} ms, backward stage "
+                  f"{stages['backward']:.3f} ms (with the remat recompute; "
+                  f"{scans} lru_scan_backward launches, each "
+                  f"{bwd['ms']:.6f} ms in phase 3), peak "
+                  f"{peak / 2**30:.3f} GiB")
     done("26 cut-depth train")
 
     # -- 27. train steps replayed on the CPU ---------------------------
@@ -3234,7 +3376,7 @@ def main() -> None:
         modality_train[arch], res = phase_train(
             torch, train_mod, kernels, cfg, TRAIN_BATCH, TRAIN_SEQ,
             TRAIN_STEPS, {"gradnorm_sigma": 1, "flash_attention": 0,
-                          "lru_scan": 0}, arch)
+                          "lru_scan": 0, "lru_scan_backward": 0}, arch)
         check(res.n_params == n_params, f"{arch}: {res.n_params:,} params")
         del res
         profile_train_step(torch, train_mod, cfg, arch, TRAIN_BATCH,
@@ -3357,6 +3499,19 @@ def main() -> None:
               "src/repro/kernels/lru_scan.py:70",
               cut_launches[RGEMMA]["lru_scan"],
               scan_train_recs[SCAN_TRAIN[1]]),
+        # the scan's gradient: no Pallas kernel of its own (the reference
+        # trains through jax.lax.associative_scan); the Pallas scan whose
+        # op's gradient it is
+        entry(f"lru_scan_backward@train-{MAMBA}",
+              "src/repro_torch/kernels/csrc/lru_scan.cu",
+              "src/repro/kernels/lru_scan.py:70",
+              cut_launches[MAMBA]["lru_scan_backward"],
+              scan_bwd_recs[SCAN_TRAIN[0]]),
+        entry(f"lru_scan_backward@train-{RGEMMA}",
+              "src/repro_torch/kernels/csrc/lru_scan.cu",
+              "src/repro/kernels/lru_scan.py:70",
+              cut_launches[RGEMMA]["lru_scan_backward"],
+              scan_bwd_recs[SCAN_TRAIN[1]]),
         # the vlm and audio paths, each with its own run's launches
         entry(f"flash_attention@serve-{QWEN[0]}", sm90_src, flash_src,
               modality_serve[QWEN[0]]["flash_attention"],

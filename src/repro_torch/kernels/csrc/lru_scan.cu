@@ -1,4 +1,5 @@
-// Linear-recurrence scan h_t = a_t * h_{t-1} + b_t, for Hopper.
+// Linear-recurrence scan h_t = a_t * h_{t-1} + b_t and its gradient, for
+// Hopper.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/lru_scan.py::lru_scan
 // (_scan_kernel): over (B, S, C) tensors, from h_{-1} = 0, with an fp32
@@ -67,11 +68,63 @@
 //     registers.
 // Inputs are fp32 or bf16 (read as bf16, computed in fp32); output fp32.
 //
+// The gradient (lru_scan_backward_kernel).  It replaces no Pallas kernel:
+// the reference trains through jax.lax.associative_scan
+// (src/repro/models/ssm.py::_scan_assoc, src/repro/models/rglru.py), and
+// its Pallas scan has no custom_vjp.  It is the port's gradient of the
+// scan above, held against jax.vjp of the reference's scan on the CPU
+// (tests/test_torch_scan_backward.py).  Given a, h and gbar = dL/dh it
+// computes, for each (batch, channel),
+//   g_t = gbar_t + a_{t+1} g_{t+1}   (a_S = 0),
+//   dL/db_t = g_t,   dL/da_t = g_t h_{t-1}   (h_{-1} = 0: dL/da_0 = 0).
+// Three flops per element against 5 elements moved (a, gbar and h read
+// once, both gradients written once in fp32): bound by bytes, 20 B an
+// element with fp32 a and 18 B with bf16 a.  At falcon-mamba-7b's train
+// shape (8, 512, 131072) that is 10.74 GB, 3.205 ms at 3.35 TB/s; at
+// recurrentgemma-9b's (8, 512, 4096) 0.100 ms.
+// Design: the forward's schedule walked backwards in time, in one pass.
+//   - The adjoint is the same recurrence in reversed index i = S - 1 - t:
+//     gates a_{S-i} (0 at i = 0) and inputs gbar_{S-1-i}.  A block owns
+//     32 channels of one batch row, walks i in chunks of L = W * P steps
+//     counted from t = S - 1, each warp scans its P steps into (prod a,
+//     g_end), the W aggregates are folded in order through the same
+//     double-buffered shared memory, and the fix-up runs each segment
+//     once more from the carry into it.  Every fmaf is the forward's on
+//     the reversed sequence, so g equals the forward kernel run on
+//     time-reversed copies of gbar and of a shifted by one step, bit for
+//     bit (the route this kernel replaced: two flipped copies, a zero
+//     fill, the forward launch, a flip back and a product).
+//   - The a a step needs is the one at t + 1 and its h the one at t - 1:
+//     per-lane loads one row off the segment, like every load here, so
+//     they cost no alignment.  The a and gbar of the next chunk are
+//     prefetched as in the forward; the P values of h are issued before
+//     the chunk's barrier and fold, so they arrive under the fold, and
+//     are used only in the fix-up.
+//   - dL/da is a separate fp32 multiply of g by h (__fmul_rn, never
+//     folded into an fma), and dL/da_0 is stored as 0, as the product of
+//     the replaced route gave.
+//   - No flipped copy, no zero fill, no second kernel: 20 B an element
+//     against about 14 passes over a (B, S, C) fp32 tensor before.
+//   - The register budget: 512 threads leave 128 registers a thread, and
+//     5P = 80 values are live across the fold (the forward's 4P take it
+//     to 100).  Each step's bound check is p < rem, with rem the steps
+//     left in the sequence from the segment's first (0 for a lane past
+//     the last channel), computed once a segment: both instances then
+//     fit 128 registers with no spill.  Measured on an H100 80GB HBM3 at
+//     700 W (`python3 tools/scan_backward_variants.py`, the same bits in
+//     every variant): checked per step as live && i0 + p < seq, the fp32
+//     instance spills 4 bytes and takes 3-4 % longer at mamba's train
+//     shape; with rem clamped to a 32-bit int, 2-3 % longer in fp32 (1 %
+//     shorter with bf16 a); with h copied into shared memory by cp.async
+//     instead of registers, a tie in fp32 and 3-4 % longer with bf16 a.
+//
 // Interface.  Plain C entry points for ctypes: device pointers and the
 // CUDA stream arrive as void*, sizes as int64.  Each returns the result
 // of cudaGetLastError() after its launch (0 = success), or
 // cudaErrorInvalidConfiguration for a grid past 2^31 - 1 blocks; it
-// allocates nothing and does not synchronize.
+// allocates nothing and does not synchronize.  The backward's entry
+// points are named after the dtype of a; h, gbar and both gradients are
+// fp32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -176,6 +229,135 @@ __global__ void __launch_bounds__(W * kTile)
   }
 }
 
+// The adjoint's segment of P reversed steps from i0 into registers:
+// reversed step i is time step t = S - 1 - i, with the gate a_{t+1} (0 at
+// i = 0, where t + 1 = S) and the input gbar_t; past the start of the
+// sequence (i >= S), or for a lane past the last channel, the identity
+// (1, 0).  Pointers step back one row a step and are read only in range.
+template <typename T, int P>
+__device__ __forceinline__ void load_segment_rev(const T* __restrict__ a,
+                                                 const float* __restrict__ g,
+                                                 int64_t i0, int64_t seq,
+                                                 int64_t channels, bool live,
+                                                 float (&av)[P],
+                                                 float (&gv)[P]) {
+  const int64_t t0 = seq - 1 - i0;
+  const int64_t rem = live ? seq - i0 : 0;
+  a += (t0 + 1) * channels;
+  g += t0 * channels;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const bool ok = p < rem;
+    av[p] = ok ? (i0 + p > 0 ? to_float(*a) : 0.0f) : 1.0f;
+    gv[p] = ok ? *g : 0.0f;
+    a -= channels;
+    g -= channels;
+  }
+}
+
+// h_{t-1} for the segment's P reversed steps from i0 (0 where t = 0 or
+// past the start).
+template <int P>
+__device__ __forceinline__ void load_h_rev(const float* __restrict__ h,
+                                           int64_t i0, int64_t seq,
+                                           int64_t channels, bool live,
+                                           float (&hv)[P]) {
+  const int64_t rem = live ? seq - 1 - i0 : 0;
+  h += (seq - 2 - i0) * channels;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    hv[p] = p < rem ? *h : 0.0f;
+    h -= channels;
+  }
+}
+
+// Reversed chunk k: prefetch chunk k+1 into (an, gn), scan (av, gv) from
+// 0, issue this segment's h loads, fold the W aggregates from `carry`
+// (updated to the carry out of chunk k), and store g and g * h from the
+// carry into this warp's segment.  The scan, fold and fix-up are
+// scan_chunk's, operation for operation.
+template <typename T, int W, int P>
+__device__ __forceinline__ void adjoint_chunk(
+    const T* __restrict__ a, const float* __restrict__ gbar,
+    const float* __restrict__ h, float* __restrict__ grad_a,
+    float* __restrict__ grad_b, int64_t k, int64_t chunks, int64_t seq,
+    int64_t channels, bool live, int warp, int lane, float& carry,
+    float (&av)[P], float (&gv)[P], float (&an)[P], float (&gn)[P],
+    float2 (*agg)[kTile]) {
+  constexpr int L = W * P;
+  const int64_t i0 = k * L + static_cast<int64_t>(warp) * P;
+  if (k + 1 < chunks)
+    load_segment_rev<T, P>(a, gbar, i0 + L, seq, channels, live, an, gn);
+  float prod = 1.0f, gend = 0.0f;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    gend = fmaf(av[p], gend, gv[p]);
+    prod *= av[p];
+  }
+  agg[warp][lane] = make_float2(prod, gend);
+  float hv[P];
+  load_h_rev<P>(h, i0, seq, channels, live, hv);
+  __syncthreads();
+  float x = carry;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    if (j == warp) x = carry;
+    const float2 s = agg[j][lane];
+    carry = fmaf(s.x, carry, s.y);
+  }
+  const int64_t t0 = seq - 1 - i0;
+  const int64_t rem = live ? seq - i0 : 0;
+  float* ob = grad_b + t0 * channels;
+  float* oa = grad_a + t0 * channels;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    x = fmaf(av[p], x, gv[p]);
+    if (p < rem) {
+      *ob = x;
+      *oa = p < rem - 1 ? __fmul_rn(x, hv[p]) : 0.0f;
+    }
+    ob -= channels;
+    oa -= channels;
+  }
+}
+
+template <typename T, int W, int P>
+__global__ void __launch_bounds__(W * kTile)
+    lru_scan_backward_kernel(const T* __restrict__ a,
+                             const float* __restrict__ h,
+                             const float* __restrict__ gbar,
+                             float* __restrict__ grad_a,
+                             float* __restrict__ grad_b, int64_t seq,
+                             int64_t channels, int64_t tiles) {
+  constexpr int L = W * P;
+  __shared__ float2 agg[2][W][kTile];
+  const int lane = threadIdx.x % kTile;
+  const int warp = threadIdx.x / kTile;
+  const int64_t row = blockIdx.x / tiles;
+  const int64_t c = (blockIdx.x % tiles) * kTile + lane;
+  const bool live = c < channels;
+  const int64_t base = row * seq * channels + (live ? c : 0);
+  a += base;
+  h += base;
+  gbar += base;
+  grad_a += base;
+  grad_b += base;
+  const int64_t chunks = (seq + L - 1) / L;
+  float a0[P], g0[P], a1[P], g1[P];
+  load_segment_rev<T, P>(a, gbar, static_cast<int64_t>(warp) * P, seq,
+                         channels, live, a0, g0);
+  float carry = 0.0f;
+  for (int64_t k = 0; k < chunks; k += 2) {
+    adjoint_chunk<T, W, P>(a, gbar, h, grad_a, grad_b, k, chunks, seq,
+                           channels, live, warp, lane, carry, a0, g0, a1, g1,
+                           agg[0]);
+    if (k + 1 < chunks)
+      adjoint_chunk<T, W, P>(a, gbar, h, grad_a, grad_b, k + 1, chunks, seq,
+                             channels, live, warp, lane, carry, a1, g1, a0,
+                             g0, agg[1]);
+  }
+}
+
 template <typename T>
 int launch(const void* a, const void* b, void* h, int64_t batch, int64_t seq,
            int64_t channels, void* stream) {
@@ -191,6 +373,23 @@ int launch(const void* a, const void* b, void* h, int64_t batch, int64_t seq,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_backward(const void* a, const void* h, const void* gbar,
+                    void* grad_a, void* grad_b, int64_t batch, int64_t seq,
+                    int64_t channels, void* stream) {
+  const int64_t tiles = (channels + kTile - 1) / kTile;
+  const int64_t blocks = batch * tiles;
+  if (blocks > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  lru_scan_backward_kernel<T, kWarps, kSteps>
+      <<<static_cast<unsigned>(blocks), kWarps * kTile, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(a), static_cast<const float*>(h),
+          static_cast<const float*>(gbar), static_cast<float*>(grad_a),
+          static_cast<float*>(grad_b), seq, channels, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int repro_lru_scan_f32(const void* a, const void* b, void* h,
@@ -203,4 +402,22 @@ extern "C" int repro_lru_scan_bf16(const void* a, const void* b, void* h,
                                    int64_t batch, int64_t seq,
                                    int64_t channels, void* stream) {
   return launch<__nv_bfloat16>(a, b, h, batch, seq, channels, stream);
+}
+
+extern "C" int repro_lru_scan_backward_f32(const void* a, const void* h,
+                                           const void* gbar, void* grad_a,
+                                           void* grad_b, int64_t batch,
+                                           int64_t seq, int64_t channels,
+                                           void* stream) {
+  return launch_backward<float>(a, h, gbar, grad_a, grad_b, batch, seq,
+                                channels, stream);
+}
+
+extern "C" int repro_lru_scan_backward_bf16(const void* a, const void* h,
+                                            const void* gbar, void* grad_a,
+                                            void* grad_b, int64_t batch,
+                                            int64_t seq, int64_t channels,
+                                            void* stream) {
+  return launch_backward<__nv_bfloat16>(a, h, gbar, grad_a, grad_b, batch,
+                                        seq, channels, stream);
 }

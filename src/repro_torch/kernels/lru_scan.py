@@ -26,12 +26,17 @@ DTensors ``lru_scan`` runs it on each shard's channels (``local.py``):
 a batch or channel sharding is kept, a sequence one gathered first.
 The gradient is the adjoint recurrence
 g_t = gbar_t + a_{t+1} g_{t+1} (a_S = 0), itself a linear recurrence run
-backwards in time: the backward pass launches the same kernel on
-time-reversed contiguous copies of gbar and of a shifted by one step,
-then grad_b = g and grad_a_t = g_t h_{t-1} (h_{-1} = 0).  That is the
-gradient JAX's autodiff takes of the reference's associative scan.  A
-train step with remat launches the kernel three times a scan layer: the
-forward, its recompute and the backward.
+backwards in time, with grad_b = g and grad_a_t = g_t h_{t-1}
+(h_{-1} = 0): the gradient JAX's autodiff takes of the reference's
+associative scan.  It is a second custom op,
+``repro_torch::lru_scan_backward`` (``lru_scan_backward_op``): on CUDA
+tensors one launch of the backward kernel of ``csrc/lru_scan.cu``, the
+forward's schedule walked from t = S - 1, which reads a, h and gbar
+once and writes both gradients once (20 B an element with fp32 a); on
+CPU tensors ``lru_scan_backward_plain``, the sequential loop.  The
+kernel's g is the forward kernel's on time-reversed copies bit for bit.
+A train step with remat launches ``lru_scan`` twice a scan layer (the
+forward and its recompute) and ``lru_scan_backward`` once.
 """
 from __future__ import annotations
 
@@ -57,7 +62,7 @@ NVCC_FLAGS = nvcc.BASE_FLAGS
 TILE, WARPS, STEPS = 32, 16, 16
 
 #: kernel launches; bumped only where the kernel launches.
-LAUNCHES = {"lru_scan": 0}
+LAUNCHES = {"lru_scan": 0, "lru_scan_backward": 0}
 
 
 def reset_launch_counts() -> None:
@@ -80,6 +85,27 @@ def lru_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         h = a[:, t] * h + b[:, t]
         out.append(h)
     return torch.stack(out, dim=1)
+
+
+def lru_scan_backward_plain(a: torch.Tensor, h: torch.Tensor,
+                            gbar: torch.Tensor) -> tuple:
+    """(dL/da, dL/db) of h = lru_scan(a, b) in fp32, by the sequential
+    adjoint loop: g = a_{t+1} * g + gbar_t from t = S - 1 down (a_S = 0),
+    dL/db = g, dL/da_t = g_t h_{t-1} (h_{-1} = 0).  a, h, gbar: (B, S, C)
+    -> two new (B, S, C) float32 tensors."""
+    a, h, gbar = a.float(), h.float(), gbar.float()
+    S = a.shape[1]
+    if S == 0:
+        return torch.zeros_like(a), torch.zeros_like(a)
+    g = gbar[:, S - 1]
+    out = [g]
+    for t in range(S - 2, -1, -1):
+        g = a[:, t + 1] * g + gbar[:, t]
+        out.append(g)
+    grad_b = torch.stack(out[::-1], dim=1)
+    grad_a = torch.zeros_like(grad_b)
+    grad_a[:, 1:] = grad_b[:, 1:] * h[:, :S - 1]
+    return grad_a, grad_b
 
 
 # ---------------------------------------------------------------- build
@@ -105,34 +131,52 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.repro_lru_scan_f32, lib.repro_lru_scan_bf16):
             fn.argtypes = [p, p, p, i64, i64, i64, p]
             fn.restype = ctypes.c_int
+        for fn in (lib.repro_lru_scan_backward_f32,
+                   lib.repro_lru_scan_backward_bf16):
+            fn.argtypes = [p, p, p, p, p, i64, i64, i64, p]
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
 # -------------------------------------------------------------- wrapper
 
-def _check(a: torch.Tensor, b: torch.Tensor) -> None:
-    for name, x in (("a", a), ("b", b)):
+_GATES = (torch.float32, torch.bfloat16)  # the dtypes of a (and of b)
+
+
+def _same_shape(**xs: torch.Tensor) -> None:
+    shapes = [tuple(x.shape) for x in xs.values()]
+    if any(shape != shapes[0] for shape in shapes[1:]):  # (SymInts too)
+        raise ValueError(f"{', '.join(xs)} must have one (B, S, C) shape, "
+                         f"got {shapes}")
+
+
+def _check_each(kernel: str, **xs: tuple) -> None:
+    """Each ``name=(tensor, dtypes it may have)`` as ``kernel`` takes it:
+    a contiguous 3-D CUDA tensor, all of one shape and device."""
+    for name, (x, dtypes) in xs.items():
         if x.device.type != "cuda":
-            raise ValueError(f"{name}: the scan kernel takes CUDA tensors "
+            raise ValueError(f"{name}: the {kernel} takes CUDA tensors "
                              f"(plain version: CPU tensors), got {x.device}")
-        if x.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{name}: the scan kernel takes float32 or "
-                            f"bfloat16, got {x.dtype}")
+        if x.dtype not in dtypes:
+            raise TypeError(f"{name}: the {kernel} takes "
+                            f"{' or '.join(map(str, dtypes))}, got {x.dtype}")
         if x.dim() != 3:
             raise ValueError(f"{name}: expected a 3-D (B, S, C) tensor, "
                              f"got shape {tuple(x.shape)}")
         if not x.is_contiguous():
-            raise ValueError(f"{name}: the scan kernel takes a contiguous "
+            raise ValueError(f"{name}: the {kernel} takes a contiguous "
                              "tensor")
-    if a.shape != b.shape:
-        raise ValueError(f"a and b must have one (B, S, C) shape, got "
-                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    _same_shape(**{name: x for name, (x, _) in xs.items()})
+    if len({x.device for x, _ in xs.values()}) > 1:
+        raise ValueError(f"{', '.join(xs)} must be on one device")
+
+
+def _check(a: torch.Tensor, b: torch.Tensor) -> None:
+    _check_each("scan kernel", a=(a, _GATES), b=(b, _GATES))
     if a.dtype != b.dtype:
         raise TypeError(f"a and b must share a dtype, got {a.dtype} and "
                         f"{b.dtype}")
-    if a.device != b.device:
-        raise ValueError("a and b must be on one device")
 
 
 @torch.library.custom_op("repro_torch::lru_scan", mutates_args=())
@@ -160,9 +204,7 @@ def lru_scan_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 @lru_scan_op.register_fake
 def _lru_scan_fake(a, b):
     local.check_fake("scan", a, b)
-    if a.shape != b.shape:
-        raise ValueError(f"a and b must have one (B, S, C) shape, got "
-                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    _same_shape(a=a, b=b)
     return a.new_empty(a.shape, dtype=torch.float32)
 
 
@@ -188,22 +230,49 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------- gradient
 
-def lru_scan_backward(a: torch.Tensor, h: torch.Tensor, gbar: torch.Tensor
-                      ) -> tuple:
-    """(dL/da, dL/db) in fp32 of h = lru_scan(a, b), given h and the
-    incoming gradient gbar = dL/dh: the adjoint g_t = gbar_t + a_{t+1}
-    g_{t+1} (a_S = 0) is ``lru_scan`` on time-reversed contiguous copies
-    of gbar and of a shifted by one step (one kernel launch on CUDA
-    tensors), then dL/db = g and dL/da_t = g_t h_{t-1} (h_{-1} = 0)."""
-    S = a.shape[1]
-    # reversed step i is step S-1-i: its gate is a_{S-i} (none at i = 0)
-    a_rev = torch.zeros(a.shape, dtype=torch.float32, device=a.device)
-    a_rev[:, 1:] = a[:, 1:].flip(1)
-    g = lru_scan(a_rev, gbar.float().flip(1)).flip(1)
-    del a_rev
-    grad_a = torch.zeros_like(g)
-    grad_a[:, 1:] = g[:, 1:] * h[:, :S - 1]
-    return grad_a, g
+@torch.library.custom_op("repro_torch::lru_scan_backward", mutates_args=())
+def lru_scan_backward_op(a: torch.Tensor, h: torch.Tensor,
+                         gbar: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dL/da, dL/db), both new (B, S, C) float32, of h = lru_scan(a, b)
+    given a, h and gbar = dL/dh; CPU tensors take the plain version, CUDA
+    tensors launch the backward kernel."""
+    if all(x.device.type == "cpu" for x in (a, h, gbar)):
+        return lru_scan_backward_plain(a, h, gbar)
+    f32 = (torch.float32,)
+    _check_each("scan's backward kernel", a=(a, _GATES), h=(h, f32),
+                gbar=(gbar, f32))
+    B, S, C = a.shape
+    grad_a = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    grad_b = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    if a.numel():
+        lib = _lib()
+        fn = (lib.repro_lru_scan_backward_f32 if a.dtype == torch.float32
+              else lib.repro_lru_scan_backward_bf16)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            nvcc.raise_on(fn(a.data_ptr(), h.data_ptr(), gbar.data_ptr(),
+                             grad_a.data_ptr(), grad_b.data_ptr(), B, S, C,
+                             stream), "lru_scan_backward")
+        LAUNCHES["lru_scan_backward"] += 1
+    return grad_a, grad_b
+
+
+@lru_scan_backward_op.register_fake
+def _lru_scan_backward_fake(a, h, gbar):
+    local.check_fake("scan's backward", a, h, gbar)
+    _same_shape(a=a, h=h, gbar=gbar)
+    return (a.new_empty(a.shape, dtype=torch.float32),
+            a.new_empty(a.shape, dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.lru_scan_backward)
+def _lru_scan_backward_flops(a_shape, h_shape, gbar_shape, *args,
+                             out_shape=None, **kwargs) -> int:
+    """The adjoint's multiply and add, and dL/da's multiply, per step and
+    channel."""
+    B, S, C = a_shape
+    return 3 * B * S * C
 
 
 def _save_for_backward(ctx, inputs, output) -> None:
@@ -214,7 +283,9 @@ def _save_for_backward(ctx, inputs, output) -> None:
 
 def _backward(ctx, gbar: torch.Tensor):
     a, h = ctx.saved_tensors
-    grad_a, grad_b = lru_scan_backward(a, h, gbar)
+    # autograd may hand gbar over expanded or strided (the gradient of
+    # h.sum() is an expanded scalar); the kernel reads a contiguous one
+    grad_a, grad_b = lru_scan_backward_op(a, h, gbar.contiguous())
     return grad_a.to(ctx.dtypes[0]), grad_b.to(ctx.dtypes[1])
 
 

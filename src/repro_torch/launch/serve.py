@@ -65,8 +65,10 @@ class ServeResult:
 
 
 def _launch_counts() -> Dict[str, int]:
-    """The serving path's kernels and their launch counts so far."""
-    return {**flash_attention.LAUNCHES, **lru_scan.LAUNCHES}
+    """The serving path's kernels and their launch counts so far (serving
+    runs no backward, so the scan's gradient kernel is not among them)."""
+    return {**flash_attention.LAUNCHES,
+            "lru_scan": lru_scan.LAUNCHES["lru_scan"]}
 
 
 def _diff(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:

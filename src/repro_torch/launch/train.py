@@ -23,8 +23,9 @@ sharding rules, and each step runs under the activation constrainer
 Each step reads its metrics back, so its wall time ends with the
 device's work.  Per step the result holds the kernels' launches: with
 FEEL one ``gradnorm_sigma`` (sigma), none of flash attention (train
-attention is plain torch), and three scans a recurrent layer (forward,
-its recompute under remat, backward).
+attention is plain torch), and a recurrent layer's two ``lru_scan``
+(the forward and its recompute under remat) and one
+``lru_scan_backward``.
 """
 from __future__ import annotations
 
@@ -69,7 +70,8 @@ def launch_counts() -> Dict[str, int]:
     """The train path's kernels and their launch counts so far."""
     return {"gradnorm_sigma": gradnorm.LAUNCHES["gradnorm_sigma"],
             "flash_attention": flash_attention.LAUNCHES["flash_attention"],
-            "lru_scan": lru_scan.LAUNCHES["lru_scan"]}
+            "lru_scan": lru_scan.LAUNCHES["lru_scan"],
+            "lru_scan_backward": lru_scan.LAUNCHES["lru_scan_backward"]}
 
 
 def synth_batch(cfg: ArchConfig, generator: torch.Generator, batch: int,

@@ -14,7 +14,8 @@ the output projection.  Prefill runs the diagonal recurrence over
 (``kernels.ops.lru_scan``) where the reference runs
 ``jax.lax.associative_scan``, as the Mamba mixer does (``ssm.py``);
 the ``train`` mode runs it through the same scan, whose backward pass
-is the kernel run backwards in time, and keeps no cache; decode is the
+is the scan's backward kernel, walked backwards in time, and keeps no
+cache; decode is the
 single-step recurrence in eager torch and launches no kernel of the
 port.
 

@@ -10,8 +10,8 @@ into channels) where the reference runs ``jax.lax.associative_scan``;
 the two compute the same h.  The ``train`` mode builds the same planes
 out of place (prefill's in-place ``exp_`` and ``mul_`` would overwrite
 what autograd saves) and runs the recurrence through the same scan,
-whose backward pass is the kernel run backwards in time; it keeps no
-cache.  Decode is the
+whose backward pass is the scan's backward kernel, walked backwards in
+time; it keeps no cache.  Decode is the
 single-step recurrence on the carried (conv_state, ssm_state) in eager
 torch, and launches no kernel of the port.
 

@@ -12,9 +12,11 @@ bf16, the reference's kernel tolerances (tests/test_kernels.py); the
 linear-recurrence scan at atol/rtol 1e-5 (the kernel's fused
 multiply-add against the plain version's multiply, then add), the
 reference's scan tolerance, and so the RG-LRU mixer through it against
-the same mixer on the CPU; the scan's gradient (the same kernel run
-backwards in time) at atol/rtol 1e-5 against autograd through the plain
-loop on the card; whole FEEL train steps of the llama, mamba, qwen2-vl
+the same mixer on the CPU; the scan's gradient (its backward kernel,
+walked backwards in time) at atol/rtol 1e-5 against autograd through
+the plain loop on the card, and bit for bit against the route it
+replaced (the forward kernel on time-reversed copies, then the
+product); whole FEEL train steps of the llama, mamba, qwen2-vl
 and musicgen smoke decoders in fp32 against the same steps on the CPU
 by the replay rule (``repro_torch/launch/replay.py``); the vlm and
 audio smoke decoders' prefill and decode in fp32 against the CPU at the
@@ -691,6 +693,18 @@ def test_cuda_bf16_build_has_no_spill_or_serialised_wgmma(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_scan_build_has_no_spill(cuda):
+    """ptxas's report of the scan build: the forward and backward
+    kernels, fp32 and bf16 each, without a spilled byte (the backward's
+    5P live values fill the 128 registers that 512 threads leave)."""
+    entries = nvcc.ptxas_report(lru_scan.build().log)
+    assert sorted("backward" in e.name for e in entries) == [False, False,
+                                                             True, True]
+    for e in entries:
+        assert e.spill_stores == 0 and e.spill_loads == 0, e
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-medium"])
 def test_cuda_modality_smoke_decoders_match_the_cpu(cuda, arch):
     """The vlm (M-RoPE positions whose three rows differ) and audio (a
@@ -858,7 +872,7 @@ def test_cuda_lru_scan_matches_plain(cuda, b, s, c, dtype):
     lru_scan.reset_launch_counts()
     got = ops.lru_scan(a, bb)
     torch.cuda.synchronize()
-    assert lru_scan.LAUNCHES == {"lru_scan": 1}
+    assert lru_scan.LAUNCHES == {"lru_scan": 1, "lru_scan_backward": 0}
     assert got.dtype == torch.float32 and got.shape == (b, s, c)
     torch.testing.assert_close(got, lru_scan.lru_scan_plain(a, bb),
                                atol=1e-5, rtol=1e-5)
@@ -875,7 +889,7 @@ def test_cuda_lru_scan_at_the_recurrentgemma_shape(cuda):
     got = ops.lru_scan(a, bb)
     want = lru_scan.lru_scan_plain(a, bb)
     torch.cuda.synchronize()
-    assert lru_scan.LAUNCHES == {"lru_scan": 1}
+    assert lru_scan.LAUNCHES == {"lru_scan": 1, "lru_scan_backward": 0}
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
@@ -903,8 +917,8 @@ def test_cuda_rglru_mixer_prefill_matches_the_cpu(cuda):
             y1 = rglru.rglru_mixer(cfg, p, x[:, :1].to(dev), "decode", cache)
         out[str(dev)] = (y.cpu(), y1.cpu(), cache["h"].cpu(),
                          dict(lru_scan.LAUNCHES))
-    assert out["cpu"][3] == {"lru_scan": 0}
-    assert out["cuda"][3] == {"lru_scan": 1}
+    assert out["cpu"][3] == {"lru_scan": 0, "lru_scan_backward": 0}
+    assert out["cuda"][3] == {"lru_scan": 1, "lru_scan_backward": 0}
     for got, want in zip(out["cuda"][:3], out["cpu"][:3]):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
@@ -1001,7 +1015,7 @@ def test_cuda_lru_scan_at_the_seams(cuda, shape, offset, dtype):
     lru_scan.reset_launch_counts()
     got = lru_scan.lru_scan(a, bb)
     torch.cuda.synchronize()
-    assert lru_scan.LAUNCHES == {"lru_scan": 1}
+    assert lru_scan.LAUNCHES == {"lru_scan": 1, "lru_scan_backward": 0}
     torch.testing.assert_close(got, lru_scan.lru_scan_plain(a, bb),
                                atol=1e-5, rtol=1e-5)
     zero = lru_scan.lru_scan(torch.zeros_like(a), bb)
@@ -1053,10 +1067,10 @@ def test_cuda_lru_scan_rejects_what_the_kernel_does_not_take(cuda):
         lru_scan.lru_scan(a, bb[:, :32].contiguous())
     with pytest.raises(ValueError, match="CUDA"):
         lru_scan.lru_scan(a, bb.cpu())
-    assert lru_scan.LAUNCHES == {"lru_scan": 0}
+    assert lru_scan.LAUNCHES == {"lru_scan": 0, "lru_scan_backward": 0}
     empty = torch.empty((2, 0, 32), device=cuda)
     assert lru_scan.lru_scan(empty, empty).shape == (2, 0, 32)
-    assert lru_scan.LAUNCHES == {"lru_scan": 0}
+    assert lru_scan.LAUNCHES == {"lru_scan": 0, "lru_scan_backward": 0}
 
 
 # ------------------------------------------------------------ training
@@ -1067,8 +1081,8 @@ def test_cuda_lru_scan_rejects_what_the_kernel_does_not_take(cuda):
                                          ((3, 300, 130), "uniform"),
                                          ((2, 2048, 256), "near1")])
 def test_cuda_scan_gradient_matches_plain(cuda, shape, gates):
-    """``ops.lru_scan`` on the card (forward and backward through
-    the kernel, one launch each) against autograd through the plain loop
+    """``ops.lru_scan`` on the card (the forward kernel and the backward
+    kernel, one launch each) against autograd through the plain loop
     on the card; gates in (0.999, 1) held as the forward is."""
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
     lo = 0.999 if gates == "near1" else 0.0
@@ -1080,13 +1094,162 @@ def test_cuda_scan_gradient_matches_plain(cuda, shape, gates):
     h = ops.lru_scan(a1, b1)
     ga, gb = torch.autograd.grad((h * w).sum(), (a1, b1))
     torch.cuda.synchronize()
-    assert lru_scan.LAUNCHES == {"lru_scan": 2}
+    assert lru_scan.LAUNCHES == {"lru_scan": 1, "lru_scan_backward": 1}
     a2, b2 = a.clone().requires_grad_(), b.clone().requires_grad_()
     want = torch.autograd.grad((lru_scan.lru_scan_plain(a2, b2) * w).sum(),
                                (a2, b2))
     for got, ref in ((ga, want[0]), (gb, want[1])):
         atol = 1e-5 * (float(ref.abs().max()) if gates == "near1" else 1.0)
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=atol)
+
+
+def _scan_backward_parent(a, h, gbar):
+    """The route the backward kernel replaced: the forward kernel on
+    time-reversed contiguous copies of gbar and of a shifted by one step,
+    flipped back, then dL/da = g h_{t-1} (h_{-1} = 0)."""
+    S = a.shape[1]
+    a_rev = torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+    a_rev[:, 1:] = a[:, 1:].flip(1)
+    g = lru_scan.lru_scan(a_rev, gbar.float().flip(1)).flip(1)
+    grad_a = torch.zeros_like(g)
+    grad_a[:, 1:] = g[:, 1:] * h[:, :S - 1]
+    return grad_a, g
+
+
+def _backward_inputs(seed, shape, offset_bytes, device, dtype,
+                     gates=(0.3, 0.999)):
+    """a (a view ``offset_bytes`` into its buffer), h = lru_scan(a, b) and
+    gbar, an fp32 view as far off 16 bytes where that is whole elements."""
+    a, b = _ab_view(seed, shape, offset_bytes, device, dtype, gates)
+    h = lru_scan.lru_scan(a, b)
+    off = offset_bytes // 4
+    gbar = _normal(seed + 1, (int(np.prod(shape)) + off,), device)[off:]
+    return a, h, gbar.view(shape)
+
+
+# the seams, C of 1 and 130 and a batch past 65535 in both dtypes, and a
+# views 4 (fp32 and bf16) and 2 (bf16) bytes past a 16-byte boundary
+SCAN_BACKWARD_CASES = [(shape, off, dt) for shape, off in SCAN_SEAMS
+                       for dt in (torch.float32, torch.bfloat16)] + [
+    ((2, 300, 130), 2, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset,dtype", SCAN_BACKWARD_CASES)
+def test_cuda_scan_backward_is_the_parent_route_bit_for_bit(cuda, shape,
+                                                            offset, dtype):
+    """The backward kernel's (dL/da, dL/db) equal the route it replaced
+    bit for bit: the same fused multiply-adds at the same seams, bf16 a
+    widened exactly; one launch; and within 1e-5 of the plain version."""
+    a, h, gbar = _backward_inputs(sum(shape) + offset, shape, offset, cuda,
+                                  dtype)
+    if offset:
+        assert a.is_contiguous() and a.data_ptr() % 16 == offset
+    lru_scan.reset_launch_counts()
+    got = lru_scan.lru_scan_backward_op(a, h, gbar)
+    torch.cuda.synchronize()
+    assert lru_scan.LAUNCHES == {"lru_scan": 0, "lru_scan_backward": 1}
+    want = _scan_backward_parent(a, h, gbar)
+    plain = lru_scan.lru_scan_backward_plain(a, h, gbar)
+    for g, w, p in zip(got, want, plain):
+        assert g.dtype == torch.float32 and g.shape == shape
+        assert torch.equal(g, w)
+        torch.testing.assert_close(g, p, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_scan_backward_with_gates_near_1(cuda, dtype):
+    """a in (0.999, 1) over S = 2048: the parent route's bits, and the
+    plain loop at rtol 1e-5 with an atol of 1e-5 times the largest |g|
+    (the forward's argument, tests/test_torch_scan_split.py)."""
+    a, h, gbar = _backward_inputs(6, (2, 2048, 256), 0, cuda, dtype,
+                                  (0.999, 1.0))
+    got = lru_scan.lru_scan_backward_op(a, h, gbar)
+    want = _scan_backward_parent(a, h, gbar)
+    plain = lru_scan.lru_scan_backward_plain(a, h, gbar)
+    torch.cuda.synchronize()
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w)
+        torch.testing.assert_close(g, p, rtol=1e-5,
+                                   atol=1e-5 * float(p.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_scan_backward_past_2_31_bytes(cuda):
+    """Operands of 2,147,500,032 bytes each: 64-bit offsets in the
+    reversed walk, the parent route's bits."""
+    a, h, gbar = _backward_inputs(8, (1, 4096, 131073), 0, cuda,
+                                  torch.float32)
+    assert gbar.numel() * gbar.element_size() > 2 ** 31
+    got = lru_scan.lru_scan_backward_op(a, h, gbar)
+    want = _scan_backward_parent(a, h, gbar)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 300, 130), (8, 512, 4096)])
+def test_cuda_scan_backward_is_deterministic(cuda, shape):
+    """Two calls give the same bits."""
+    a, h, gbar = _backward_inputs(sum(shape), shape, 0, cuda, torch.float32)
+    first = lru_scan.lru_scan_backward_op(a, h, gbar)
+    second = lru_scan.lru_scan_backward_op(a, h, gbar)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["sum", "permuted"])
+def test_cuda_scan_gradient_with_a_strided_gbar(cuda, loss):
+    """autograd hands the backward a gbar that is not contiguous (the
+    gradient of h.sum() is expanded; of (h * w).sum() with a permuted w,
+    strided like w): the wrapper makes it contiguous, one backward
+    launch, the plain loop's gradients at 1e-5."""
+    shape = (3, 300, 130)
+    a, b = _ab(12, shape, cuda)
+    w = _normal(13, shape[::-1], cuda).permute(2, 1, 0)
+    assert not w.is_contiguous()
+
+    def run(scan):
+        a1, b1 = a.clone().requires_grad_(), b.clone().requires_grad_()
+        h = scan(a1, b1)
+        out = h.sum() if loss == "sum" else (h * w).sum()
+        return torch.autograd.grad(out, (a1, b1))
+
+    lru_scan.reset_launch_counts()
+    got = run(ops.lru_scan)
+    torch.cuda.synchronize()
+    assert lru_scan.LAUNCHES == {"lru_scan": 1, "lru_scan_backward": 1}
+    want = run(lru_scan.lru_scan_plain)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_backward_rejects_what_the_kernel_does_not_take(cuda):
+    a, h, gbar = _backward_inputs(9, (2, 64, 32), 0, cuda, torch.float32)
+    lru_scan.reset_launch_counts()
+    op = lru_scan.lru_scan_backward_op
+    with pytest.raises(ValueError, match="CUDA"):
+        op(a, h.cpu(), gbar)
+    with pytest.raises(TypeError):
+        op(a, h, gbar.int())
+    with pytest.raises(TypeError):
+        op(a, h, gbar.bfloat16())
+    with pytest.raises(ValueError, match="shape"):
+        op(a, h, gbar[:, :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        op(a, h, gbar.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="3-D"):
+        op(a[0], h[0], gbar[0])
+    assert lru_scan.LAUNCHES == {"lru_scan": 0, "lru_scan_backward": 0}
+    empty = torch.empty((2, 0, 32), device=cuda)
+    ga, gb = op(empty, empty, empty)
+    assert ga.shape == gb.shape == (2, 0, 32)
+    assert lru_scan.LAUNCHES == {"lru_scan": 0, "lru_scan_backward": 0}
 
 
 @pytest.mark.cuda
@@ -1098,8 +1261,9 @@ def test_cuda_feel_train_steps_match_the_cpu(cuda, arch):
     (``replay.replay_step``): loss, per-example loss and sigma at rtol
     1e-4, the selection equal or, within 10x the sigma error of a tie,
     taken from the card, gradients and params by the replay rule.  Each
-    card step launches the sigma kernel once, and the scan three times a
-    mamba layer (forward, its recompute under remat, backward)."""
+    card step launches the sigma kernel once, the scan twice a mamba
+    layer (forward, its recompute under remat) and the scan's backward
+    kernel once."""
     from repro_torch.configs import smoke_config
     from repro_torch.device import full_fp32
     from repro_torch.launch import replay, train
@@ -1117,7 +1281,8 @@ def test_cuda_feel_train_steps_match_the_cpu(cuda, arch):
                                             "adamw", 0.01)
             assert gradnorm.LAUNCHES["gradnorm_sigma"] == 1
             n_scan = cfg.n_layers if arch == "falcon-mamba-7b" else 0
-            assert lru_scan.LAUNCHES == {"lru_scan": 3 * n_scan}
+            assert lru_scan.LAUNCHES == {"lru_scan": 2 * n_scan,
+                                         "lru_scan_backward": n_scan}
             assert rep["selection_equal"] or rep["given"]
 
 

@@ -352,7 +352,7 @@ def test_serve_and_train_smoke_on_cpu(arch):
                         device="cpu")
     assert all(np.isfinite(out.losses)) and len(out.sigma_mean) == 2
     assert out.launches == [{"gradnorm_sigma": 0, "flash_attention": 0,
-                             "lru_scan": 0}] * 2
+                             "lru_scan": 0, "lru_scan_backward": 0}] * 2
     b = train_mod.synth_batch(cfg, torch.Generator().manual_seed(0), 4, 8,
                               4, True)
     if arch == AUDIO:

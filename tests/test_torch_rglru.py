@@ -124,7 +124,8 @@ def test_rglru_mixer_prefill_matches_reference(dtype, S):
     lru_scan.reset_launch_counts()
     y = rglru.rglru_mixer(cfg, _t_mixer(p, dtype),
                           torch.from_numpy(x).to(td), "prefill", cache)
-    assert lru_scan.LAUNCHES == {"lru_scan": 0}  # CPU: plain version
+    assert lru_scan.LAUNCHES == {"lru_scan": 0,
+                                 "lru_scan_backward": 0}  # CPU: plain version
     assert y.dtype == td and cache["h"].dtype == torch.float32
     _close(y, y_j, dtype, MIXER_TOL)
     _close(cache["conv"], c_j["conv"], dtype, MIXER_TOL)
@@ -368,7 +369,8 @@ def test_decoder_prefill_and_greedy_decode_match_reference(arch, S, steps,
     logits_t, cache_t = tm.make_prefill_step(cfg)(
         model, {"tokens": torch.from_numpy(toks).long()}, cache_t)
     # CPU: plain versions
-    assert lru_scan.LAUNCHES == {"lru_scan": 0}
+    assert lru_scan.LAUNCHES == {"lru_scan": 0,
+                                 "lru_scan_backward": 0}
     assert flash_attention.LAUNCHES == {"flash_attention": 0}
     _close(logits_t, logits_j, dtype)
     _hold_caches(cache_t, cache_j, dtype, S)

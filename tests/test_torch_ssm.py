@@ -89,7 +89,8 @@ def test_lru_scan_plain_matches_pallas_and_ref(b, s, c, dtype):
     lru_scan.reset_launch_counts()
     got_plain = lru_scan.lru_scan_plain(at, bt)
     got_ops = ops.lru_scan(at, bt)
-    assert lru_scan.LAUNCHES == {"lru_scan": 0}  # CPU: plain version
+    assert lru_scan.LAUNCHES == {"lru_scan": 0,
+                                 "lru_scan_backward": 0}  # CPU: plain version
     assert got_ops.dtype == torch.float32 and got_ops.shape == (b, s, c)
     np.testing.assert_array_equal(got_ops.numpy(), got_plain.numpy())
     for want in (j_lru_scan(aj, bj, interpret=True),
@@ -123,7 +124,8 @@ def test_lru_scan_on_other_devices_raises_and_never_counts():
         lru_scan.lru_scan(a, a)
     with pytest.raises(ValueError, match="CUDA"):
         lru_scan.lru_scan(torch.zeros((1, 4, 8)), a)  # one CPU, one not
-    assert lru_scan.LAUNCHES == {"lru_scan": 0}
+    assert lru_scan.LAUNCHES == {"lru_scan": 0,
+                                 "lru_scan_backward": 0}
     empty = ops.lru_scan(torch.zeros((2, 0, 3)), torch.zeros((2, 0, 3)))
     assert empty.shape == (2, 0, 3) and empty.dtype == torch.float32
 
@@ -330,7 +332,8 @@ def test_decoder_prefill_and_greedy_decode_match_reference(dtype):
     lru_scan.reset_launch_counts()
     logits_t, cache_t = tm.make_prefill_step(cfg)(
         model, {"tokens": torch.from_numpy(toks).long()}, cache_t)
-    assert lru_scan.LAUNCHES == {"lru_scan": 0}  # CPU: plain version
+    assert lru_scan.LAUNCHES == {"lru_scan": 0,
+                                 "lru_scan_backward": 0}  # CPU: plain version
     _close(logits_t, logits_j, dtype)
     for name in ("conv", "h"):
         _close(cache_t["body"]["pos0"][name],

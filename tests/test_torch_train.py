@@ -698,7 +698,7 @@ def test_train_run_counts_launches_and_takes_every_arch():
     assert len(res.losses) == len(res.step_s) == len(res.sigma_mean) == 2
     assert all(np.isfinite(res.losses)) and res.aux_loss[0] > 0
     assert res.launches == [{"gradnorm_sigma": 0, "flash_attention": 0,
-                             "lru_scan": 0}] * 2
+                             "lru_scan": 0, "lru_scan_backward": 0}] * 2
     cfg = train_mod.config_of("llama3.2-3b", full_100m=True)
     assert (cfg.n_layers, cfg.d_model, cfg.vocab, cfg.head_dim_) == (
         12, 768, 32000, 64)
